@@ -8,8 +8,10 @@ in random mode needs
 and this computes both from one read of x.
 
 On a CUDA tensor `fused_upscale_noise_2d` launches the hand-written kernel
-of csrc/upsample_noise.cu (one thread per output element; the source says
-what bounds it and what its design does about that). On a CPU tensor it
+of csrc/upsample_noise.cu (a block per tile of output rows of one plane,
+a thread per pair of columns, one Philox call per pair; the source says
+what bounds it and what its design does about that). The two outputs are
+the halves of one (2, B, C, H, W) buffer. On a CPU tensor it
 runs `fused_upscale_noise_2d_plain`, the same function in plain PyTorch:
 the upscale through ops/resize.py and the Box-Muller map of
 upsample_noise.py:84-89 over given 32-bit words. Where no words are given,
@@ -29,12 +31,15 @@ import functools
 import math
 from typing import Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from . import cuda_build
-from .resize import interp_tables, resize_bilinear
+from .resize import _interp_gather, resize_bilinear
 
 _MASK32 = 0xFFFFFFFF
+_TILE_H = 8  # output rows per block of the kernel
+_GRID_YZ_MAX = 65535  # C and B are the kernel's grid y and z
 _PHILOX_M = (0xD2511F53, 0xCD9E8D57)
 _PHILOX_W = (0x9E3779B9, 0xBB67AE85)
 
@@ -69,19 +74,29 @@ def _to_int32(words: torch.Tensor) -> torch.Tensor:
 
 def philox_bits(seed: int, shape: Sequence[int], device=None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The kernel's random words for an output of `shape` (B, C, H, W):
-    Philox4x32-10 keyed (seed + b, 0) mod 2^32, counter (index within the
-    sample, 0, 0, 0); words 0 and 1, as int32."""
-    b = int(shape[0])
-    per_sample = math.prod(int(s) for s in shape[1:])
-    idx = torch.arange(per_sample, dtype=torch.int64, device=device)[None]
-    key0 = (int(seed) + torch.arange(b, dtype=torch.int64, device=device)
-            )[:, None] & _MASK32
-    zero = torch.zeros((b, per_sample), dtype=torch.int64, device=device)
-    c0 = idx.expand(b, per_sample)
-    w0, w1, _, _ = philox4x32_10((c0, zero, zero, zero), (key0, zero))
-    return (_to_int32(w0).reshape(tuple(shape)),
-            _to_int32(w1).reshape(tuple(shape)))
+    """The kernel's random words for an output of `shape` (B, C, H, W), as
+    (u1 words, u2 words), int32. One Philox4x32-10 call per pair of columns:
+    key (seed + b, 0) mod 2^32, counter (j, h, c, 0) for columns 2j and
+    2j + 1 of row h, channel c; words 0 and 1 go to column 2j, words 2 and
+    3 to column 2j + 1 (an odd last column takes words 0 and 1 only)."""
+    b, c, h, w = (int(s) for s in shape)
+    pairs = (w + 1) // 2
+
+    def axis(n, dim):
+        view = [1, 1, 1, 1]
+        view[dim] = n
+        return torch.arange(n, dtype=torch.int64, device=device).reshape(view)
+
+    key0 = (int(seed) + axis(b, 0)) & _MASK32
+    zero = torch.zeros((), dtype=torch.int64, device=device)
+    words = torch.broadcast_tensors(*philox4x32_10(
+        (axis(pairs, 3), axis(h, 2), axis(c, 1), zero), (key0, zero)))
+
+    def columns(even, odd):
+        both = torch.stack((even, odd), dim=-1).reshape(b, c, h, 2 * pairs)
+        return _to_int32(both[..., :w])
+
+    return columns(words[0], words[2]), columns(words[1], words[3])
 
 
 def box_muller(u1b: torch.Tensor, u2b: torch.Tensor) -> torch.Tensor:
@@ -109,9 +124,37 @@ def _check_cuda_input(x: torch.Tensor, out_hw: Sequence[int]) -> None:
                          f"(B, C, H, W) tensor, got {x.dtype} {tuple(x.shape)}"
                          f" contiguous={x.is_contiguous()}")
     n_out = x.shape[0] * x.shape[1] * out_hw[0] * out_hw[1]
-    if min(out_hw) < 1 or n_out >= 2 ** 31:
+    if (min(out_hw) < 1 or n_out >= 2 ** 31 or x.numel() >= 2 ** 31
+            or max(x.shape[:2]) > _GRID_YZ_MAX):
         raise ValueError(f"unsupported sizes: x {tuple(x.shape)} -> {out_hw} "
-                         "(the kernel takes 1 to 2^31 - 1 outputs)")
+                         "(the kernel takes 1 to 2^31 - 1 elements in and "
+                         f"out, and B and C up to {_GRID_YZ_MAX})")
+
+
+def _block_shape(w_out: int) -> Tuple[int, int]:
+    """(threads over the column pairs of a row, rows of the tile at once):
+    one thread per pair up to 512 pairs, and the largest power of two of
+    rows up to 4 that keeps the block within the kernel's launch bound of
+    512 threads (the best of the shapes tried at the nine stage shapes on
+    an H100)."""
+    bx = min((w_out + 1) // 2, 512)
+    by = 1
+    while 2 * by <= min(4, 512 // bx):
+        by *= 2
+    return bx, by
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(h_in: int, w_in: int, h_out: int, w_out: int,
+          device: torch.device) -> Tuple[torch.Tensor, Tuple[int, int]]:
+    """The kernel's tables for one stage shape, packed in one int32 tensor
+    on `device` (lo_h, hi_h, f_h, lo_w, hi_w, f_w; the fractions as their
+    float bits), made once per shape and device, and its block shape."""
+    lo_h, hi_h, f_h = _interp_gather(h_in, h_out, True)
+    lo_w, hi_w, f_w = _interp_gather(w_in, w_out, True)
+    packed = np.concatenate([lo_h, hi_h, f_h.view(np.int32),
+                             lo_w, hi_w, f_w.view(np.int32)])
+    return torch.from_numpy(packed).to(device), _block_shape(w_out)
 
 
 @functools.lru_cache(maxsize=None)
@@ -119,8 +162,9 @@ def _kernel():
     """The built kernel's C entry point, with its argument types declared."""
     fn = cuda_build.load("upsample_noise").hpv_upsample_noise_2d
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
-                   + [ctypes.c_float, ctypes.c_uint, ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 9
+                   + [ctypes.c_float, ctypes.c_uint, ctypes.c_int,
+                      ctypes.c_void_p])
     return fn
 
 
@@ -128,24 +172,18 @@ def _launch(x: torch.Tensor, out_hw: Sequence[int], amp: float, seed: int
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     b, c, h_in, w_in = x.shape
     h_out, w_out = out_hw
-    fn = _kernel()
-    lo_h, hi_h, f_h = interp_tables(h_in, h_out, True, x.device)
-    lo_w, hi_w, f_w = interp_tables(w_in, w_out, True, x.device)
-    clean = torch.empty((b, c, h_out, w_out), dtype=torch.float32,
-                        device=x.device)
-    noised = torch.empty_like(clean)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), clean.data_ptr(), noised.data_ptr(),
-                 lo_h.data_ptr(), hi_h.data_ptr(), f_h.data_ptr(),
-                 lo_w.data_ptr(), hi_w.data_ptr(), f_w.data_ptr(),
-                 b, c, h_in, w_in, h_out, w_out, float(amp),
-                 int(seed) & 0xFFFFFFFF, stream)
+    tables, (block_x, block_y) = _plan(h_in, w_in, h_out, w_out, x.device)
+    out = torch.empty((2, b, c, h_out, w_out), dtype=torch.float32,
+                      device=x.device)
+    err = _kernel()(x.data_ptr(), out.data_ptr(), tables.data_ptr(),
+                    b, c, h_in, w_in, h_out, w_out, _TILE_H, block_x,
+                    block_y, amp, seed & _MASK32, x.device.index,
+                    torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"upsample_noise kernel launch failed: CUDA error "
                            f"{err} (x {tuple(x.shape)} -> {tuple(out_hw)})")
     fused_upscale_noise_2d.launches += 1
-    return clean, noised
+    return out.unbind(0)
 
 
 def fused_upscale_noise_2d(x: torch.Tensor, out_hw: Sequence[int], amp,

@@ -27,19 +27,24 @@ def cuda():
 
 
 def test_k1_matches_plain_version(cuda):
-    """The kernel's outputs equal the plain version's on its Philox words."""
+    """The kernel's outputs equal the plain version's on its Philox words,
+    bit for bit: at stage shapes, at H_out and W_out both odd and H_out not
+    a multiple of the row tile, at 41x41 planes (not 16-byte aligned), at
+    one input row, and at a downscale."""
     g = torch.Generator(device=cuda).manual_seed(0)
-    for h_in, h_out in ((33, 41), (204, 257), (7, 30)):
-        x = torch.randn(4, 3, h_in, h_in + 1, device=cuda, generator=g)
-        hw = (h_out, h_out + 2)
+    for hw_in, hw in (((33, 34), (41, 43)), ((204, 205), (257, 259)),
+                      ((7, 8), (30, 32)), ((13, 14), (37, 45)),
+                      ((33, 33), (41, 41)), ((1, 5), (9, 12)),
+                      ((257, 258), (41, 43))):
+        x = torch.randn((4, 3) + hw_in, device=cuda, generator=g)
         before = k1.fused_upscale_noise_2d.launches
         clean, noised = k1.fused_upscale_noise_2d(x, hw, 0.7, 9)
         torch.cuda.synchronize()
         assert k1.fused_upscale_noise_2d.launches == before + 1
         bits = k1.philox_bits(9, (4, 3) + hw, cuda)
         pc, pn = k1.fused_upscale_noise_2d_plain(x, hw, 0.7, bits)
-        torch.testing.assert_close(clean, pc, rtol=0, atol=1e-5)
-        torch.testing.assert_close(noised, pn, rtol=0, atol=1e-5)
+        assert torch.equal(clean, pc), (hw_in, hw)
+        assert torch.equal(noised, pn), (hw_in, hw)
 
 
 def test_k1_refuses_what_it_cannot_take(cuda):

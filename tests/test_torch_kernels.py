@@ -120,6 +120,63 @@ def test_philox_noise_statistics_and_streams():
     assert torch.equal(w_wrap[1:2], k1.philox_bits(0, (1, 1, 2, 2))[0])
 
 
+@pytest.mark.parametrize("shape", [(2, 3, 5, 8), (3, 2, 4, 7), (1, 1, 3, 1)])
+def test_philox_bits_one_call_per_column_pair(shape):
+    """philox_bits at (b, c, h, 2j) and (b, c, h, 2j + 1) are words (0, 1)
+    and (2, 3) of counter (j, h, c, 0) under key (seed + b, 0); an odd last
+    column takes words 0 and 1."""
+    seed = 2 ** 32 - 2  # the key wraps at b = 2
+    u1, u2 = k1.philox_bits(seed, shape)
+    assert u1.shape == u2.shape == shape and u1.dtype == torch.int32
+    b_n, c_n, h_n, w_n = shape
+    for b in range(b_n):
+        for c in range(c_n):
+            for h in range(h_n):
+                for j in range((w_n + 1) // 2):
+                    t = [torch.tensor([v], dtype=torch.int64) for v in
+                         (j, h, c, 0, (seed + b) % 2 ** 32, 0)]
+                    words = [int(v) % 2 ** 32
+                             for v in k1.philox4x32_10(t[:4], t[4:])]
+                    for w, (i1, i2) in ((2 * j, (0, 1)), (2 * j + 1, (2, 3))):
+                        if w < w_n:
+                            got = (int(u1[b, c, h, w]) % 2 ** 32,
+                                   int(u2[b, c, h, w]) % 2 ** 32)
+                            assert got == (words[i1], words[i2])
+
+
+@pytest.mark.parametrize("hw_in,hw_out", [
+    ((33, 33), (41, 41)), ((204, 204), (257, 257)), ((7, 8), (30, 32)),
+    ((13, 14), (37, 45)), ((1, 5), (9, 12)), ((257, 258), (41, 43))])
+def test_kernel_plan_packs_the_interp_tables(hw_in, hw_out):
+    """The kernel's one int32 table holds _interp_gather's six arrays (the
+    fractions as their float bits), every tap inside the input."""
+    (h_in, w_in), (h_out, w_out) = hw_in, hw_out
+    tables, _ = k1._plan(h_in, w_in, h_out, w_out, torch.device("cpu"))
+    t = tables.numpy()
+    assert t.dtype == np.int32 and t.size == 3 * (h_out + w_out)
+    lo_h, hi_h, f_h = (t[i * h_out:(i + 1) * h_out] for i in range(3))
+    lo_w, hi_w, f_w = (t[3 * h_out + i * w_out:3 * h_out + (i + 1) * w_out]
+                       for i in range(3))
+    for got, want in zip((lo_h, hi_h, f_h.view(np.float32), lo_w, hi_w,
+                          f_w.view(np.float32)),
+                         k1._interp_gather(h_in, h_out, True)
+                         + k1._interp_gather(w_in, w_out, True)):
+        np.testing.assert_array_equal(got, want)
+    assert 0 <= min(lo_h.min(), lo_w.min())
+    assert hi_h.max() < h_in and hi_w.max() < w_in
+
+
+@pytest.mark.parametrize("w_out", [1, 41, 65, 257, 1023, 1025, 4000])
+def test_kernel_block_covers_each_column_pair_once(w_out):
+    """A block's threads over the pairs of a row, its rows at once dividing
+    the row tile, at most 512 threads."""
+    bx, by = k1._block_shape(w_out)
+    pairs = (w_out + 1) // 2
+    assert bx == min(pairs, 512) and bx * by <= 512
+    assert by in (1, 2, 4) and k1._TILE_H % by == 0
+    assert by == 4 or bx * 2 * by > 512
+
+
 def test_wrapper_refuses_unknown_devices():
     with pytest.raises(ValueError):
         k1.fused_upscale_noise_2d(torch.zeros(1, 3, 4, 4, device="meta"),
