@@ -19,6 +19,23 @@ Phases, each of which exits non-zero on a failed check:
              written in the JAX package's format (args.txt,
              intermediate.json, netG_9.ckpt from a numpy seed): per-sample
              BatchNorm sampling, PNGs, SIFID
+  5. step    one GAN-scale training iteration (D then G) of a tiny config
+             on the card with TF32 off against the same iteration on the
+             CPU, from the same weights and draws (tools/step_parity.py):
+             metrics to rtol 1e-4, gradients, BatchNorm and spectral-norm
+             state to atol 1e-4
+  6. train   the training CLI (hpvaegan_tpu_torch.train_image.main) at full
+             width, 10 scales of air_balloons.jpg, 4 iterations each: the
+             checkpoints, intermediate.json and finite logged losses; then
+             the eval CLI scores the experiment (finite SIFID). Training
+             runs no kernel: K1's count stays 0 over the run
+  7. timing  train iterations at scale 9 (GAN, 192x257) and scale 2 (VAE)
+             at full width, batch 1: steps/s over 20 iterations after 3
+             warm-up ones, D-step and G-step ms (synchronised), and one
+             profiled iteration (device busy ms, idle share, ms by group,
+             top 8 kernels, top 8 operators with their input shapes); then
+             scale 9 once more
+             with cudnn.benchmark on (the trainer keeps it off)
 Then it prints the kernels' JSON line, the card's name and power limit as
 nvidia-smi gives them, and last {"ok": true, "device": {...}}.
 
@@ -374,6 +391,208 @@ def phase_cli(torch, k1, ckpt):
     return sifid
 
 
+def tiny_config(**kw):
+    from hpvaegan_tpu_torch.config import Config
+
+    return Config(nfc=8, latent_dim=8, num_layer=2, enc_blocks=1,
+                  img_size=32, min_size=16, max_size=32, vae_levels=2,
+                  **kw).finalize()
+
+
+def phase_step_parity(torch):
+    """One VAE-scale G step and one GAN-scale iteration, card vs CPU."""
+    from hpvaegan_tpu_torch.tools.step_parity import compare_devices
+
+    cfg = tiny_config()
+    out = {}
+    for scale_idx in (1, 3):
+        errs = compare_devices(cfg, scale_idx, seed=SEED, device="cuda")
+        check(errs["finite"], f"scale {scale_idx}: non-finite values on "
+              f"the card: {errs}")
+        check(errs["metrics_rel"] <= 1e-4, f"scale {scale_idx}: metrics "
+              f"differ by {errs['metrics_rel']} (rtol 1e-4)")
+        for part in ("grads_abs", "state_abs"):
+            check(errs[part] <= 1e-4, f"scale {scale_idx}: {part} "
+                  f"{errs[part]} > 1e-4")
+        out[scale_idx] = {k: v for k, v in errs.items() if k != "finite"}
+        print(f"  scale {scale_idx} (card vs CPU, TF32 off): " + json.dumps(
+            out[scale_idx]), flush=True)
+    return out
+
+
+def phase_train_cli(torch, k1):
+    """The training CLI at full width, then the eval CLI on its output."""
+    import numpy as np
+
+    from hpvaegan_tpu_torch import eval_image, train_image
+
+    image = os.path.join(HERE, "data", "imgs", "air_balloons.jpg")
+    with tempfile.TemporaryDirectory(prefix="hpv_train_") as run:
+        k1.fused_upscale_noise_2d.launches = 0
+        t0 = time.perf_counter()
+        exp = train_image.main(["--image-path", image, "--niter", "4",
+                                "--print-interval", "2", "--run-dir", run,
+                                "--checkname", "smoke", "--manualSeed", "1"])
+        train_s = time.perf_counter() - t0
+        launches = k1.fused_upscale_noise_2d.launches
+        check(launches == 0, f"training launched K1 {launches} times")
+        files = set(os.listdir(exp))
+        for k in range(10):
+            check(f"netG_{k}.ckpt" in files, f"no netG_{k}.ckpt in {exp}")
+            check((f"netD_{k}.ckpt" in files) == (k >= 3),
+                  f"netD_{k}.ckpt: {sorted(files)}")
+        with open(os.path.join(exp, "intermediate.json")) as f:
+            inter = json.load(f)
+        amps = inter["noise_amps"]
+        check(inter["scale_idx"] == 9 and len(amps) == 10 and amps[0] == 1.0
+              and all(math.isfinite(a) and a > 0 for a in amps),
+              f"intermediate.json {inter}")
+        with open(os.path.join(exp, "logbook.txt")) as f:
+            logged = [ln.split("] ", 1)[1] for ln in f.read().splitlines()
+                      if "[Scale " in ln]
+        check(len(logged) == 20, f"{len(logged)} logged loss lines, want 20")
+        losses = [float(kv.split(": ")[1]) for ln in logged
+                  for kv in ln.split(", ")]
+        check(all(math.isfinite(v) for v in losses), f"losses {logged}")
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            eval_image.main(["--exp-dir", exp, "--num-samples", "10"])
+        lines = [ln for ln in buf.getvalue().splitlines()
+                 if ln.startswith("SIFID: ")]
+        check(len(lines) == 1, f"eval CLI printed {buf.getvalue()!r}")
+        sifid = float(lines[0].split()[1])
+        check(math.isfinite(sifid) and sifid >= 0, f"SIFID {sifid}")
+        samples = np.load(os.path.join(exp, "eval", "random_samples.npy"))
+        check(samples.shape == (10, 3, 192, 257), f"npy {samples.shape}")
+    print(f"  trained {len(amps)} scales x 4 iterations in {train_s:.1f} s, "
+          f"amps "
+          f"{[round(a, 5) for a in amps]}, last losses {logged[-1]}; "
+          f"K1 launches {launches}; eval CLI SIFID: {sifid}", flush=True)
+    return {"train_s": train_s, "sifid": sifid, "amps": amps}
+
+
+def _group(name):
+    low = name.lower()
+    if "memcpy" in low or "memset" in low:
+        return "memcpy"
+    if "multi_tensor_apply" in low or "adam" in low:
+        return "optimizer"
+    if any(k in low for k in ("conv", "cudnn", "gemm", "xmma", "sm90",
+                              "sm80", "implicit", "wgrad", "dgrad")):
+        return "conv"
+    return "elementwise"
+
+
+def time_scale(torch, cfg, dataset, scale_idx, amps):
+    """Steps/s, D and G ms and one profiled iteration at one scale."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from hpvaegan_tpu_torch.data.image import make_image_batch
+    from hpvaegan_tpu_torch.tools.step_parity import build_state
+    from hpvaegan_tpu_torch.training.steps import (d_step, g_step,
+                                                   train_iteration)
+    from hpvaegan_tpu_torch.utils.noise import NoiseSource
+
+    vae = cfg.vae_levels >= scale_idx + 1
+    st = build_state(cfg, scale_idx, SEED, "cuda")
+    st.noise = NoiseSource(SEED, "cuda")
+    data = dataset.scale_image(scale_idx), dataset.scale_image(0)
+
+    def iteration():
+        return train_iteration(cfg, st, data[0], data[1], amps, vae)
+
+    for _ in range(3):
+        iteration()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        metrics = iteration()
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / 20
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(all(math.isfinite(float(v)) for v in metrics.values()),
+          f"scale {scale_idx}: metrics {metrics}")
+
+    d_ms = g_ms = 0.0
+    for _ in range(20):
+        real, real_zero, noise_init = make_image_batch(
+            cfg, data[0], data[1], st.noise)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if not vae:
+            d_step(cfg, st, real, noise_init, amps)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        g_step(cfg, st, real, real_zero, noise_init, amps, vae)
+        torch.cuda.synchronize()
+        d_ms += (t1 - t0) * 1e3 / 20
+        g_ms += (time.perf_counter() - t1) * 1e3 / 20
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        t0 = time.perf_counter()
+        iteration()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_name, groups, n_kernels = {}, {}, 0
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        ms = e.time_range.elapsed_us() / 1e3
+        n_kernels += 1
+        by_name[e.name] = by_name.get(e.name, 0.0) + ms
+        groups[_group(e.name)] = groups.get(_group(e.name), 0.0) + ms
+    busy = sum(by_name.values())
+    check(busy > 0, f"scale {scale_idx}: the profile shows no device time")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    # the operators that launched them, by input shapes (self device time:
+    # no double counting between an op and the ops it calls)
+    ops = sorted(((e.key, e.count, e.self_device_time_total / 1e3,
+                   str(e.input_shapes)[:120])
+                  for e in prof.key_averages(group_by_input_shape=True)
+                  if e.device_type == DeviceType.CPU
+                  and e.self_device_time_total > 0), key=lambda r: -r[2])[:8]
+    h, w = dataset.scale_size(scale_idx)
+    return {
+        "phase": "vae" if vae else "gan", "hw": [h, w],
+        "steps_per_s": round(1.0 / step_s, 3),
+        "d_step_ms": round(d_ms, 3) if not vae else None,
+        "g_step_ms": round(g_ms, 3), "peak_gb": round(peak_gb, 3),
+        "profiled_wall_ms": round(wall_ms, 3),
+        "device_busy_ms": round(busy, 3),
+        "idle_share": round(1 - busy / wall_ms, 4),
+        "device_ops": n_kernels,
+        "groups_ms": {k: round(v, 3) for k, v in sorted(groups.items())},
+        "top_kernels_ms": [[k[:70], round(v, 3)] for k, v in top],
+        "top_ops_ms": [[k[:40], n, round(v, 3), shapes]
+                       for k, n, v, shapes in ops]}
+
+
+def phase_step_timing(torch):
+    """Train iterations at full width, batch 1: scale 9 (GAN) and 2 (VAE)
+    as the trainer runs them (PyTorch's defaults: cuDNN TF32 on, cuDNN
+    benchmark off), then scale 9 again with cudnn.benchmark on."""
+    from hpvaegan_tpu_torch.data.image import SingleImageDataset
+
+    image = os.path.join(HERE, "data", "imgs", "air_balloons.jpg")
+    cfg = full_width_config(image_path=image, batch_size=1)
+    dataset = SingleImageDataset(cfg, "cuda")
+    amps = [1.0] + [0.05] * (cfg.stop_scale + 1)
+    out = {}
+    for name, scale_idx, bench in (("scale 9", 9, False),
+                                   ("scale 2", 2, False),
+                                   ("scale 9, cudnn.benchmark", 9, True)):
+        torch.backends.cudnn.benchmark = bench
+        try:
+            out[name] = time_scale(torch, cfg, dataset, scale_idx, amps)
+        finally:
+            torch.backends.cudnn.benchmark = False
+        print(f"  {name}: " + json.dumps(out[name]), flush=True)
+    return out
+
+
 def main():
     try:
         import torch
@@ -418,6 +637,16 @@ def main():
 
     print("phase 4: eval_image CLI on a JAX-format experiment dir", flush=True)
     phase_cli(torch, k1, ckpt)
+
+    print("phase 5: one training iteration, card vs CPU", flush=True)
+    phase_step_parity(torch)
+
+    print("phase 6: train_image CLI at full width, then eval_image",
+          flush=True)
+    phase_train_cli(torch, k1)
+
+    print("phase 7: training step timing at full width, batch 1", flush=True)
+    phase_step_timing(torch)
 
     kernels = [{
         "name": "fused_upscale_noise_2d",

@@ -4,23 +4,35 @@ The port of the JAX package's `models/blocks.py` (reference
 src/modules/networks_2d.py:44-82):
   ConvBlock = Conv(Normal 0.02) + BatchNorm(gamma ~ N(1, 0.02)) + LeakyReLU(0.2)
   ConvStack = head block + num_layer blocks + plain conv tail
-  SNConv2d  = the parameters of a spectral-norm conv
+  SNConv2d  = spectral-norm conv (ops/spectral_norm.py), (u, v) as buffers
+  SNBlock   = SNConv2d + LeakyReLU(0.2) (the reference's ConvBlockSN, bn=True)
 Module and parameter names follow the original hp-vae-gan state_dict
 (`head`, `block<i>`, `tail`, `conv`, `norm`, `weight_orig`, ...), which is
 also what the JAX package's tools/convert.py reads and writes.
 
 BatchNorm is ops/norm.py's function with the state as buffers; its mode is
 an argument of every forward ("batch", "moving" or "sample"). In "batch"
-mode the forward folds the batch statistics into the buffers in place.
+mode the forward folds the batch statistics into the buffers in place,
+unless it is called with commit=False: the training step's forwards whose
+new state the JAX package discards (the D step's fake, the calibration)
+pass that. The fold of a later pass lands on the earlier one's, which is
+the JAX package's state threading, since batch-mode outputs do not read
+the buffers.
+
+Spectral-norm forwards never write their buffers: they return the new
+(u, v) pairs, and `assign_sn_state` keeps them where a step does.
 """
 
 from __future__ import annotations
+
+from typing import List, Sequence, Tuple
 
 import torch
 import torch.nn as nn
 
 from ..ops.conv import conv2d, lrelu
 from ..ops.norm import batchnorm
+from ..ops.spectral_norm import spectral_normalize
 
 
 class Conv2d(nn.Module):
@@ -46,10 +58,11 @@ class BatchNorm2d(nn.Module):
         self.register_buffer("running_mean", torch.zeros(ch))
         self.register_buffer("running_var", torch.ones(ch))
 
-    def forward(self, x: torch.Tensor, mode: str) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mode: str,
+                commit: bool = True) -> torch.Tensor:
         y, mean, var = batchnorm(x, self.weight, self.bias, self.running_mean,
                                  self.running_var, mode)
-        if mode == "batch":
+        if mode == "batch" and commit:
             with torch.no_grad():
                 self.running_mean.copy_(mean)
                 self.running_var.copy_(var)
@@ -62,8 +75,9 @@ class ConvBlock(nn.Module):
         self.conv = Conv2d(cin, cout, ker, padding)
         self.norm = BatchNorm2d(cout)
 
-    def forward(self, x: torch.Tensor, bn: str) -> torch.Tensor:
-        return lrelu(self.norm(self.conv(x), bn))
+    def forward(self, x: torch.Tensor, bn: str,
+                commit: bool = True) -> torch.Tensor:
+        return lrelu(self.norm(self.conv(x), bn, commit))
 
 
 class ConvStack(nn.Module):
@@ -79,18 +93,18 @@ class ConvStack(nn.Module):
         self.num_layer = num_layer
         self.tail = Conv2d(mid, cout, ker, ker // 2)
 
-    def forward(self, x: torch.Tensor, bn: str) -> torch.Tensor:
-        x = self.head(x, bn)
+    def forward(self, x: torch.Tensor, bn: str,
+                commit: bool = True) -> torch.Tensor:
+        x = self.head(x, bn, commit)
         for i in range(self.num_layer):
-            x = getattr(self, f"block{i}")(x, bn)
+            x = getattr(self, f"block{i}")(x, bn, commit)
         return self.tail(x)
 
 
 class SNConv2d(nn.Module):
-    """The parameters of a spectral-norm conv: `weight_orig`, `bias` and the
-    power-iteration vectors `weight_u` (O,) and `weight_v` (I*k*k,). Its
-    forward (one power step, then W / sigma) belongs to the training path
-    and is not ported yet."""
+    """Spectral-norm conv (JAX ops/spectral_norm.py::sn_conv_apply):
+    `weight_orig`, `bias`, and the power-iteration vectors `weight_u` (O,)
+    and `weight_v` (I*k*k,) as buffers; zero padding ker // 2."""
 
     def __init__(self, cin: int, cout: int, ker: int):
         super().__init__()
@@ -98,6 +112,57 @@ class SNConv2d(nn.Module):
         self.bias = nn.Parameter(torch.zeros(cout))
         self.register_buffer("weight_u", torch.zeros(cout))
         self.register_buffer("weight_v", torch.zeros(cin * ker * ker))
+        self.padding = ker // 2
+
+    def forward(self, x: torch.Tensor, u: torch.Tensor, v: torch.Tensor
+                ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+        """Conv with W / sigma from one power step on (u, v); returns the
+        output and the new (u, v). The buffers are not written."""
+        w, u, v = spectral_normalize(self.weight_orig, u, v)
+        return conv2d(x, w, self.bias, padding=self.padding), (u, v)
+
+
+class SNBlock(nn.Module):
+    """SN conv + LeakyReLU(0.2) (JAX models/blocks.py::sn_block_apply), on
+    the (u, v) held in its buffers."""
+
+    def __init__(self, cin: int, cout: int, ker: int):
+        super().__init__()
+        self.conv = SNConv2d(cin, cout, ker)
+
+    def forward(self, x: torch.Tensor):
+        y, uv = self.conv(x, self.conv.weight_u, self.conv.weight_v)
+        return lrelu(y), uv
+
+
+SNState = List[Tuple[torch.Tensor, torch.Tensor]]
+
+
+def sn_blocks_apply(blocks: Sequence[SNBlock], x: torch.Tensor
+                    ) -> Tuple[torch.Tensor, SNState]:
+    """A stack of SN blocks (JAX feature_extractor_apply, return_linear
+    False); returns the output and each block's new (u, v)."""
+    state = []
+    for block in blocks:
+        x, uv = block(x)
+        state.append(uv)
+    return x, state
+
+
+def sn_convs(module: nn.Module) -> List[SNConv2d]:
+    return [m for m in module.modules() if isinstance(m, SNConv2d)]
+
+
+def assign_sn_state(module: nn.Module, state: SNState) -> None:
+    """Keep new (u, v) pairs, in `sn_convs(module)` order."""
+    convs = sn_convs(module)
+    if len(convs) != len(state):
+        raise ValueError(f"{len(state)} (u, v) pairs for {len(convs)} "
+                         "spectral-norm convs")
+    with torch.no_grad():
+        for conv, (u, v) in zip(convs, state):
+            conv.weight_u.copy_(u)
+            conv.weight_v.copy_(v)
 
 
 def init_weights_(module: nn.Module, gen: torch.Generator) -> nn.Module:

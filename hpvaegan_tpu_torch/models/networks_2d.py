@@ -1,19 +1,25 @@
-"""The 2D hierarchical generator, GeneratorHPVAEGAN, as an `nn.Module`.
+"""2D networks as `nn.Module`s: the VAE encoder, the WGAN discriminator and
+the hierarchical generator GeneratorHPVAEGAN.
 
-The port of the JAX package's `models/networks_2d.py:142-272` for sampling
-(reference src/modules/networks_2d.py:190-282). The "growing network" is a
-ModuleList of refinement stages: `init_next_stage` appends a fresh stage
-first and a deep copy of the last one after that. Tensors are NCHW.
+The port of the JAX package's `models/networks_2d.py` for GeneratorHPVAEGAN
+and WDiscriminator2D (reference src/modules/networks_2d.py:85-282). The
+"growing network" is a ModuleList of refinement stages: `init_next_stage`
+appends a fresh stage first and a deep copy of the last one after that.
+Tensors are NCHW.
 
-Random mode (the sampling path): z = noise_init through the decoder, then
-per refinement stage k = 1..len(body)
+Random mode (sampling, and the training step's fakes): z = noise_init
+through the decoder, then per refinement stage k = 1..len(body)
     x_up = upscale(x) to scale k;  x_in = x_up + amp_k * noise
     x = tanh(stage_k(x_in) + x_up)
-with every draw taken from a `NoiseSource` (utils/noise.py).
+Reconstruction mode (training, `reconstruct`): z = eps * exp(logvar / 2)
++ mu from the encoder, and no refinement noise. In both, the gradient stops
+at the VAE boundary (stage vae_levels - 1) unless cfg.train_all. Every draw
+comes from a `NoiseSource` (utils/noise.py).
 
-The encoder's parameters are carried so that checkpoints load whole. Its
-forward (spectral-norm power step, reparametrisation) and reconstruction
-mode belong to the training path and are not ported yet.
+State: BatchNorm folds its batch statistics unless a forward runs with
+commit=False; spectral-norm forwards return their new (u, v) and the
+caller keeps them (models/blocks.py). The encoder's pairs are kept by
+`reconstruct(commit=True)`; the discriminator's by the D step.
 """
 
 from __future__ import annotations
@@ -28,13 +34,8 @@ from ..ops.fused_upscale_noise import fused_upscale_noise_2d
 from ..ops.resize import upscale_2d
 from ..utils.noise import NoiseSource
 from ..utils.pyramid import scale_size_2d
-from .blocks import Conv2d, ConvStack, SNConv2d, init_weights_
-
-
-class _SNBlock(nn.Module):
-    def __init__(self, cin: int, cout: int, ker: int):
-        super().__init__()
-        self.conv = SNConv2d(cin, cout, ker)
+from .blocks import (Conv2d, ConvStack, SNBlock, SNState, assign_sn_state,
+                     init_weights_, sn_blocks_apply)
 
 
 class _ConvHead(nn.Module):
@@ -44,8 +45,8 @@ class _ConvHead(nn.Module):
 
 
 class Encode2DVAE(nn.Module):
-    """Parameters of the VAE encoder (networks_2d.py:31-52): enc_blocks + 1
-    spectral-norm conv blocks, then the mu and logvar convs."""
+    """The VAE encoder (networks_2d.py:31-52): enc_blocks + 1 spectral-norm
+    conv blocks, then the mu and logvar convs."""
 
     def __init__(self, cfg, out_dim: int, num_blocks: int):
         super().__init__()
@@ -53,24 +54,60 @@ class Encode2DVAE(nn.Module):
         chans = [cfg.nc_im] + [cfg.nfc] * (num_blocks + 1)
         for i in range(num_blocks + 1):
             setattr(self.features, f"conv_block_{i}",
-                    _SNBlock(chans[i], chans[i + 1], cfg.ker_size))
+                    SNBlock(chans[i], chans[i + 1], cfg.ker_size))
+        self.num_blocks = num_blocks + 1
         self.mu = _ConvHead(cfg.nfc, out_dim, cfg.ker_size)
         self.logvar = _ConvHead(cfg.nfc, out_dim, cfg.ker_size)
 
+    def forward(self, x: torch.Tensor
+                ) -> Tuple[Tuple[torch.Tensor, torch.Tensor], SNState]:
+        """Returns ((mu, logvar), the SN blocks' new (u, v))."""
+        blocks = [getattr(self.features, f"conv_block_{i}")
+                  for i in range(self.num_blocks)]
+        feats, state = sn_blocks_apply(blocks, x)
+        return (self.mu.conv(feats), self.logvar.conv(feats)), state
+
+
+class WDiscriminator2D(nn.Module):
+    """WGAN critic (networks_2d.py:112-137): an SN head block, num_layer SN
+    body blocks and a plain tail conv to one channel with padding 1 (the
+    reference hard-codes it, networks_2d.py:178)."""
+
+    def __init__(self, cfg):
+        super().__init__()
+        n = int(cfg.nfc)
+        self.head = SNBlock(cfg.nc_im, n, cfg.ker_size)
+        self.body = nn.Module()
+        for i in range(cfg.num_layer):
+            setattr(self.body, f"block{i}", SNBlock(n, n, cfg.ker_size))
+        self.num_layer = cfg.num_layer
+        self.tail = Conv2d(n, 1, cfg.ker_size, 1)
+
+    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, SNState]:
+        """Returns (scores (B, 1, H', W'), the new (u, v) of every SN conv,
+        head first). The buffers are not written."""
+        blocks = [self.head] + [getattr(self.body, f"block{i}")
+                                for i in range(self.num_layer)]
+        y, state = sn_blocks_apply(blocks, x)
+        return self.tail(y), state
+
 
 def refinement_layers(cfg, body: Sequence[nn.Module], x: torch.Tensor, amps,
-                      noise: NoiseSource, *, is_random: bool,
-                      bn: str) -> torch.Tensor:
+                      noise: NoiseSource, *, is_random: bool, bn: str,
+                      commit: bool = True) -> torch.Tensor:
     """Residual refinement chain (networks_2d.py:177-229 of the JAX package).
 
     amps: (stop_scale + 2,) per-scale noise amplitudes. The fused kernel
     runs where the JAX package runs its Pallas kernel: with
     `cfg.pallas_fused_sampling`, in random mode, on moving-stat BatchNorm
-    (networks_2d.py:193-194 there); one seed per stage.
+    (networks_2d.py:193-194 there); one seed per stage. Training forwards
+    run batch statistics and never reach it.
     """
     use_fused = bool(getattr(cfg, "pallas_fused_sampling", False)) \
         and is_random and bn == "moving"
     for idx in range(len(body)):
+        if cfg.vae_levels == idx + 1 and not cfg.train_all:
+            x = x.detach()  # the VAE boundary (networks_2d.py:202-204)
         amp = float(amps[idx + 1])
         if use_fused:
             seed = noise.seed()
@@ -83,7 +120,7 @@ def refinement_layers(cfg, body: Sequence[nn.Module], x: torch.Tensor, amps,
             x_up = upscale_2d(x, idx + 1, cfg.scale_factor, cfg.stop_scale,
                               cfg.img_size, cfg.ar)
             x_in = x_up + noise.normal(x_up.shape) * amp if is_random else x_up
-        y = body[idx](x_in, bn)
+        y = body[idx](x_in, bn, commit)
         x = torch.tanh(y + x_up)
     return x
 
@@ -114,11 +151,28 @@ class GeneratorHPVAEGAN(nn.Module):
         self.body.append(stage)
 
     def forward(self, noise_init: torch.Tensor, amps, noise: NoiseSource, *,
-                bn: str = "batch") -> Tuple[torch.Tensor, torch.Tensor]:
+                bn: str = "batch", commit: bool = True
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Random-mode forward from z = noise_init (B, latent_dim, h0, w0).
         Returns (x, vae_out). bn: "batch", "moving" or "sample"
         (ops/norm.py)."""
-        vae_out = torch.tanh(self.decoder(noise_init, bn))
+        vae_out = torch.tanh(self.decoder(noise_init, bn, commit))
         x = refinement_layers(self.cfg, self.body, vae_out, amps, noise,
-                              is_random=True, bn=bn)
+                              is_random=True, bn=bn, commit=commit)
         return x, vae_out
+
+    def reconstruct(self, video: torch.Tensor, amps, noise: NoiseSource, *,
+                    commit: bool = True):
+        """Training-mode reconstruction of `video` (the scale-0 image, B, C,
+        h0, w0) with batch-statistics BatchNorm (networks_2d.py:240-250):
+        z = eps * exp(logvar / 2) + mu. Returns (x, vae_out, mu, logvar).
+        With commit, BatchNorm folds and the encoder keeps its new (u, v)."""
+        (mu, logvar), enc_state = self.encode(video)
+        std = torch.exp(logvar * 0.5)
+        z = noise.normal(std.shape) * std + mu
+        vae_out = torch.tanh(self.decoder(z, "batch", commit))
+        x = refinement_layers(self.cfg, self.body, vae_out, amps, noise,
+                              is_random=False, bn="batch", commit=commit)
+        if commit:
+            assign_sn_state(self.encode, enc_state)
+        return x, vae_out, mu, logvar

@@ -1,15 +1,20 @@
-"""Carry GeneratorHPVAEGAN weights between the JAX package and the port.
+"""Carry GeneratorHPVAEGAN and WDiscriminator2D weights between the JAX
+package and the port.
 
-The JAX package keeps a generator as a (params, state) pytree of numpy
-arrays with HWIO conv weights, pickled as netG_<k>.ckpt. The port's
-state_dict uses the original hp-vae-gan torch naming with OIHW weights:
+The JAX package keeps a network as a (params, state) pytree of numpy arrays
+with HWIO conv weights, pickled as netG_<k>.ckpt / netD_<k>.ckpt. The
+port's state_dicts use the original hp-vae-gan torch naming with OIHW
+weights:
   encode.features.conv_block_<i>.conv.{weight_orig,bias,weight_u,weight_v}
   encode.{mu,logvar}.conv.{weight,bias}
   {decoder,body.<k>}.{head,block<i>}.{conv,norm}.*   {..}.tail.{weight,bias}
+  (D) head.conv.*, body.block<i>.conv.* (SN convs), tail.{weight,bias}
 `from_jax` is the port of the JAX package's `tools/convert.py::j2t_HPVAEGAN`
 (2D), `to_jax` of `p2j_HPVAEGAN` (2D) for the state_dicts `from_jax`
-makes. Spectral-norm v vectors are re-permuted between torch's (I, KH, KW)
-flattening and the JAX package's (KH, KW, I).
+makes; `to_jax_discriminator` of `p2j_WDiscriminator` (2D) and
+`from_jax_discriminator` its inverse. Spectral-norm v vectors are
+re-permuted between torch's (I, KH, KW) flattening and the JAX package's
+(KH, KW, I).
 """
 
 from __future__ import annotations
@@ -41,6 +46,30 @@ def _v_perm(oihw_shape) -> np.ndarray:
     return np.transpose(idx, (1, 2, 0)).reshape(-1)
 
 
+def _sn_from_jax(name: str, p: Dict, s: Dict, out: Dict) -> None:
+    """One JAX {"snconv": {w, b}} / {"sn": {u, v}} pair -> `name`.* keys."""
+    w = _hwio_to_oihw(p["snconv"]["w"])
+    v = np.empty(w[0].size, np.float32)
+    v[_v_perm(w.shape)] = _f32(s["sn"]["v"]).reshape(-1)
+    out[f"{name}.weight_orig"] = w
+    out[f"{name}.bias"] = _f32(p["snconv"]["b"])
+    out[f"{name}.weight_u"] = _f32(s["sn"]["u"]).reshape(-1)
+    out[f"{name}.weight_v"] = v
+
+
+def _sn_to_jax(e: Dict[str, np.ndarray]) -> Tuple[Dict, Dict]:
+    """{weight_orig, bias, weight_u, weight_v} -> the JAX (params, state)."""
+    return ({"snconv": {"w": _oihw_to_hwio(e["weight_orig"]), "b": e["bias"]}},
+            {"sn": {"u": e["weight_u"].reshape(-1),
+                    "v": e["weight_v"].reshape(-1)[
+                        _v_perm(e["weight_orig"].shape)]}})
+
+
+def _numpy_sd(state_dict) -> Dict[str, np.ndarray]:
+    return {k: _f32(v.detach().cpu().numpy() if torch.is_tensor(v) else v)
+            for k, v in state_dict.items()}
+
+
 def _stack_from_jax(prefix: str, p: Dict, s: Dict, out: Dict) -> None:
     for i, (bp, bs) in enumerate(zip(p["blocks"], s["blocks"])):
         name = f"{prefix}.{'head' if i == 0 else f'block{i - 1}'}"
@@ -60,14 +89,7 @@ def from_jax(params: Dict, state: Dict) -> Dict[str, torch.Tensor]:
     out: Dict[str, np.ndarray] = {}
     for i, (fp, fs) in enumerate(zip(params["encode"]["features"],
                                      state["encode"]["features"])):
-        name = f"encode.features.conv_block_{i}.conv"
-        w = _hwio_to_oihw(fp["snconv"]["w"])
-        v = np.empty(w[0].size, np.float32)
-        v[_v_perm(w.shape)] = _f32(fs["sn"]["v"]).reshape(-1)
-        out[f"{name}.weight_orig"] = w
-        out[f"{name}.bias"] = _f32(fp["snconv"]["b"])
-        out[f"{name}.weight_u"] = _f32(fs["sn"]["u"]).reshape(-1)
-        out[f"{name}.weight_v"] = v
+        _sn_from_jax(f"encode.features.conv_block_{i}.conv", fp, fs, out)
     for head in ("mu", "logvar"):
         out[f"encode.{head}.conv.weight"] = _hwio_to_oihw(
             params["encode"][head]["w"])
@@ -111,8 +133,7 @@ def _stack_to_jax(items: Dict[str, np.ndarray]) -> Tuple[Dict, Dict]:
 def to_jax(state_dict: Dict[str, torch.Tensor]) -> Tuple[Dict, Dict]:
     """The port's GeneratorHPVAEGAN state_dict -> the JAX package's
     (params, state) numpy pytree (what its netG_<k>.ckpt holds)."""
-    sd = {k: _f32(v.detach().cpu().numpy() if torch.is_tensor(v) else v)
-          for k, v in state_dict.items()}
+    sd = _numpy_sd(state_dict)
     feats: Dict[int, Dict[str, np.ndarray]] = {}
     stacks: Dict[str, Dict[str, np.ndarray]] = {}
     enc_p: Dict = {}
@@ -131,14 +152,8 @@ def to_jax(state_dict: Dict[str, torch.Tensor]) -> Tuple[Dict, Dict]:
         if not m:
             raise KeyError(f"unexpected generator key {key!r}")
         stacks.setdefault(m.group(1), {})[m.group(2)] = value
-    fp, fs = [], []
-    for i in range(len(feats)):
-        e = feats[i]
-        fp.append({"snconv": {"w": _oihw_to_hwio(e["weight_orig"]),
-                              "b": e["bias"]}})
-        fs.append({"sn": {"u": e["weight_u"].reshape(-1),
-                          "v": e["weight_v"].reshape(-1)[
-                              _v_perm(e["weight_orig"].shape)]}})
+    sn = [_sn_to_jax(feats[i]) for i in range(len(feats))]
+    fp, fs = [p for p, _ in sn], [s for _, s in sn]
     dec_p, dec_s = _stack_to_jax(stacks.pop("decoder"))
     n_body = len(stacks)
     body = [_stack_to_jax(stacks[f"body.{k}"]) for k in range(n_body)]
@@ -147,3 +162,41 @@ def to_jax(state_dict: Dict[str, torch.Tensor]) -> Tuple[Dict, Dict]:
     state = {"encode": {"features": fs}, "decoder": dec_s,
              "body": [s for _, s in body]}
     return params, state
+
+
+def from_jax_discriminator(params: Dict, state: Dict
+                           ) -> Dict[str, torch.Tensor]:
+    """The JAX package's WDiscriminator2D (params, state) -> the port's
+    state_dict."""
+    out: Dict[str, np.ndarray] = {}
+    _sn_from_jax("head.conv", params["head"], state["head"], out)
+    for i, (bp, bs) in enumerate(zip(params["body"], state["body"])):
+        _sn_from_jax(f"body.block{i}.conv", bp, bs, out)
+    out["tail.weight"] = _hwio_to_oihw(params["tail"]["w"])
+    out["tail.bias"] = _f32(params["tail"]["b"])
+    return {k: torch.tensor(v) for k, v in out.items()}  # copies
+
+
+def to_jax_discriminator(state_dict: Dict[str, torch.Tensor]
+                         ) -> Tuple[Dict, Dict]:
+    """The port's WDiscriminator2D state_dict -> the JAX package's (params,
+    state) numpy pytree (what its netD_<k>.ckpt holds)."""
+    sd = _numpy_sd(state_dict)
+    head: Dict[str, np.ndarray] = {}
+    body: Dict[int, Dict[str, np.ndarray]] = {}
+    tail = {}
+    for key, value in sd.items():
+        m = re.match(r"(head|body\.block(\d+))\.conv\.(\w+)$", key)
+        if m:
+            entry = head if m.group(2) is None else \
+                body.setdefault(int(m.group(2)), {})
+            entry[m.group(3)] = value
+        elif key in ("tail.weight", "tail.bias"):
+            tail["w" if key == "tail.weight" else "b"] = (
+                _oihw_to_hwio(value) if key == "tail.weight" else value)
+        else:
+            raise KeyError(f"unexpected discriminator key {key!r}")
+    hp, hs = _sn_to_jax(head)
+    blocks = [_sn_to_jax(body[i]) for i in range(len(body))]
+    return ({"head": hp, "body": [p for p, _ in blocks], "tail": tail},
+            {"head": hs, "body": [s for _, s in blocks]})

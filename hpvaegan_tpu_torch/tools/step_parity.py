@@ -1,0 +1,176 @@
+"""One training iteration on two devices, from the same weights and the
+same draws, compared.
+
+`run_iteration` builds a small training state at one scale from a seed
+(He-normal weights, so that activations keep unit scale, and random
+BatchNorm statistics), runs training/steps.py::train_iteration once (D
+then G on a GAN scale), and returns its metrics, every gradient and every
+BatchNorm and spectral-norm buffer as numpy. The first run records its
+draws (`RecordingNoise`); the second replays them (`ReplayedNoise`), so
+the two see the same batch, refinement noise, eps and GP alpha.
+
+`compare_devices` runs the iteration on the card and on the CPU with TF32
+off and returns the largest differences. chip_smoke.py (phase 5) and
+tests/test_torch_cuda.py call it; it needs a card.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, List, Sequence
+
+import numpy as np
+import torch
+
+from ..models.blocks import BatchNorm2d, Conv2d, SNConv2d
+from ..models.networks_2d import GeneratorHPVAEGAN, WDiscriminator2D
+from ..optim import ClippedAdam, adam
+from ..training.partition import apply_lr_plan, make_lr_plan
+from ..training.state import ScaleTrainState
+from ..training.steps import train_iteration
+from ..utils.noise import NoiseSource
+from ..utils.pyramid import scale_size_2d
+
+
+class RecordingNoise(NoiseSource):
+    """A NoiseSource that keeps every tensor it hands out, in order."""
+
+    def __init__(self, seed: int, device):
+        super().__init__(seed, device)
+        self.drawn: List[torch.Tensor] = []
+
+    def _keep(self, t: torch.Tensor) -> torch.Tensor:
+        self.drawn.append(t)
+        return t
+
+    def normal(self, shape):
+        return self._keep(super().normal(shape))
+
+    def uniform(self):
+        return self._keep(super().uniform())
+
+    def bernoulli(self, shape):
+        return self._keep(super().bernoulli(shape))
+
+
+class ReplayedNoise(NoiseSource):
+    """Hands out another run's draws, in call order, on `device`."""
+
+    def __init__(self, drawn: Sequence[torch.Tensor], device):
+        super().__init__(0, device)
+        self.drawn = [t.to(self.device) for t in drawn]
+
+    def _next(self, shape) -> torch.Tensor:
+        t = self.drawn.pop(0)
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"replayed draw {tuple(t.shape)} for {shape}")
+        return t
+
+    def normal(self, shape):
+        return self._next(shape)
+
+    def uniform(self):
+        return self._next(())
+
+    def bernoulli(self, shape):
+        return self._next(shape)
+
+
+def he_init_(module: torch.nn.Module, gen: torch.Generator) -> None:
+    """He-normal conv weights, small random biases, random BatchNorm
+    affine and moving statistics, unit-norm SN vectors, all from `gen`."""
+    def randn(t):
+        return torch.randn(t.shape, generator=gen)
+
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, (Conv2d, SNConv2d)):
+                w = m.weight if isinstance(m, Conv2d) else m.weight_orig
+                w.copy_(randn(w) * math.sqrt(2.0 / w[0].numel()))
+                m.bias.copy_(0.1 * randn(m.bias))
+            if isinstance(m, SNConv2d):
+                for buf in (m.weight_u, m.weight_v):
+                    v = randn(buf)
+                    buf.copy_(v / v.norm())
+            elif isinstance(m, BatchNorm2d):
+                m.weight.copy_(1.0 + 0.1 * randn(m.weight))
+                m.bias.copy_(0.1 * randn(m.bias))
+                m.running_mean.copy_(0.1 * randn(m.running_mean))
+                m.running_var.copy_(torch.rand(m.running_var.shape,
+                                               generator=gen) + 0.5)
+
+
+def build_state(cfg, scale_idx: int, seed: int, device) -> ScaleTrainState:
+    """G grown to `scale_idx` stages and a D, both from `seed`, with the
+    scale's optimizers; the noise source is left to the caller."""
+    gen = torch.Generator().manual_seed(seed)
+    G = GeneratorHPVAEGAN(cfg)
+    for _ in range(scale_idx):
+        G.init_next_stage()
+    D = WDiscriminator2D(cfg)
+    he_init_(G, gen)
+    he_init_(D, gen)
+    G, D = G.to(device), D.to(device)
+    plan = make_lr_plan(cfg, scale_idx, scale_idx)
+    return ScaleTrainState(
+        G, D, ClippedAdam(apply_lr_plan(G, plan), cfg.beta1,
+                          grad_clip=cfg.grad_clip),
+        adam(D.parameters(), cfg.lr_d, cfg.beta1), None)
+
+
+def run_iteration(cfg, scale_idx: int, seed: int, device,
+                  noise: NoiseSource) -> Dict[str, Dict[str, np.ndarray]]:
+    """One train_iteration at `scale_idx`; returns {"metrics", "grads",
+    "state"} as numpy, keyed by name."""
+    st = build_state(cfg, scale_idx, seed, device)
+    st.noise = noise
+    gen = torch.Generator().manual_seed(seed + 1)
+    data = [torch.rand((1, cfg.nc_im) + tuple(scale_size_2d(
+        k, cfg.scale_factor, cfg.stop_scale, cfg.img_size, cfg.ar)),
+        generator=gen).to(device) for k in (scale_idx, 0)]
+    amps = [1.0] + [0.5 ** k for k in range(1, cfg.stop_scale + 2)]
+    metrics = train_iteration(cfg, st, data[0], data[1], amps,
+                              vae_phase=cfg.vae_levels >= scale_idx + 1)
+    out = {"metrics": {k: float(v) for k, v in metrics.items()},
+           "grads": {}, "state": {}}
+    for prefix, m in (("G.", st.G), ("D.", st.D)):
+        for k, p in m.named_parameters():
+            if p.grad is not None:
+                out["grads"][prefix + k] = p.grad.cpu().numpy()
+        for k, b in m.named_buffers():
+            out["state"][prefix + k] = b.cpu().numpy()
+    return out
+
+
+def compare_devices(cfg, scale_idx: int, seed: int = 0,
+                    device="cuda") -> Dict[str, float]:
+    """The iteration on `device` (TF32 off) and on the CPU from the same
+    weights and draws: the largest relative metric difference and the
+    largest absolute gradient and state differences."""
+    cudnn_tf32 = torch.backends.cudnn.allow_tf32
+    mm_tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        rec = RecordingNoise(seed, device)
+        card = run_iteration(cfg, scale_idx, seed, device, rec)
+    finally:
+        torch.backends.cudnn.allow_tf32 = cudnn_tf32
+        torch.backends.cuda.matmul.allow_tf32 = mm_tf32
+    host = run_iteration(cfg, scale_idx, seed, "cpu",
+                         ReplayedNoise(rec.drawn, "cpu"))
+    if sorted(card["grads"]) != sorted(host["grads"]):
+        raise AssertionError("the two devices trained other parameters")
+    errs = {"metrics_rel": max(
+        abs(card["metrics"][k] - v) / max(abs(v), 1e-6)
+        for k, v in host["metrics"].items())}
+    for part in ("grads", "state"):
+        errs[part + "_abs"] = max(
+            float(np.abs(card[part][k] - v).max())
+            for k, v in host[part].items())
+    finite = all(np.isfinite(v).all() for part in ("grads", "state")
+                 for v in card[part].values())
+    errs["finite"] = bool(finite and all(
+        math.isfinite(v) for v in card["metrics"].values()))
+    errs["metrics"] = card["metrics"]
+    return errs

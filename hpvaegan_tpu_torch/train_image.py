@@ -1,0 +1,203 @@
+"""Multi-scale single-image training CLI (the port of the repo's
+train_image.py; reference train_image.py:215-274).
+
+    python -m hpvaegan_tpu_torch.train_image \
+        --image-path data/imgs/air_balloons.jpg --checkname quick
+
+Runs on the card (cuda:<device-id>) unless `--device cpu` is given. Writes
+run/<image>/<checkname>/experiment_<n>/ in the JAX package's format
+(args.txt, logbook.txt, netG_<k>.ckpt, netD_<k>.ckpt, intermediate.json),
+which the eval CLI of either package evaluates.
+
+The flags are the JAX CLI's, with its defaults. Its XLA knobs are accepted,
+kept in args.txt and change nothing (they change no result there either).
+Flags of parts not ported yet raise NotImplementedError.
+"""
+
+import argparse
+import logging
+import os
+import random
+
+from .config import Config
+from .utils import logger as hlog
+from .utils.device import resolve_device
+from .utils.saver import DataSaver
+
+_NO_EFFECT = "accepted and kept in args.txt; no effect in this port (XLA only)"
+_RESUME = "resume and inflight checkpoints"
+_MULTI = "multi-process and mesh training"
+_VARIANTS = "--paired-g, --fused-dg, --flat-opt and bfloat16"
+
+
+def build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser()
+    parser.add_argument('--device-id', default=0, type=int, help='Device ID')
+    parser.add_argument('--device', default='cuda', choices=('cuda', 'cpu'),
+                        help='train on the card (default) or the CPU')
+
+    # Load, input, save configurations
+    parser.add_argument('--netG', default='', help='path to netG (to continue training; not ported yet)')
+    parser.add_argument('--netD', default='', help='path to netD (not ported yet)')
+    parser.add_argument('--intermediate', default='', help='path to intermediate file (not ported yet)')
+    parser.add_argument('--manualSeed', type=int, help='manual seed')
+
+    # Networks hyper parameters
+    parser.add_argument('--nc-im', type=int, default=3, help='# channels')
+    parser.add_argument('--nfc', type=int, default=64, help='model basic # channels')
+    parser.add_argument('--latent-dim', type=int, default=128, help='Latent dim size')
+    parser.add_argument('--vae-levels', type=int, default=3, help='# VAE levels')
+    parser.add_argument('--enc-blocks', type=int, default=2, help='# encoder blocks')
+    parser.add_argument('--ker-size', type=int, default=3, help='kernel size')
+    parser.add_argument('--num-layer', type=int, default=5, help='number of layers')
+    parser.add_argument('--stride', default=1, help='stride')
+    parser.add_argument('--padd-size', type=int, default=1, help='net pad size')
+    parser.add_argument('--generator', type=str, default='GeneratorHPVAEGAN', help='generator model')
+    parser.add_argument('--discriminator', type=str, default='WDiscriminator2D', help='discriminator model')
+
+    # Pyramid parameters
+    parser.add_argument('--scale-factor', type=float, default=0.75, help='pyramid scale factor')
+    parser.add_argument('--noise_amp', type=float, default=0.1, help='addative noise cont weight')
+    parser.add_argument('--min-size', type=int, default=32, help='image minimal size at the coarser scale')
+    parser.add_argument('--max-size', type=int, default=256, help='image maximal size at the finest scale')
+
+    # Optimization hyper parameters
+    parser.add_argument('--niter', type=int, default=5000, help='number of iterations to train per scale')
+    parser.add_argument('--lr-g', type=float, default=0.0005, help='G learning rate')
+    parser.add_argument('--lr-d', type=float, default=0.0005, help='D learning rate')
+    parser.add_argument('--beta1', type=float, default=0.5, help='beta1 for adam')
+    parser.add_argument('--lambda-grad', type=float, default=0.1, help='gradient penalty weight')
+    parser.add_argument('--rec-weight', type=float, default=10., help='reconstruction loss weight')
+    parser.add_argument('--kl-weight', type=float, default=1., help='KL loss weight')
+    parser.add_argument('--disc-loss-weight', type=float, default=1.0, help='discriminator weight')
+    parser.add_argument('--lr-scale', type=float, default=0.2, help='scaling of learning rate for lower stages')
+    parser.add_argument('--train-depth', type=int, default=1, help='how many layers are trained if growing')
+    parser.add_argument('--grad-clip', type=float, default=5, help='gradient clip')
+    parser.add_argument('--const-amp', action='store_true', default=False, help='constant noise amplitude')
+    parser.add_argument('--train-all', action='store_true', default=False, help='train all levels w.r.t. train-depth')
+
+    # Dataset
+    parser.add_argument('--image-path', required=True, help='image path')
+    parser.add_argument('--hflip', action='store_true', default=False, help='horizontal flip')
+    parser.add_argument('--img-size', type=int, default=256)
+    parser.add_argument('--stop-scale-time', type=int, default=-1)
+    parser.add_argument('--data-rep', type=int, default=1000, help='data repetition')
+
+    # Main arguments
+    parser.add_argument('--checkname', type=str, default='debug', help='check name')
+    parser.add_argument('--mode', default='train', help='task to be done')
+    parser.add_argument('--print-interval', type=int, default=10, help='print interval')
+    parser.add_argument('--image-interval', type=int, default=100, help='image interval')
+    parser.add_argument('--batch-size', type=int, default=1, help='batch size')
+    parser.add_argument('--visualize', action='store_true', default=False, help='visualize the image (not ported yet)')
+
+    # Additions of the JAX package
+    parser.add_argument('--compute-dtype', type=str, default='float32',
+                        choices=['float32', 'bfloat16'],
+                        help='bfloat16 is not ported yet')
+    parser.add_argument('--steps-per-call', type=int, default=8, help=_NO_EFFECT)
+    parser.add_argument('--scan-unroll', type=int, default=1, help=_NO_EFFECT)
+    parser.add_argument('--compile-ahead', action=argparse.BooleanOptionalAction,
+                        default=True, help=_NO_EFFECT)
+    parser.add_argument('--split-step', action='store_true', default=False,
+                        help=_NO_EFFECT)
+    parser.add_argument('--xla-option', dest='xla_options', action='append',
+                        default=None, metavar='KEY=VALUE', help=_NO_EFFECT)
+    parser.add_argument('--profile-dir', type=str, default='',
+                        help='profiler trace directory (not ported yet)')
+    parser.add_argument('--mesh-data', type=int, default=1,
+                        help='data-parallel devices (> 1 not ported yet)')
+    parser.add_argument('--mesh-sp', type=int, default=1,
+                        help='spatial mesh axis (> 1 not ported yet)')
+    parser.add_argument('--dist-coordinator', type=str, default='',
+                        help='multi-process bootstrap (not ported yet)')
+    parser.add_argument('--dist-nprocs', type=int, default=0,
+                        help='process count (not ported yet)')
+    parser.add_argument('--dist-procid', type=int, default=-1,
+                        help="this process's id (not ported yet)")
+    parser.add_argument('--paired-g', action='store_true', default=False,
+                        help='not ported yet')
+    parser.add_argument('--flat-opt', action='store_true', default=False,
+                        help='not ported yet')
+    parser.add_argument('--fused-dg', action='store_true', default=False,
+                        help='not ported yet')
+    parser.add_argument('--ckpt-interval', type=int, default=0,
+                        help='mid-scale checkpoint cadence (not ported yet)')
+    parser.add_argument('--bug-compat', action='store_true', default=False,
+                        help='replicate reference bugs (frozen GP alpha, severed '
+                             'adv G grad, noise amp /batch_size)')
+    parser.add_argument('--run-dir', type=str, default='run', help='experiment root dir')
+    return parser
+
+
+def unported(args) -> list:
+    """(flag, ROADMAP.md queue 1 item) of every flag set to a value this
+    port does not run."""
+    checks = [
+        ("--netG", args.netG, _RESUME),
+        ("--netD", args.netD, _RESUME),
+        ("--intermediate", args.intermediate, _RESUME),
+        ("--ckpt-interval", args.ckpt_interval > 0, _RESUME),
+        ("--visualize", args.visualize, "--visualize"),
+        ("--generator " + args.generator,
+         args.generator != "GeneratorHPVAEGAN", "GeneratorVAE_nb"),
+        ("--mesh-data", args.mesh_data > 1, _MULTI),
+        ("--mesh-sp", args.mesh_sp > 1, _MULTI),
+        ("--dist-coordinator", args.dist_coordinator, _MULTI),
+        ("--dist-nprocs", args.dist_nprocs != 0, _MULTI),
+        ("--dist-procid", args.dist_procid != -1, _MULTI),
+        ("--paired-g", args.paired_g, _VARIANTS),
+        ("--fused-dg", args.fused_dg, _VARIANTS),
+        ("--flat-opt", args.flat_opt, _VARIANTS),
+        ("--compute-dtype bfloat16", args.compute_dtype == "bfloat16",
+         _VARIANTS),
+        ("--profile-dir", args.profile_dir, "--profile-dir"),
+    ]
+    return [(flag, item) for flag, is_set, item in checks if is_set]
+
+
+def cfg_from_args(args: argparse.Namespace) -> Config:
+    bad = unported(args)
+    if bad:
+        raise NotImplementedError("not ported yet: " + "; ".join(
+            f"{flag} (ROADMAP.md queue 1: {item})" for flag, item in bad))
+    cfg = Config()
+    for k, v in vars(args).items():
+        if k == "xla_options" and isinstance(v, list):
+            bad = [s for s in v if "=" not in s]
+            if bad:
+                raise SystemExit(
+                    f"--xla-option expects KEY=VALUE, got: {', '.join(bad)}")
+            v = dict(s.split("=", 1) for s in v)
+        if hasattr(cfg, k):
+            setattr(cfg, k, v)
+    return cfg
+
+
+def main(argv=None):
+    from .training.trainer import run_training
+
+    args = build_parser().parse_args(argv)
+    cfg = cfg_from_args(args).finalize()
+    device = resolve_device(
+        f'cuda:{args.device_id}' if args.device == 'cuda' else 'cpu')
+    if cfg.manualSeed is None:
+        cfg.manualSeed = random.randint(1, 10000)
+
+    saver = DataSaver(cfg, create=True)
+    hlog.configure_logging(os.path.abspath(
+        os.path.join(saver.experiment_dir, 'logbook.txt')))
+    logging.info('Random Seed: %s', cfg.manualSeed)
+    with hlog.LoggingBlock('Experiment Summary', emph=True):
+        logging.info('Experiment dir: %s', saver.experiment_dir)
+        logging.info('Generator      : %s', cfg.generator)
+        logging.info('Iterations     : %s', cfg.niter)
+        logging.info('Rec. Weight    : %s', cfg.rec_weight)
+        logging.info('Scales         : %s', cfg.stop_scale + 1)
+        logging.info('Device         : %s', device)
+    run_training(cfg, saver, device=device, seed=cfg.manualSeed)
+    return saver.experiment_dir
+
+
+if __name__ == '__main__':
+    main()

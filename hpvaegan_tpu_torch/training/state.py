@@ -1,0 +1,22 @@
+"""The training state of one pyramid scale (the port of the JAX package's
+`training/state.py::ScaleTrainState`): the modules and optimizers hold
+their own tensors, and the NoiseSource stands in for the PRNG key."""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from ..models.networks_2d import GeneratorHPVAEGAN, WDiscriminator2D
+from ..optim import ClippedAdam
+from ..utils.noise import NoiseSource
+
+
+@dataclass
+class ScaleTrainState:
+    G: GeneratorHPVAEGAN
+    D: WDiscriminator2D
+    opt_g: ClippedAdam
+    opt_d: torch.optim.Adam
+    noise: NoiseSource

@@ -1,0 +1,102 @@
+"""One training iteration: batch, D update (GAN scales), G update.
+
+The port of the JAX package's `training/steps.py` (`_d_step_core`,
+`_g_step_core`, `make_calibration`, and the body of `make_train_chunk`) as a
+plain loop body: no scan, no iterations fused per call, and the state is
+updated in place. Gradients come from `torch.autograd.grad` on the
+trainable parameters only (D's weights get none in the G step) and are left
+in `.grad` for the optimizer, and for a test to read (G's after the
+optimizer's per-tensor clip, which scales them in place).
+
+What each forward keeps of its state, as in the JAX package:
+  D step      G's fake under no_grad keeps nothing (steps.py:160); D runs on
+              real, fake and the GP's interpolate from the same incoming
+              (u, v), and the real pass's new pair is kept (steps.py:169-181)
+  G step      the reconstruction folds BatchNorm and advances the encoder's
+              (u, v); in the GAN phase the fake folds on top (gs1 -> gs2,
+              steps.py:109-127); D runs on the UPDATED D and keeps nothing
+  calibration keeps nothing (steps.py:338)
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List
+
+import torch
+
+from ..data.image import make_image_batch
+from ..losses import d_loss_fn, g_gan_loss_fn, g_vae_loss_fn
+from ..models.blocks import assign_sn_state
+from .state import ScaleTrainState
+
+Metrics = Dict[str, torch.Tensor]
+
+
+def _set_grads(params: List[torch.Tensor], loss: torch.Tensor) -> None:
+    grads = torch.autograd.grad(loss, params, materialize_grads=True)
+    for p, g in zip(params, grads):
+        p.grad = g
+
+
+def _detached(loss: torch.Tensor, name: str, aux: Metrics) -> Metrics:
+    return {name: loss.detach(), **{k: v.detach() for k, v in aux.items()}}
+
+
+def d_step(cfg, st: ScaleTrainState, real, noise_init, amps) -> Metrics:
+    """WGAN-GP discriminator update (reference losses.py:17-52,
+    train_image.py:157)."""
+    with torch.no_grad():
+        fake = st.G(noise_init, amps, st.noise, bn="batch", commit=False)[0]
+    # one alpha per step; bug_compat freezes it (reference losses.py:26)
+    alpha = 0.5 if cfg.bug_compat else st.noise.uniform()
+    kept = []
+
+    def d_fn(x):
+        y, sn_state = st.D(x)
+        if not kept:
+            kept.append(sn_state)
+        return y
+
+    loss, aux = d_loss_fn(cfg, d_fn, real, fake, alpha)
+    _set_grads(list(st.D.parameters()), loss)
+    st.opt_d.step()
+    assign_sn_state(st.D, kept[0])
+    return _detached(loss, "d_loss", aux)
+
+
+def g_step(cfg, st: ScaleTrainState, real, real_zero, noise_init, amps,
+           vae_phase: bool) -> Metrics:
+    """VAE-phase or GAN-phase generator update (reference losses.py:59-107,
+    train_image.py:152-159)."""
+    gen, gen_vae, mu, logvar = st.G.reconstruct(real_zero, amps, st.noise)
+    if vae_phase:
+        loss, aux = g_vae_loss_fn(cfg, gen, gen_vae, real, real_zero, mu,
+                                  logvar)
+    else:
+        fake = st.G(noise_init, amps, st.noise, bn="batch")[0]
+        loss, aux = g_gan_loss_fn(cfg, lambda x: st.D(x)[0], gen, real, fake)
+    _set_grads([p for g in st.opt_g.param_groups for p in g["params"]], loss)
+    st.opt_g.step()
+    return _detached(loss, "g_loss", aux)
+
+
+@torch.no_grad()
+def calibrate(G, real, real_zero, amps, noise) -> torch.Tensor:
+    """RMSE of the reconstruction against `real` (reference
+    train_image.py:134-148), on the device."""
+    gen = G.reconstruct(real_zero, amps, noise, commit=False)[0]
+    return torch.sqrt(torch.mean((real - gen) ** 2))
+
+
+def train_iteration(cfg, st: ScaleTrainState, data_scale, data_zero, amps,
+                    vae_phase: bool) -> Metrics:
+    """Batch, then D (GAN scales only), then G against the updated D
+    (JAX steps.py:227-245)."""
+    real, real_zero, noise_init = make_image_batch(cfg, data_scale,
+                                                   data_zero, st.noise)
+    metrics = {}
+    if not vae_phase:
+        metrics.update(d_step(cfg, st, real, noise_init, amps))
+    metrics.update(g_step(cfg, st, real, real_zero, noise_init, amps,
+                          vae_phase))
+    return metrics

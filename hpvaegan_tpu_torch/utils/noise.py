@@ -2,10 +2,11 @@
 
 `generate_noise` is the counterpart of the JAX package's
 `utils/noise.py::generate_noise`, with a `torch.Generator` in place of the
-PRNG key. `NoiseSource` bundles the draws a sampling forward makes — the
-latent z_init, the per-stage refinement noise, and the per-stage seed of the
-fused upscale+noise kernel — so that a test can replace it with one that
-hands out another framework's draws.
+PRNG key. `NoiseSource` bundles the draws of sampling and training — the
+latent z_init, the per-stage refinement noise, the per-stage seed of the
+fused upscale+noise kernel, the reparametrisation eps, the GP alpha and the
+hflip flags — so that a test can replace it with one that hands out another
+framework's draws, in call order.
 """
 
 from __future__ import annotations
@@ -34,7 +35,8 @@ def generate_noise(gen: torch.Generator, shape: Sequence[int],
 
 
 class NoiseSource:
-    """The draws of one sampling run, from a generator on `device`.
+    """The draws of one sampling or training run, from a generator on
+    `device`.
 
     Tensor draws come from a generator on the tensors' device. Kernel seeds
     are host integers and come from a second generator on the host, so that
@@ -50,6 +52,14 @@ class NoiseSource:
 
     def normal(self, shape: Sequence[int]) -> torch.Tensor:
         return generate_noise(self.gen, shape, "normal")
+
+    def uniform(self) -> torch.Tensor:
+        """One U[0, 1) scalar on the device (the GP's alpha)."""
+        return generate_noise(self.gen, (), "uniform")
+
+    def bernoulli(self, shape: Sequence[int]) -> torch.Tensor:
+        """Bool Bernoulli(0.5) flags on the device (per-sample hflips)."""
+        return generate_noise(self.gen, shape, "bernoulli", dtype=torch.bool)
 
     def seed(self) -> int:
         """A kernel seed in [0, 2^31 - 1), as networks_2d.py:207 draws it."""

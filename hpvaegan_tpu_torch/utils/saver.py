@@ -1,18 +1,35 @@
-"""Experiment directory layout, checkpoint and JSON IO (the pieces that
-evaluation uses).
+"""Experiment directory layout, checkpoint and JSON IO.
 
 The port of the JAX package's `utils/saver.py`, reading and writing the JAX
-package's formats: checkpoints are pickled numpy pytrees
-({'params': ..., 'state': ...}) named netG_<k>.ckpt, and `intermediate.json`
-carries {noise_amps, scale_idx} (reference: train_image.py:206-210).
+package's formats (reference src/utils/saver.py:21-92):
+  <run_dir>/<clip_name>/<checkname>/experiment_<n>/
+with the run id one past the numeric maximum of the existing ones.
+Checkpoints are pickled numpy pytrees ({'params': ..., 'state': ...}) named
+netG_<k>.ckpt / netD_<k>.ckpt, and `intermediate.json` carries
+{noise_amps, scale_idx} (reference: train_image.py:206-210).
+
+The port's marker has no "key": the port has no JAX PRNG key to record. A
+resume by the JAX package therefore reads it as a keyless, reference-style
+marker and retrains the marker's scale from its checkpoint (JAX
+training/trainer.py:499-534) instead of continuing at the next one.
 """
 
 from __future__ import annotations
 
+import glob
 import json
 import os
 import pickle
 from typing import Any, Dict, Optional
+
+
+def save_pytree(tree, filename: str) -> None:
+    """Pickle a numpy pytree atomically (tmp + rename): a kill mid-write
+    leaves the previous file whole."""
+    tmp = filename + ".tmp"
+    with open(tmp, "wb") as f:
+        pickle.dump(tree, f)
+    os.replace(tmp, filename)
 
 
 def load_pytree(filename: str):
@@ -37,19 +54,52 @@ def resolve_finalized_scale(inter: dict, what: str = "evaluate") -> int:
     return scale_idx
 
 
-class DataSaver:
-    """The eval side of the JAX package's DataSaver: an existing experiment
-    dir (cfg.experiment_dir, set by evaluation.hydrate_config) and its eval/
-    subdir. Creating new experiment dirs belongs to training."""
+def new_experiment_dir(cfg) -> str:
+    """run_dir/<clip>/<checkname>/experiment_<n>, n one past the numeric
+    maximum (a string sort would rank experiment_9 above experiment_10)."""
+    clip = ".".join(os.path.basename(cfg.image_path).split(".")[:-1])
+    directory = os.path.join(cfg.run_dir, clip, cfg.checkname)
+    ids = [int(r.split("_")[-1])
+           for r in glob.glob(os.path.join(directory, "experiment_*"))
+           if r.split("_")[-1].isdigit()]
+    return os.path.join(directory,
+                        "experiment_{}".format(max(ids) + 1 if ids else 0))
 
-    def __init__(self, cfg):
+
+class DataSaver:
+    """An experiment dir and its eval/ subdir. Evaluation opens an existing
+    one (cfg.experiment_dir, set by evaluation.hydrate_config); training
+    (`create=True`) makes a new one under cfg.run_dir."""
+
+    def __init__(self, cfg, create: bool = False):
         self.cfg = cfg
-        self.experiment_dir = cfg.experiment_dir
-        if not os.path.isdir(self.experiment_dir):
-            raise FileNotFoundError(
-                f"experiment dir {self.experiment_dir!r} does not exist")
+        if create:
+            self.experiment_dir = new_experiment_dir(cfg)
+            os.makedirs(self.experiment_dir)
+        else:
+            self.experiment_dir = cfg.experiment_dir
+            if not os.path.isdir(self.experiment_dir):
+                raise FileNotFoundError(
+                    f"experiment dir {self.experiment_dir!r} does not exist")
         self.eval_dir = os.path.join(self.experiment_dir, "eval")
         os.makedirs(self.eval_dir, exist_ok=True)
+
+    def save_checkpoint(self, tree, filename: str) -> None:
+        save_pytree(tree, os.path.join(self.experiment_dir, filename))
+
+    def finalize_scale(self, scale_idx: int, noise_amps, g_tree,
+                       d_tree=None) -> None:
+        """Scale-end artifacts in crash order: netG, netD, then the marker,
+        so that a kill before the marker leaves the previous marker with its
+        checkpoints on disk."""
+        self.save_checkpoint(g_tree, f"netG_{scale_idx}.ckpt")
+        if d_tree is not None:
+            self.save_checkpoint(d_tree, f"netD_{scale_idx}.ckpt")
+        self.save_json({"noise_amps": [float(a) for a in noise_amps],
+                        "scale_idx": scale_idx}, "intermediate.json")
+
+    def load_checkpoint(self, filename: str, path: Optional[str] = None):
+        return load_pytree(os.path.join(path or self.experiment_dir, filename))
 
     def save_json(self, obj: Dict[str, Any], filename: str) -> None:
         dst = os.path.join(self.experiment_dir, filename)

@@ -15,6 +15,7 @@ from hpvaegan_tpu_torch.config import Config
 from hpvaegan_tpu_torch.evaluation import generate_samples
 from hpvaegan_tpu_torch.models.networks_2d import GeneratorHPVAEGAN
 from hpvaegan_tpu_torch.ops import fused_upscale_noise as k1
+from hpvaegan_tpu_torch.tools.step_parity import compare_devices
 
 pytestmark = pytest.mark.cuda
 
@@ -70,3 +71,18 @@ def test_fused_sampler_launches_k1_per_stage(cuda):
     out = generate_samples(cfg, gen, train_mode=False)
     assert k1.fused_upscale_noise_2d.launches == 2 * cfg.stop_scale
     assert out.shape == (6, 33, 33, 3) and np.isfinite(out).all()
+
+
+@pytest.mark.parametrize("scale_idx", [1, 3])
+def test_training_iteration_matches_cpu(cuda, scale_idx):
+    """One training iteration on the card (TF32 off) equals the same
+    iteration on the CPU from the same weights and draws: a VAE-scale G
+    step (scale 1), and a GAN-scale D + G iteration whose GP double
+    backward runs through cuDNN (scale 3). Metrics to rtol 1e-4, gradients
+    and BatchNorm / spectral-norm state to atol 1e-4."""
+    cfg = Config(nfc=8, latent_dim=8, num_layer=2, enc_blocks=1, img_size=32,
+                 min_size=16, max_size=32, vae_levels=2).finalize()
+    errs = compare_devices(cfg, scale_idx, seed=0, device=cuda)
+    assert errs["finite"], errs
+    assert errs["metrics_rel"] <= 1e-4, errs
+    assert errs["grads_abs"] <= 1e-4 and errs["state_abs"] <= 1e-4, errs

@@ -306,13 +306,15 @@ def test_entry_points_refuse_a_missing_card():
         NoiseSource(0)
 
 
-def test_port_imports_no_jax():
+def test_port_imports_no_jax(tmp_path):
     code = (
-        "import sys, numpy as np, torch\n"
+        "import os, sys, numpy as np, torch\n"
         "from hpvaegan_tpu_torch.config import Config\n"
         "from hpvaegan_tpu_torch.evaluation import generate_samples\n"
         "from hpvaegan_tpu_torch.models.networks_2d import GeneratorHPVAEGAN\n"
         "import hpvaegan_tpu_torch.eval_image, hpvaegan_tpu_torch.metrics\n"
+        "import hpvaegan_tpu_torch.tools.step_parity\n"
+        "from hpvaegan_tpu_torch import train_image\n"
         "cfg = Config(nfc=4, latent_dim=4, num_layer=1, img_size=24,\n"
         "             min_size=16, max_size=24, niter=1, num_samples=2,\n"
         "             pallas_fused_sampling=True).finalize()\n"
@@ -323,13 +325,20 @@ def test_port_imports_no_jax():
         "for mode in (True, False):\n"
         "    out = generate_samples(cfg, g, train_mode=mode)\n"
         "    assert out.shape[0] == 2 and np.isfinite(out).all()\n"
+        "exp = train_image.main(['--image-path', 'data/imgs/air_balloons.jpg',\n"
+        "    '--device', 'cpu', '--nfc', '4', '--latent-dim', '4',\n"
+        "    '--num-layer', '1', '--enc-blocks', '1', '--niter', '1',\n"
+        "    '--img-size', '24', '--min-size', '16', '--max-size', '24',\n"
+        "    '--vae-levels', '1', '--run-dir', sys.argv[1]])\n"
+        "assert os.path.isfile(os.path.join(exp, 'netD_1.ckpt'))\n"
         "bad = [m for m in sys.modules\n"
         "       if m == 'jax' or m.startswith(('jax.', 'jaxlib'))\n"
         "       or m == 'hpvaegan_tpu' or m.startswith('hpvaegan_tpu.')]\n"
         "assert not bad, bad\n"
         "print('clean')\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+    res = subprocess.run([sys.executable, "-c", code, str(tmp_path)],
+                         cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr[-2000:]
     assert res.stdout.strip().endswith("clean")
