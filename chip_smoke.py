@@ -36,6 +36,18 @@ Phases, each of which exits non-zero on a failed check:
              top 8 kernels, top 8 operators with their input shapes); then
              scale 9 once more
              with cudnn.benchmark on (the trainer keeps it off)
+  8. video   the video main path: generate_samples(ndim=3) of the full-width
+             3D model (Config() defaults, data/vids/balloons_pan.avi, 13
+             frames, sampling rates 4 3 2 1: 10 scales 4x24x33 ..
+             13x192x257), 64 samples a batch with z at the eval time depth
+             13, in both BatchNorm modes: shape, range, K1 launches 0,
+             videos/s and frames/s, peak memory, one profiled forward, once
+             more with cudnn.benchmark on; then a tiny 3D config on the card
+             with TF32 off against the CPU from the same draws (atol 1e-4)
+  9. video CLI  python -m hpvaegan_tpu_torch.eval_video on a JAX-format
+             video experiment dir (netG_9.ckpt from a numpy seed), 10
+             samples: finite SVFID, random_samples.npy, real_full_scale.npy,
+             the GIFs and unfold PNGs, metrics.json
 Then it prints the kernels' JSON line, the card's name and power limit as
 nvidia-smi gives them, and last {"ok": true, "device": {...}}.
 
@@ -61,6 +73,7 @@ SEED = 0
 BATCH = 64
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_F32_FLOPS = 67e12  # float32 outside the tensor cores, same source
+H100_TF32_FLOPS = 495e12  # TF32 on the tensor cores, dense, same source
 # f32 operations per K1 output element: 3 lerps (sub, mul, add each),
 # Box-Muller (2 int->float, 2 add, 2 mul, 2 clamp, log, mul, sqrt, mul,
 # cos, mul) and amp * noise + clean; the Philox integer work is not counted
@@ -136,16 +149,16 @@ def full_width_config(**kw):
     return cfg
 
 
-def random_jax_checkpoint(cfg, seed):
-    """A full-width generator at scale stop_scale as the JAX package's
-    netG_<k>.ckpt pytree, every tensor drawn with numpy."""
+def random_jax_checkpoint(cfg, seed, ndim=2):
+    """A full-width generator (2D or 3D) at scale stop_scale as the JAX
+    package's netG_<k>.ckpt pytree, every tensor drawn with numpy."""
     import numpy as np
 
-    from hpvaegan_tpu_torch.models.networks_2d import GeneratorHPVAEGAN
+    from hpvaegan_tpu_torch.models import get_generator
     from hpvaegan_tpu_torch.tools.convert import to_jax
 
     rng = np.random.RandomState(seed)
-    gen = GeneratorHPVAEGAN(cfg)
+    gen = get_generator(cfg.generator, ndim)(cfg)
     for _ in range(cfg.stop_scale):
         gen.init_next_stage()
     sd = {}
@@ -155,7 +168,7 @@ def random_jax_checkpoint(cfg, seed):
             a = np.ones(shape)
         elif key.endswith("norm.weight"):
             a = 1.0 + 0.02 * rng.randn(*shape)
-        elif len(shape) == 4:  # conv weights, OIHW
+        elif len(shape) >= 4:  # conv weights, OIHW or OIDHW
             a = rng.randn(*shape) * math.sqrt(2.0 / np.prod(shape[1:]))
         elif key.endswith(("weight_u", "weight_v")):
             a = rng.randn(*shape)
@@ -163,18 +176,18 @@ def random_jax_checkpoint(cfg, seed):
         else:  # biases, BN beta and running_mean
             a = np.zeros(shape)
         sd[key] = a.astype(np.float32)
-    params, state = to_jax(sd)
+    params, state = to_jax(sd, ndim)
     return {"params": params, "state": state}
 
 
-def load_port_generator(cfg, ckpt, device):
-    from hpvaegan_tpu_torch.models.networks_2d import GeneratorHPVAEGAN
+def load_port_generator(cfg, ckpt, device, ndim=2):
+    from hpvaegan_tpu_torch.models import get_generator
     from hpvaegan_tpu_torch.tools.convert import from_jax
 
-    gen = GeneratorHPVAEGAN(cfg)
+    gen = get_generator(cfg.generator, ndim)(cfg)
     for _ in range(len(ckpt["params"]["body"])):
         gen.init_next_stage()
-    gen.load_state_dict(from_jax(ckpt["params"], ckpt["state"]))
+    gen.load_state_dict(from_jax(ckpt["params"], ckpt["state"], ndim))
     return gen.to(device).eval()
 
 
@@ -483,6 +496,30 @@ def _group(name):
     return "elementwise"
 
 
+def device_summary(prof, wall_ms, what):
+    """Device busy ms, idle share, device op count, ms by group and the top
+    8 kernels of one profiler window of `wall_ms` host milliseconds."""
+    from torch.autograd import DeviceType
+
+    by_name, groups, n_kernels = {}, {}, 0
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        ms = e.time_range.elapsed_us() / 1e3
+        n_kernels += 1
+        by_name[e.name] = by_name.get(e.name, 0.0) + ms
+        groups[_group(e.name)] = groups.get(_group(e.name), 0.0) + ms
+    busy = sum(by_name.values())
+    check(busy > 0, f"{what}: the profile shows no device time")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return {"profiled_wall_ms": round(wall_ms, 3),
+            "device_busy_ms": round(busy, 3),
+            "idle_share": round(1 - busy / wall_ms, 4),
+            "device_ops": n_kernels,
+            "groups_ms": {k: round(v, 3) for k, v in sorted(groups.items())},
+            "top_kernels_ms": [[k[:70], round(v, 3)] for k, v in top]}
+
+
 def time_scale(torch, cfg, dataset, scale_idx, amps):
     """Steps/s, D and G ms and one profiled iteration at one scale."""
     from torch.autograd import DeviceType
@@ -536,17 +573,7 @@ def time_scale(torch, cfg, dataset, scale_idx, amps):
         iteration()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    by_name, groups, n_kernels = {}, {}, 0
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        ms = e.time_range.elapsed_us() / 1e3
-        n_kernels += 1
-        by_name[e.name] = by_name.get(e.name, 0.0) + ms
-        groups[_group(e.name)] = groups.get(_group(e.name), 0.0) + ms
-    busy = sum(by_name.values())
-    check(busy > 0, f"scale {scale_idx}: the profile shows no device time")
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    summary = device_summary(prof, wall_ms, f"scale {scale_idx}")
     # the operators that launched them, by input shapes (self device time:
     # no double counting between an op and the ops it calls)
     ops = sorted(((e.key, e.count, e.self_device_time_total / 1e3,
@@ -560,12 +587,7 @@ def time_scale(torch, cfg, dataset, scale_idx, amps):
         "steps_per_s": round(1.0 / step_s, 3),
         "d_step_ms": round(d_ms, 3) if not vae else None,
         "g_step_ms": round(g_ms, 3), "peak_gb": round(peak_gb, 3),
-        "profiled_wall_ms": round(wall_ms, 3),
-        "device_busy_ms": round(busy, 3),
-        "idle_share": round(1 - busy / wall_ms, 4),
-        "device_ops": n_kernels,
-        "groups_ms": {k: round(v, 3) for k, v in sorted(groups.items())},
-        "top_kernels_ms": [[k[:70], round(v, 3)] for k, v in top],
+        **summary,
         "top_ops_ms": [[k[:40], n, round(v, 3), shapes]
                        for k, n, v, shapes in ops]}
 
@@ -591,6 +613,259 @@ def phase_step_timing(torch):
             torch.backends.cudnn.benchmark = False
         print(f"  {name}: " + json.dumps(out[name]), flush=True)
     return out
+
+
+def video_config(**kw):
+    """The full-width video model on balloons_pan.avi: Config() defaults,
+    13 frames, sampling rates 4 3 2 1; the dataset sets org_fps, ar and
+    fps_lcm from the clip. Returns (cfg, dataset on the card)."""
+    from hpvaegan_tpu_torch.data.video import SingleVideoDataset
+    from hpvaegan_tpu_torch.utils import pyramid
+
+    video = os.path.join(HERE, "data", "vids", "balloons_pan.avi")
+    check(os.path.isfile(video), f"missing {video}")
+    cfg = full_width_config(video_path=video, max_frames=13,
+                            sampling_rates=[4, 3, 2, 1], **kw)
+    dataset = SingleVideoDataset(cfg, "cuda")
+    cfg.fps, cfg.td, cfg.fps_index = pyramid.get_fps_td_by_index(
+        cfg.scale_idx, cfg.stop_scale_time, cfg.sampling_rates, cfg.org_fps,
+        cfg.fps_lcm)
+    return cfg, dataset
+
+
+def video_sizes(cfg):
+    """[T, H, W] of every scale of the video pyramid."""
+    from hpvaegan_tpu_torch.utils import pyramid
+
+    return [pyramid.scale_size_3d(i, cfg.scale_factor, cfg.stop_scale,
+                                  cfg.img_size, cfg.stop_scale_time,
+                                  cfg.sampling_rates, cfg.org_fps,
+                                  cfg.fps_lcm, cfg.ar)
+            for i in range(cfg.stop_scale + 1)]
+
+
+def conv_flops(module, fn):
+    """FLOPs (2 per multiply-add) of the convolutions of `module` that one
+    call of fn() runs, from each conv's output shape."""
+    from hpvaegan_tpu_torch.models.blocks import Conv
+
+    total = [0]
+
+    def count(conv, _, y):
+        total[0] += 2 * y.numel() * conv.weight[0].numel()
+
+    hooks = [m.register_forward_hook(count) for m in module.modules()
+             if isinstance(m, Conv)]
+    try:
+        fn()
+    finally:
+        for h in hooks:
+            h.remove()
+    return total[0]
+
+
+def phase_video_sampler(torch, k1, cfg, ckpt):
+    """The video main path at full width, 64 samples, both BatchNorm modes;
+    one profiled forward; cudnn.benchmark on; tiny config card vs CPU."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from hpvaegan_tpu_torch.data.video import SingleVideoDataset
+    from hpvaegan_tpu_torch.evaluation import eval_z_tail, generate_samples
+    from hpvaegan_tpu_torch.models.networks_3d import GeneratorHPVAEGAN
+    from hpvaegan_tpu_torch.parallel import sampling
+    from hpvaegan_tpu_torch.tools.step_parity import compare_sampler_devices
+
+    gen = load_port_generator(cfg, ckpt, "cuda", ndim=3)
+    shape = (BATCH,) + tuple(video_sizes(cfg)[-1]) + (3,)
+    parts = sampling.sub_batches(BATCH, sampling._sample_elements(
+        cfg, 3, cfg.stop_scale, eval_z_tail(cfg, 3)))
+    out = {"sub_batches": [b - a for a, b in parts]}
+    print(f"  z {(BATCH,) + eval_z_tail(cfg, 3)}, samples {shape}, "
+          f"sub-batches {out['sub_batches']}", flush=True)
+
+    def run(train, seed):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        samples = generate_samples(cfg, gen, ndim=3, train_mode=train,
+                                   seed=seed)
+        return samples, time.perf_counter() - t0
+
+    # FLOPs of the convolutions of one 64-sample call, 2 per multiply-add,
+    # counted from each conv's output shape during the first warm-up
+    flops = conv_flops(gen, lambda: run(True, SEED))
+    out["conv_tflop"] = round(flops / 1e12, 3)
+    for name, train in (("per_sample_bn", True), ("moving", False)):
+        run(train, SEED)  # warm-up
+        torch.cuda.reset_peak_memory_stats()
+        k1.fused_upscale_noise_2d.launches = 0
+        secs = []
+        for r in range(2):
+            samples, sec = run(train, SEED + 1 + r)
+            secs.append(sec)
+        launches = k1.fused_upscale_noise_2d.launches
+        check(launches == 0, f"{name}: the video path launched K1 "
+              f"{launches} times")
+        check(samples.shape == shape, f"{name}: samples {samples.shape}, "
+              f"want {shape}")
+        check(bool(np.isfinite(samples).all()), f"{name}: non-finite samples")
+        check(float(np.abs(samples).max()) <= 1.0,
+              f"{name}: samples outside [-1, 1]")
+        sec = sum(secs) / len(secs)
+        out[name] = {"s": [round(t, 4) for t in secs],
+                     "videos_per_s": round(BATCH / sec, 3),
+                     "frames_per_s": round(BATCH * cfg.td / sec, 2),
+                     "peak_gb": round(torch.cuda.max_memory_allocated() / 1e9,
+                                      3),
+                     "std": round(float(samples.std()), 4),
+                     "k1_launches": launches}
+        print(f"  {name}: " + json.dumps(out[name]), flush=True)
+        del samples
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        samples, sec = run(True, SEED)
+    out["profile"] = device_summary(prof, sec * 1e3, "video forward")
+    conv_ms = out["profile"]["groups_ms"].get("conv", 0.0)
+    out["profile"].update({
+        "conv_tflop": out["conv_tflop"],
+        "conv_group_tflop_per_s": round(flops / conv_ms / 1e9, 2)
+        if conv_ms else None,
+        "conv_tf32_bound_ms": round(flops / H100_TF32_FLOPS * 1e3, 3),
+        "d2h_mb": round(samples.nbytes / 1e6, 1)})
+    del samples
+    print("  profile of one per-sample-BN forward (host numpy out): "
+          + json.dumps(out["profile"]), flush=True)
+
+    torch.backends.cudnn.benchmark = True
+    try:
+        run(True, SEED)  # autotunes every conv shape
+        _, sec = run(True, SEED + 1)
+    finally:
+        torch.backends.cudnn.benchmark = False
+    out["cudnn_benchmark"] = {"s": round(sec, 4),
+                              "videos_per_s": round(BATCH / sec, 3),
+                              "frames_per_s": round(BATCH * cfg.td / sec, 2)}
+    print("  per_sample_bn, cudnn.benchmark on: "
+          + json.dumps(out["cudnn_benchmark"]), flush=True)
+
+    # the same batch as one forward, without the sampler's split: what the
+    # split saves in memory and costs in time
+    cap = sampling.MAX_ELEMENTS
+    sampling.MAX_ELEMENTS = 2 ** 62
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        _, sec = run(True, SEED)
+    finally:
+        sampling.MAX_ELEMENTS = cap
+    out["one_forward"] = {"s": round(sec, 4), "peak_gb": round(
+        torch.cuda.max_memory_allocated() / 1e9, 3)}
+    print("  per_sample_bn as one forward of 64 (no split): "
+          + json.dumps(out["one_forward"]), flush=True)
+    del gen
+    torch.cuda.empty_cache()
+
+    tiny = tiny_config(video_path=os.path.join(HERE, "data", "vids",
+                                               "synthetic.avi"),
+                       max_frames=5, sampling_rates=[2, 1], niter=1,
+                       num_samples=3)
+    SingleVideoDataset(tiny, "cpu")
+    tiny.scale_idx = tiny.stop_scale
+    tiny.Noise_Amps = [1.0] + [0.3] * tiny.stop_scale
+    small = GeneratorHPVAEGAN(tiny)
+    g = torch.Generator().manual_seed(SEED)
+    for _ in range(tiny.stop_scale):
+        small.init_next_stage(g)
+    out["card_vs_cpu"] = {}
+    for name, train in (("per_sample_bn", True), ("moving", False)):
+        diff = compare_sampler_devices(tiny, small, 3, train, SEED, "cuda")
+        check(diff <= 1e-4, f"tiny 3D sampler ({name}): card and CPU differ "
+              f"by {diff} (TF32 off)")
+        out["card_vs_cpu"][name] = diff
+    print("  tiny 3D sampler, card vs CPU, TF32 off, max |diff|: "
+          + json.dumps(out["card_vs_cpu"]), flush=True)
+    return out
+
+
+def phase_video_cli(torch, k1, cfg, ckpt):
+    """The user's eval_video CLI on a JAX-format video experiment dir."""
+    from hpvaegan_tpu_torch import eval_video, evaluation
+    from hpvaegan_tpu_torch.metrics import fid
+    from hpvaegan_tpu_torch.utils import media
+
+    # seconds in the three parts of the run that touch every sample, from
+    # wrappers around the functions the CLI calls (the rest is setup: the
+    # decode, the checkpoint, the real frames)
+    parts = {}
+    originals = [(m, n, getattr(m, n)) for m, n in (
+        (evaluation, "generate_samples"), (media, "generate_gifs"),
+        (fid, "svfid_arrays"))]
+
+    def timed(name, fn):
+        def wrapper(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                parts[name] = round(time.perf_counter() - t0, 3)
+        return wrapper
+
+    for m, n, fn in originals:
+        setattr(m, n, timed(n, fn))
+    try:
+        result = _run_video_cli(k1, cfg, ckpt, eval_video)
+    finally:
+        for m, n, fn in originals:
+            setattr(m, n, fn)
+    result["parts_s"] = parts
+    print(f"  CLI: SVFID: {result['svfid']} (random weights, random C3D "
+          f"features), 10 samples, {result['s']:.2f} s, of which "
+          f"{json.dumps(parts)}; K1 launches 0", flush=True)
+    return result
+
+
+def _run_video_cli(k1, cfg, ckpt, eval_video):
+    import numpy as np
+
+    with tempfile.TemporaryDirectory(prefix="hpv_video_") as exp:
+        cfg.write_args_txt(os.path.join(exp, "args.txt"))
+        with open(os.path.join(exp, "intermediate.json"), "w") as f:
+            json.dump({"noise_amps": cfg.Noise_Amps,
+                       "scale_idx": cfg.stop_scale}, f)
+        with open(os.path.join(exp, f"netG_{cfg.stop_scale}.ckpt"), "wb") as f:
+            pickle.dump(ckpt, f)
+        k1.fused_upscale_noise_2d.launches = 0
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            eval_video.main(["--exp-dir", exp, "--num-samples", "10"])
+        secs = time.perf_counter() - t0
+        lines = [ln for ln in buf.getvalue().splitlines()
+                 if ln.startswith("SVFID: ")]
+        check(len(lines) == 1, f"CLI printed {buf.getvalue()!r}")
+        svfid = float(lines[0].split()[1])
+        check(math.isfinite(svfid) and svfid >= 0, f"SVFID {svfid}")
+        ev = os.path.join(exp, "eval")
+        t, h, w = video_sizes(cfg)[-1]
+        samples = np.load(os.path.join(ev, "random_samples.npy"))
+        check(samples.shape == (10, 3, t, h, w), f"npy {samples.shape}")
+        check(bool(np.isfinite(samples).all())
+              and float(np.abs(samples).max()) <= 1.0, "bad samples")
+        real = np.load(os.path.join(ev, "real_full_scale.npy"))
+        check(real.shape == (cfg.max_frames, h, w, 3)
+              and real.dtype == np.uint8,
+              f"real_full_scale.npy {real.shape} {real.dtype}")
+        files = sorted(os.listdir(os.path.join(ev, "images")))
+        check(files == ["fake.gif", "fake_unfold.png", "real.gif",
+                        "real_unfold.png"], f"artifacts {files}")
+        with open(os.path.join(ev, "metrics.json")) as f:
+            metrics = json.load(f)
+        check(metrics["metric"] == "SVFID" and metrics["value"] == svfid,
+              f"metrics.json {metrics}")
+    launches = k1.fused_upscale_noise_2d.launches
+    check(launches == 0, f"the video CLI launched K1 {launches} times")
+    return {"svfid": svfid, "s": secs}
 
 
 def main():
@@ -647,6 +922,20 @@ def main():
 
     print("phase 7: training step timing at full width, batch 1", flush=True)
     phase_step_timing(torch)
+
+    vcfg, _ = video_config()
+    vsizes = video_sizes(vcfg)
+    check([s[0] for s in vsizes] == [4, 4, 4, 5, 5, 5, 7, 7, 7, 13]
+          and vsizes[0][1:] == [24, 33] and vsizes[-1][1:] == [192, 257],
+          f"video pyramid {vsizes}")
+    print(f"phase 8: video sampler, {BATCH} samples at full width, scales "
+          f"(T, H, W) {vsizes}, z td {vcfg.td}", flush=True)
+    vckpt = random_jax_checkpoint(vcfg, SEED, ndim=3)
+    phase_video_sampler(torch, k1, vcfg, vckpt)
+
+    print("phase 9: eval_video CLI on a JAX-format experiment dir",
+          flush=True)
+    phase_video_cli(torch, k1, vcfg, vckpt)
 
     kernels = [{
         "name": "fused_upscale_noise_2d",

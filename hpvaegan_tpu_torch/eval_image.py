@@ -18,7 +18,10 @@ import os
 from .evaluation import eval_image_experiment, hydrate_config
 
 
-def main(argv=None):
+def run(argv, evaluate, metric: str) -> None:
+    """The eval CLIs' shared body: parse the flags, then for each
+    experiment dir of the --exp-dir glob print `<metric>: <value>` from
+    evaluate(cfg, exp_dir, device=...)."""
     parser = argparse.ArgumentParser()
     parser.add_argument('--device-id', default=0, type=int, help='Device ID')
     parser.add_argument('--device', default='cuda', choices=('cuda', 'cpu'),
@@ -54,8 +57,12 @@ def main(argv=None):
                          netG=(os.path.join(exp_dir, args.netG)
                                if args.netG else ''))
         cfg = hydrate_config(exp_dir, overrides)
-        sifid, _ = eval_image_experiment(cfg, exp_dir, device=device)
-        print(f'SIFID: {sifid}')
+        value, _ = evaluate(cfg, exp_dir, device=device)
+        print(f'{metric}: {value}')
+
+
+def main(argv=None):
+    run(argv, eval_image_experiment, 'SIFID')
 
 
 if __name__ == '__main__':

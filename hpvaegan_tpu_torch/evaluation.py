@@ -1,12 +1,13 @@
-"""Image evaluation: hydrate an experiment, sample from its generator, score.
+"""Evaluation: hydrate an experiment, sample from its generator, score.
 
-The port of the JAX package's `evaluation.py` for images (reference
-eval_image.py:24-76): rebuild the config from args.txt, load netG at the
+The port of the JAX package's `evaluation.py` (reference eval_image.py:24-76,
+eval_video.py:23-85): rebuild the config from args.txt, load netG at the
 saved scale, generate niter x num_samples random samples in batched
-forwards, write random_samples.npy and PNGs, compute SIFID. Experiments are
-read in the JAX package's format, so an experiment trained by either
-package evaluates here. The on-device SIFID path, video, mesh-sharded and
-multi-process evaluation, and .pth/MindSpore checkpoints are not ported yet.
+forwards, write random_samples.npy and PNGs (images) or GIFs and unfold
+grids (videos), compute SIFID or SVFID. Experiments are read in the JAX
+package's format, so an experiment trained by either package evaluates
+here. The on-device SIFID/SVFID paths, mesh-sharded and multi-process
+evaluation, and .pth/MindSpore checkpoints are not ported yet.
 """
 
 from __future__ import annotations
@@ -71,7 +72,7 @@ def load_generator(cfg, exp_dir: str, ndim: int = 2, netG: str = "",
     generator = models.get_generator(cfg.generator, ndim)(cfg)
     for _ in range(cfg.scale_idx):
         generator.init_next_stage()
-    generator.load_state_dict(from_jax(ckpt["params"], ckpt["state"]))
+    generator.load_state_dict(from_jax(ckpt["params"], ckpt["state"], ndim))
     return generator.to(device).eval(), saver
 
 
@@ -87,19 +88,24 @@ def _check_body(params, cfg, path: str) -> None:
 
 def eval_z_tail(cfg, ndim: int = 2):
     """Per-sample latent shape for eval-time generation, channels-last:
-    (h0, w0, latent_dim)."""
-    if ndim != 2:
-        raise NotImplementedError("video evaluation is not ported yet")
+    (h0, w0, latent_dim), in 3D (td, h0, w0, latent_dim) with the time
+    depth of the EVAL scale, cfg.td (reference eval_video.py:36-39), or of
+    cfg.scale_idx where cfg.td is unset."""
     h0, w0 = pyramid.scale_size_2d(0, cfg.scale_factor, cfg.stop_scale,
                                    cfg.img_size, cfg.ar)
-    return (h0, w0, cfg.latent_dim)
+    if ndim == 2:
+        return (h0, w0, cfg.latent_dim)
+    td = cfg.td or pyramid.get_fps_td_by_index(
+        cfg.scale_idx, cfg.stop_scale_time, cfg.sampling_rates, cfg.org_fps,
+        cfg.fps_lcm)[1]
+    return (td, h0, w0, cfg.latent_dim)
 
 
 def generate_samples(cfg, generator, ndim: int = 2, seed: int = 0,
                      train_mode: bool = True,
                      noise: Optional[NoiseSource] = None) -> np.ndarray:
     """niter batches of num_samples random samples; returns channels-last
-    (N, H, W, C) numpy in [-1, 1].
+    (N, H, W, C) numpy in [-1, 1], in 3D (N, T, H, W, C).
 
     train_mode=True (default) samples with per-sample-statistics BatchNorm,
     as the reference's eval does; train_mode=False is the plain batched
@@ -113,7 +119,7 @@ def generate_samples(cfg, generator, ndim: int = 2, seed: int = 0,
     sample = sharded_sampler(cfg, generator, ndim=ndim, train=train_mode,
                              z_tail=eval_z_tail(cfg, ndim))
     outs = [sample(cfg.num_samples, noise) for _ in range(cfg.niter)]
-    return torch.cat(outs, dim=0).permute(0, 2, 3, 1).cpu().numpy()
+    return torch.cat(outs, dim=0).movedim(1, -1).cpu().numpy()
 
 
 def _persist_eval_metrics(saver, cfg, metric: str, value: float) -> None:
@@ -151,3 +157,44 @@ def eval_image_experiment(cfg, exp_dir: str, seed: int = 0, device="cuda"):
     _persist_eval_metrics(saver, cfg, "SIFID", sifid)
     logging.info("SIFID: %s", sifid)
     return sifid, saver
+
+
+def eval_video_experiment(cfg, exp_dir: str, seed: int = 0, device="cuda"):
+    """One experiment dir: samples -> npy -> GIFs -> SVFID (reference
+    eval_video.py:23-85, 185-193). Returns (svfid, saver)."""
+    from .data.video import SingleVideoDataset
+    from .metrics.fid import svfid_arrays
+    from .utils.media import generate_gifs
+
+    device = resolve_device(device)
+    dataset = SingleVideoDataset(cfg, device)
+    generator, saver = load_generator(cfg, exp_dir, ndim=3, netG=cfg.netG,
+                                      device=device)
+    cfg.fps, cfg.td, cfg.fps_index = pyramid.get_fps_td_by_index(
+        cfg.scale_idx, cfg.stop_scale_time, cfg.sampling_rates, cfg.org_fps,
+        cfg.fps_lcm)
+
+    # real_full_scale.npy: every decoded frame at the saved scale,
+    # (T, H, W, C) uint8
+    frames = dataset.scale_frames(cfg.scale_idx)[0].permute(1, 2, 3, 0)
+    frames = frames.cpu().numpy()
+    np.save(os.path.join(saver.eval_dir, "real_full_scale.npy"),
+            (frames * 255).astype(np.uint8))
+
+    samples = generate_samples(cfg, generator, ndim=3, seed=seed)
+    # reference artifact layout: (N, C, T, H, W)
+    np.save(os.path.join(saver.eval_dir, "random_samples.npy"),
+            samples.transpose(0, 4, 1, 2, 3))
+    generate_gifs(cfg, saver)
+
+    # the real side is the window the model trained on at this scale's
+    # sampling rate, not the first td full-rate frames
+    window = frames[:cfg.fps_lcm + 1:cfg.sampling_rates[cfg.fps_index]]
+    reals = window[None]
+    fakes = (samples + 1) / 2
+    t, h, w = (min(a, b) for a, b in zip(reals.shape[1:4], fakes.shape[1:4]))
+    svfid = float(np.mean(svfid_arrays(reals[:, :t, :h, :w],
+                                       fakes[:, :t, :h, :w], device=device)))
+    _persist_eval_metrics(saver, cfg, "SVFID", svfid)
+    logging.info("SVFID: %s", svfid)
+    return svfid, saver

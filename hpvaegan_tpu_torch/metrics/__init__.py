@@ -1,1 +1,2 @@
-from .fid import calculate_SIFID, calculate_frechet_distance  # noqa: F401
+from .fid import (calculate_SIFID, calculate_SVFID,  # noqa: F401
+                  calculate_frechet_distance)

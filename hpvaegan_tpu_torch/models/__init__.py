@@ -1,24 +1,25 @@
-"""Model registry: name -> module class (the port of the JAX package's
-`models/__init__.py`). Only the 2D GeneratorHPVAEGAN and WDiscriminator2D
-are ported so far."""
+"""Model registry: (name, ndim) -> module class (the port of the JAX
+package's `models/__init__.py`). Ported so far: GeneratorHPVAEGAN in 2D and
+3D, WDiscriminator2D."""
 
-from .networks_2d import GeneratorHPVAEGAN, WDiscriminator2D
+from . import networks_2d, networks_3d
 
-GENERATORS_2D = {"GeneratorHPVAEGAN": GeneratorHPVAEGAN}
-DISCRIMINATORS_2D = {"WDiscriminator2D": WDiscriminator2D}
+GENERATORS = {("GeneratorHPVAEGAN", 2): networks_2d.GeneratorHPVAEGAN,
+              ("GeneratorHPVAEGAN", 3): networks_3d.GeneratorHPVAEGAN}
+DISCRIMINATORS = {("WDiscriminator2D", 2): networks_2d.WDiscriminator2D}
 
 
 def _lookup(table, kind: str, name: str, ndim: int):
-    if ndim != 2 or name not in table:
+    if (name, ndim) not in table:
         raise NotImplementedError(
             f"{kind} {name!r} ({ndim}D) is not ported yet "
-            f"(have {list(table)}, 2D)")
-    return table[name]
+            f"(have {[f'{n} ({d}D)' for n, d in table]})")
+    return table[(name, ndim)]
 
 
 def get_generator(name: str, ndim: int = 2):
-    return _lookup(GENERATORS_2D, "generator", name, ndim)
+    return _lookup(GENERATORS, "generator", name, ndim)
 
 
 def get_discriminator(name: str, ndim: int = 2):
-    return _lookup(DISCRIMINATORS_2D, "discriminator", name, ndim)
+    return _lookup(DISCRIMINATORS, "discriminator", name, ndim)

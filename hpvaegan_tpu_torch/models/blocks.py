@@ -1,11 +1,12 @@
-"""Shared 2D building blocks as `nn.Module`s on NCHW tensors.
+"""Shared 2D / 3D building blocks as `nn.Module`s on NCHW / NCDHW tensors.
 
 The port of the JAX package's `models/blocks.py` (reference
-src/modules/networks_2d.py:44-82):
+src/modules/networks_2d.py:44-82, networks_3d.py:45-86):
   ConvBlock = Conv(Normal 0.02) + BatchNorm(gamma ~ N(1, 0.02)) + LeakyReLU(0.2)
   ConvStack = head block + num_layer blocks + plain conv tail
-  SNConv2d  = spectral-norm conv (ops/spectral_norm.py), (u, v) as buffers
-  SNBlock   = SNConv2d + LeakyReLU(0.2) (the reference's ConvBlockSN, bn=True)
+  SNConv    = spectral-norm conv (ops/spectral_norm.py), (u, v) as buffers
+  SNBlock   = SNConv + LeakyReLU(0.2) (the reference's ConvBlockSN, bn=True)
+`ndim` is 2 for images (OIHW weights) and 3 for videos (OIDHW).
 Module and parameter names follow the original hp-vae-gan state_dict
 (`head`, `block<i>`, `tail`, `conv`, `norm`, `weight_orig`, ...), which is
 also what the JAX package's tools/convert.py reads and writes.
@@ -30,26 +31,27 @@ from typing import List, Sequence, Tuple
 import torch
 import torch.nn as nn
 
-from ..ops.conv import conv2d, lrelu
+from ..ops.conv import conv, lrelu
 from ..ops.norm import batchnorm
 from ..ops.spectral_norm import spectral_normalize
 
 
-class Conv2d(nn.Module):
-    """Plain conv: weight (O, I, k, k), bias (O,)."""
+class Conv(nn.Module):
+    """Plain conv: weight (O, I, k, k) or (O, I, k, k, k), bias (O,)."""
 
-    def __init__(self, cin: int, cout: int, ker: int, padding: int):
+    def __init__(self, cin: int, cout: int, ker: int, padding: int,
+                 ndim: int = 2):
         super().__init__()
-        self.weight = nn.Parameter(torch.zeros(cout, cin, ker, ker))
+        self.weight = nn.Parameter(torch.zeros((cout, cin) + (ker,) * ndim))
         self.bias = nn.Parameter(torch.zeros(cout))
         self.padding = padding
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return conv2d(x, self.weight, self.bias, padding=self.padding)
+        return conv(x, self.weight, self.bias, padding=self.padding)
 
 
-class BatchNorm2d(nn.Module):
-    """gamma/beta as `weight`/`bias`, moving stats as buffers."""
+class BatchNorm(nn.Module):
+    """gamma/beta as `weight`/`bias`, moving stats as buffers; any rank."""
 
     def __init__(self, ch: int):
         super().__init__()
@@ -70,10 +72,11 @@ class BatchNorm2d(nn.Module):
 
 
 class ConvBlock(nn.Module):
-    def __init__(self, cin: int, cout: int, ker: int, padding: int):
+    def __init__(self, cin: int, cout: int, ker: int, padding: int,
+                 ndim: int = 2):
         super().__init__()
-        self.conv = Conv2d(cin, cout, ker, padding)
-        self.norm = BatchNorm2d(cout)
+        self.conv = Conv(cin, cout, ker, padding, ndim)
+        self.norm = BatchNorm(cout)
 
     def forward(self, x: torch.Tensor, bn: str,
                 commit: bool = True) -> torch.Tensor:
@@ -82,16 +85,16 @@ class ConvBlock(nn.Module):
 
 class ConvStack(nn.Module):
     """head + num_layer blocks + tail conv: the decoder and every refinement
-    stage (networks_2d.py:207-213, 224-235)."""
+    stage (networks_2d.py:207-213, 224-235; networks_3d.py:186-211)."""
 
     def __init__(self, cin: int, mid: int, cout: int, ker: int, padd: int,
-                 num_layer: int):
+                 num_layer: int, ndim: int = 2):
         super().__init__()
-        self.head = ConvBlock(cin, mid, ker, padd)
+        self.head = ConvBlock(cin, mid, ker, padd, ndim)
         for i in range(num_layer):
-            setattr(self, f"block{i}", ConvBlock(mid, mid, ker, padd))
+            setattr(self, f"block{i}", ConvBlock(mid, mid, ker, padd, ndim))
         self.num_layer = num_layer
-        self.tail = Conv2d(mid, cout, ker, ker // 2)
+        self.tail = Conv(mid, cout, ker, ker // 2, ndim)
 
     def forward(self, x: torch.Tensor, bn: str,
                 commit: bool = True) -> torch.Tensor:
@@ -101,17 +104,18 @@ class ConvStack(nn.Module):
         return self.tail(x)
 
 
-class SNConv2d(nn.Module):
+class SNConv(nn.Module):
     """Spectral-norm conv (JAX ops/spectral_norm.py::sn_conv_apply):
     `weight_orig`, `bias`, and the power-iteration vectors `weight_u` (O,)
-    and `weight_v` (I*k*k,) as buffers; zero padding ker // 2."""
+    and `weight_v` (I * k^ndim,) as buffers; zero padding ker // 2."""
 
-    def __init__(self, cin: int, cout: int, ker: int):
+    def __init__(self, cin: int, cout: int, ker: int, ndim: int = 2):
         super().__init__()
-        self.weight_orig = nn.Parameter(torch.zeros(cout, cin, ker, ker))
+        self.weight_orig = nn.Parameter(
+            torch.zeros((cout, cin) + (ker,) * ndim))
         self.bias = nn.Parameter(torch.zeros(cout))
         self.register_buffer("weight_u", torch.zeros(cout))
-        self.register_buffer("weight_v", torch.zeros(cin * ker * ker))
+        self.register_buffer("weight_v", torch.zeros(cin * ker ** ndim))
         self.padding = ker // 2
 
     def forward(self, x: torch.Tensor, u: torch.Tensor, v: torch.Tensor
@@ -119,16 +123,16 @@ class SNConv2d(nn.Module):
         """Conv with W / sigma from one power step on (u, v); returns the
         output and the new (u, v). The buffers are not written."""
         w, u, v = spectral_normalize(self.weight_orig, u, v)
-        return conv2d(x, w, self.bias, padding=self.padding), (u, v)
+        return conv(x, w, self.bias, padding=self.padding), (u, v)
 
 
 class SNBlock(nn.Module):
     """SN conv + LeakyReLU(0.2) (JAX models/blocks.py::sn_block_apply), on
     the (u, v) held in its buffers."""
 
-    def __init__(self, cin: int, cout: int, ker: int):
+    def __init__(self, cin: int, cout: int, ker: int, ndim: int = 2):
         super().__init__()
-        self.conv = SNConv2d(cin, cout, ker)
+        self.conv = SNConv(cin, cout, ker, ndim)
 
     def forward(self, x: torch.Tensor):
         y, uv = self.conv(x, self.conv.weight_u, self.conv.weight_v)
@@ -149,8 +153,8 @@ def sn_blocks_apply(blocks: Sequence[SNBlock], x: torch.Tensor
     return x, state
 
 
-def sn_convs(module: nn.Module) -> List[SNConv2d]:
-    return [m for m in module.modules() if isinstance(m, SNConv2d)]
+def sn_convs(module: nn.Module) -> List[SNConv]:
+    return [m for m in module.modules() if isinstance(m, SNConv)]
 
 
 def assign_sn_state(module: nn.Module, state: SNState) -> None:
@@ -171,16 +175,16 @@ def init_weights_(module: nn.Module, gen: torch.Generator) -> nn.Module:
     moving stats (0, 1) (ops/norm.py), unit-norm random SN vectors."""
     with torch.no_grad():
         for m in module.modules():
-            if isinstance(m, Conv2d):
+            if isinstance(m, Conv):
                 m.weight.copy_(torch.randn(m.weight.shape, generator=gen) * 0.02)
                 m.bias.zero_()
-            elif isinstance(m, BatchNorm2d):
+            elif isinstance(m, BatchNorm):
                 m.weight.copy_(1.0 + 0.02 * torch.randn(m.weight.shape,
                                                         generator=gen))
                 m.bias.zero_()
                 m.running_mean.zero_()
                 m.running_var.fill_(1.0)
-            elif isinstance(m, SNConv2d):
+            elif isinstance(m, SNConv):
                 m.weight_orig.copy_(torch.randn(m.weight_orig.shape,
                                                 generator=gen) * 0.02)
                 m.bias.zero_()

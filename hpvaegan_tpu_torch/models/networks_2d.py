@@ -34,19 +34,21 @@ from ..ops.fused_upscale_noise import fused_upscale_noise_2d
 from ..ops.resize import upscale_2d
 from ..utils.noise import NoiseSource
 from ..utils.pyramid import scale_size_2d
-from .blocks import (Conv2d, ConvStack, SNBlock, SNState, assign_sn_state,
+from .blocks import (Conv, ConvStack, SNBlock, SNState, assign_sn_state,
                      init_weights_, sn_blocks_apply)
 
 
 class _ConvHead(nn.Module):
-    def __init__(self, cin: int, cout: int, ker: int):
+    def __init__(self, cin: int, cout: int, ker: int, ndim: int):
         super().__init__()
-        self.conv = Conv2d(cin, cout, ker, ker // 2)
+        self.conv = Conv(cin, cout, ker, ker // 2, ndim)
 
 
 class Encode2DVAE(nn.Module):
     """The VAE encoder (networks_2d.py:31-52): enc_blocks + 1 spectral-norm
     conv blocks, then the mu and logvar convs."""
+
+    ndim = 2
 
     def __init__(self, cfg, out_dim: int, num_blocks: int):
         super().__init__()
@@ -54,10 +56,10 @@ class Encode2DVAE(nn.Module):
         chans = [cfg.nc_im] + [cfg.nfc] * (num_blocks + 1)
         for i in range(num_blocks + 1):
             setattr(self.features, f"conv_block_{i}",
-                    SNBlock(chans[i], chans[i + 1], cfg.ker_size))
+                    SNBlock(chans[i], chans[i + 1], cfg.ker_size, self.ndim))
         self.num_blocks = num_blocks + 1
-        self.mu = _ConvHead(cfg.nfc, out_dim, cfg.ker_size)
-        self.logvar = _ConvHead(cfg.nfc, out_dim, cfg.ker_size)
+        self.mu = _ConvHead(cfg.nfc, out_dim, cfg.ker_size, self.ndim)
+        self.logvar = _ConvHead(cfg.nfc, out_dim, cfg.ker_size, self.ndim)
 
     def forward(self, x: torch.Tensor
                 ) -> Tuple[Tuple[torch.Tensor, torch.Tensor], SNState]:
@@ -81,7 +83,7 @@ class WDiscriminator2D(nn.Module):
         for i in range(cfg.num_layer):
             setattr(self.body, f"block{i}", SNBlock(n, n, cfg.ker_size))
         self.num_layer = cfg.num_layer
-        self.tail = Conv2d(n, 1, cfg.ker_size, 1)
+        self.tail = Conv(n, 1, cfg.ker_size, 1)
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, SNState]:
         """Returns (scores (B, 1, H', W'), the new (u, v) of every SN conv,
@@ -126,13 +128,25 @@ def refinement_layers(cfg, body: Sequence[nn.Module], x: torch.Tensor, amps,
 
 
 class GeneratorHPVAEGAN(nn.Module):
+    """The 2D generator; models/networks_3d.py subclasses it for video
+    (`ndim`, `encoder_cls` and `_refine` are what differ)."""
+
+    ndim = 2
+    encoder_cls = Encode2DVAE
+
     def __init__(self, cfg):
         super().__init__()
         self.cfg = cfg
-        self.encode = Encode2DVAE(cfg, cfg.latent_dim, cfg.enc_blocks)
+        self.encode = self.encoder_cls(cfg, cfg.latent_dim, cfg.enc_blocks)
         self.decoder = ConvStack(cfg.latent_dim, int(cfg.nfc), cfg.nc_im,
-                                 cfg.ker_size, cfg.padd_size, cfg.num_layer)
+                                 cfg.ker_size, cfg.padd_size, cfg.num_layer,
+                                 self.ndim)
         self.body = nn.ModuleList()
+
+    def _refine(self, x: torch.Tensor, amps, noise: NoiseSource, *,
+                is_random: bool, bn: str, commit: bool) -> torch.Tensor:
+        return refinement_layers(self.cfg, self.body, x, amps, noise,
+                                 is_random=is_random, bn=bn, commit=commit)
 
     def init_next_stage(self, gen: Optional[torch.Generator] = None) -> None:
         """Grow the refinement body by one stage (networks_2d.py:224-235):
@@ -142,7 +156,7 @@ class GeneratorHPVAEGAN(nn.Module):
             cfg = self.cfg
             param = self.decoder.tail.weight
             stage = ConvStack(cfg.nc_im, int(cfg.nfc), cfg.nc_im, cfg.ker_size,
-                              cfg.padd_size, cfg.num_layer)
+                              cfg.padd_size, cfg.num_layer, self.ndim)
             if gen is not None:
                 init_weights_(stage, gen)
             stage = stage.to(device=param.device, dtype=param.dtype)
@@ -153,26 +167,27 @@ class GeneratorHPVAEGAN(nn.Module):
     def forward(self, noise_init: torch.Tensor, amps, noise: NoiseSource, *,
                 bn: str = "batch", commit: bool = True
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Random-mode forward from z = noise_init (B, latent_dim, h0, w0).
-        Returns (x, vae_out). bn: "batch", "moving" or "sample"
-        (ops/norm.py)."""
+        """Random-mode forward from z = noise_init (B, latent_dim, h0, w0;
+        in 3D (B, latent_dim, td, h0, w0)). Returns (x, vae_out). bn:
+        "batch", "moving" or "sample" (ops/norm.py)."""
         vae_out = torch.tanh(self.decoder(noise_init, bn, commit))
-        x = refinement_layers(self.cfg, self.body, vae_out, amps, noise,
-                              is_random=True, bn=bn, commit=commit)
+        x = self._refine(vae_out, amps, noise, is_random=True, bn=bn,
+                         commit=commit)
         return x, vae_out
 
     def reconstruct(self, video: torch.Tensor, amps, noise: NoiseSource, *,
                     commit: bool = True):
         """Training-mode reconstruction of `video` (the scale-0 image, B, C,
-        h0, w0) with batch-statistics BatchNorm (networks_2d.py:240-250):
+        h0, w0; in 3D the scale-0 clip, B, C, T, h0, w0) with
+        batch-statistics BatchNorm (networks_2d.py:240-250):
         z = eps * exp(logvar / 2) + mu. Returns (x, vae_out, mu, logvar).
         With commit, BatchNorm folds and the encoder keeps its new (u, v)."""
         (mu, logvar), enc_state = self.encode(video)
         std = torch.exp(logvar * 0.5)
         z = noise.normal(std.shape) * std + mu
         vae_out = torch.tanh(self.decoder(z, "batch", commit))
-        x = refinement_layers(self.cfg, self.body, vae_out, amps, noise,
-                              is_random=False, bn="batch", commit=commit)
+        x = self._refine(vae_out, amps, noise, is_random=False, bn="batch",
+                         commit=commit)
         if commit:
             assign_sn_state(self.encode, enc_state)
         return x, vae_out, mu, logvar

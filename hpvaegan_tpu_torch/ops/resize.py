@@ -1,11 +1,13 @@
-"""Separable linear resize as per-axis 2-tap gather + lerp, on NCHW tensors.
+"""Separable linear resize as per-axis 2-tap gather + lerp, on NCHW and
+NCDHW tensors.
 
 The port of the JAX package's `ops/resize.py`. The reference needs two
 interpolation semantics:
-  * align_corners=True bilinear inside the model
-    (reference: src/utils/images.py:40-61)
+  * align_corners=True bilinear / trilinear inside the model
+    (reference: src/utils/images.py:40-61, src/tools/trilinear.py:171-254)
   * half-pixel bilinear (cv2.INTER_LINEAR, no antialias) in the data
-    pipeline (reference: src/datasets/image.py:75)
+    pipeline (reference: src/datasets/image.py:75,
+    src/datasets/generate_frames.py:44-46)
 
 Each output sample touches exactly 2 inputs. The index and fraction tables
 are computed on the host by `_interp_gather`, whose arithmetic (float64
@@ -81,10 +83,20 @@ def resize_linear(x: torch.Tensor, axes: Sequence[int], sizes: Sequence[int],
 
 def resize_bilinear(x: torch.Tensor, size_hw: Sequence[int],
                     align_corners: bool = True) -> torch.Tensor:
-    """Bilinear resize of (B, C, H, W) tensors, H then W."""
-    if x.ndim != 4:
-        raise ValueError(f"resize_bilinear expects rank 4 NCHW, got {x.ndim}")
-    return resize_linear(x, (2, 3), size_hw, align_corners)
+    """Bilinear resize of (B, C, H, W) or (B, C, T, H, W) tensors, H then W;
+    rank-5 inputs are resized frame by frame."""
+    if x.ndim not in (4, 5):
+        raise ValueError(f"resize_bilinear expects rank 4 NCHW or 5 NCDHW, "
+                         f"got {x.ndim}")
+    return resize_linear(x, (x.ndim - 2, x.ndim - 1), size_hw, align_corners)
+
+
+def resize_trilinear(x: torch.Tensor, size_thw: Sequence[int],
+                     align_corners: bool = True) -> torch.Tensor:
+    """Trilinear resize of (B, C, T, H, W) tensors, T then H then W."""
+    if x.ndim != 5:
+        raise ValueError(f"resize_trilinear expects rank 5 NCDHW, got {x.ndim}")
+    return resize_linear(x, (2, 3, 4), size_thw, align_corners)
 
 
 def upscale_2d(x: torch.Tensor, index: int, scale_factor: float,
@@ -95,3 +107,17 @@ def upscale_2d(x: torch.Tensor, index: int, scale_factor: float,
         raise ValueError(f"upscale_2d needs index > 0, got {index}")
     h, w = pyramid.scale_size_2d(index, scale_factor, stop_scale, img_size, ar)
     return resize_bilinear(x, (h, w), align_corners=True)
+
+
+def upscale_3d(x: torch.Tensor, index: int, scale_factor: float,
+               stop_scale: int, img_size: int, stop_scale_time: int,
+               sampling_rates: Sequence[int], org_fps: float, fps_lcm: int,
+               ar: float) -> torch.Tensor:
+    """Upscale (B, C, T, H, W) to pyramid scale `index`, time depth included
+    (reference: src/utils/images.py:96-107, align_corners=True)."""
+    if index <= 0:
+        raise ValueError(f"upscale_3d needs index > 0, got {index}")
+    t, h, w = pyramid.scale_size_3d(index, scale_factor, stop_scale, img_size,
+                                    stop_scale_time, sampling_rates, org_fps,
+                                    fps_lcm, ar)
+    return resize_trilinear(x, (t, h, w), align_corners=True)

@@ -9,10 +9,10 @@ pass's update of the discriminator and discards the others
 (training/steps.py). `nn.utils.spectral_norm` is not used: it advances u in
 place on every forward.
 
-Weights are OIHW, so W_mat = w.reshape(cout, -1) flattens fan-in as
-(I, KH, KW); v lives in that flattening (tools/convert.py re-permutes it
-against the JAX package's (KH, KW, I)), and W_mat @ v pairs the same
-entries as the JAX package's product.
+Weights are OIHW (OIDHW in 3D), so W_mat = w.reshape(cout, -1) flattens
+fan-in as (I, [KD,] KH, KW); v lives in that flattening (tools/convert.py
+re-permutes it against the JAX package's ([KD,] KH, KW, I)), and W_mat @ v
+pairs the same entries as the JAX package's product.
 """
 
 from __future__ import annotations
@@ -28,7 +28,7 @@ def l2normalize(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
 
 def spectral_normalize(w: torch.Tensor, u: torch.Tensor, v: torch.Tensor
                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """w (cout, cin, kh, kw), u (cout,), v (cin*kh*kw,) -> (w / sigma, u, v)."""
+    """w (cout, cin, *k), u (cout,), v (cin * prod(k),) -> (w / sigma, u, v)."""
     w_mat = w.reshape(w.shape[0], -1)
     with torch.no_grad():
         w_const = w_mat.detach()

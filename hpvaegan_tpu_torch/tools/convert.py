@@ -1,20 +1,20 @@
-"""Carry GeneratorHPVAEGAN and WDiscriminator2D weights between the JAX
-package and the port.
+"""Carry GeneratorHPVAEGAN (2D and 3D) and WDiscriminator2D weights between
+the JAX package and the port.
 
 The JAX package keeps a network as a (params, state) pytree of numpy arrays
-with HWIO conv weights, pickled as netG_<k>.ckpt / netD_<k>.ckpt. The
-port's state_dicts use the original hp-vae-gan torch naming with OIHW
-weights:
+with HWIO (2D) / DHWIO (3D) conv weights, pickled as netG_<k>.ckpt /
+netD_<k>.ckpt. The port's state_dicts use the original hp-vae-gan torch
+naming with OIHW / OIDHW weights:
   encode.features.conv_block_<i>.conv.{weight_orig,bias,weight_u,weight_v}
   encode.{mu,logvar}.conv.{weight,bias}
   {decoder,body.<k>}.{head,block<i>}.{conv,norm}.*   {..}.tail.{weight,bias}
   (D) head.conv.*, body.block<i>.conv.* (SN convs), tail.{weight,bias}
 `from_jax` is the port of the JAX package's `tools/convert.py::j2t_HPVAEGAN`
-(2D), `to_jax` of `p2j_HPVAEGAN` (2D) for the state_dicts `from_jax`
+(`ndim` 2 or 3), `to_jax` of `p2j_HPVAEGAN` for the state_dicts `from_jax`
 makes; `to_jax_discriminator` of `p2j_WDiscriminator` (2D) and
 `from_jax_discriminator` its inverse. Spectral-norm v vectors are
-re-permuted between torch's (I, KH, KW) flattening and the JAX package's
-(KH, KW, I).
+re-permuted between torch's (I, [KD,] KH, KW) flattening and the JAX
+package's ([KD,] KH, KW, I).
 """
 
 from __future__ import annotations
@@ -31,19 +31,33 @@ def _f32(a) -> np.ndarray:
 
 
 def _hwio_to_oihw(w) -> np.ndarray:
-    return np.transpose(_f32(w), (3, 2, 0, 1))
+    """HWIO -> OIHW, and DHWIO -> OIDHW (`transpose(4, 3, 0, 1, 2)`)."""
+    w = _f32(w)
+    n = w.ndim
+    return np.transpose(w, (n - 1, n - 2) + tuple(range(n - 2)))
 
 
 def _oihw_to_hwio(w) -> np.ndarray:
-    return np.transpose(_f32(w), (2, 3, 1, 0))
+    """OIHW -> HWIO, and OIDHW -> DHWIO."""
+    w = _f32(w)
+    return np.transpose(w, tuple(range(2, w.ndim)) + (1, 0))
 
 
 def _v_perm(oihw_shape) -> np.ndarray:
-    """perm[r] = torch's flat (I, KH, KW) index of the JAX flat (KH, KW, I)
-    index r."""
-    _, i, kh, kw = oihw_shape
-    idx = np.arange(i * kh * kw).reshape(i, kh, kw)
-    return np.transpose(idx, (1, 2, 0)).reshape(-1)
+    """perm[r] = torch's flat (I, *K) index of the JAX flat (*K, I) index r,
+    for K = (KH, KW) or (KD, KH, KW)."""
+    idx = np.arange(int(np.prod(oihw_shape[1:]))).reshape(oihw_shape[1:])
+    return np.transpose(idx, tuple(range(1, idx.ndim)) + (0,)).reshape(-1)
+
+
+def _check_rank(sd: Dict[str, np.ndarray], ndim: int) -> None:
+    """Every conv weight must be (ndim + 2)-D: a 3D checkpoint read as 2D
+    (or the reverse) fails here, not as a shape error deep in a forward."""
+    ranks = {v.ndim for k, v in sd.items()
+             if k.endswith(("conv.weight", "tail.weight", "weight_orig"))}
+    if ranks != {ndim + 2}:
+        raise ValueError(f"conv weights of rank {sorted(ranks)} in a {ndim}D "
+                         f"network (want rank {ndim + 2})")
 
 
 def _sn_from_jax(name: str, p: Dict, s: Dict, out: Dict) -> None:
@@ -83,9 +97,10 @@ def _stack_from_jax(prefix: str, p: Dict, s: Dict, out: Dict) -> None:
     out[f"{prefix}.tail.bias"] = _f32(p["tail"]["b"])
 
 
-def from_jax(params: Dict, state: Dict) -> Dict[str, torch.Tensor]:
-    """The JAX package's GeneratorHPVAEGAN (params, state) -> the port's
-    state_dict."""
+def from_jax(params: Dict, state: Dict, ndim: int = 2
+             ) -> Dict[str, torch.Tensor]:
+    """The JAX package's GeneratorHPVAEGAN (params, state), 2D or 3D per
+    `ndim` -> the port's state_dict."""
     out: Dict[str, np.ndarray] = {}
     for i, (fp, fs) in enumerate(zip(params["encode"]["features"],
                                      state["encode"]["features"])):
@@ -97,6 +112,7 @@ def from_jax(params: Dict, state: Dict) -> Dict[str, torch.Tensor]:
     _stack_from_jax("decoder", params["decoder"], state["decoder"], out)
     for k, (sp, ss) in enumerate(zip(params["body"], state["body"])):
         _stack_from_jax(f"body.{k}", sp, ss, out)
+    _check_rank(out, ndim)
     return {k: torch.tensor(v) for k, v in out.items()}  # copies
 
 
@@ -130,10 +146,13 @@ def _stack_to_jax(items: Dict[str, np.ndarray]) -> Tuple[Dict, Dict]:
             {"blocks": [blocks_s[i] for i in range(n)]})
 
 
-def to_jax(state_dict: Dict[str, torch.Tensor]) -> Tuple[Dict, Dict]:
-    """The port's GeneratorHPVAEGAN state_dict -> the JAX package's
-    (params, state) numpy pytree (what its netG_<k>.ckpt holds)."""
+def to_jax(state_dict: Dict[str, torch.Tensor], ndim: int = 2
+           ) -> Tuple[Dict, Dict]:
+    """The port's GeneratorHPVAEGAN state_dict, 2D or 3D per `ndim` -> the
+    JAX package's (params, state) numpy pytree (what its netG_<k>.ckpt
+    holds)."""
     sd = _numpy_sd(state_dict)
+    _check_rank(sd, ndim)
     feats: Dict[int, Dict[str, np.ndarray]] = {}
     stacks: Dict[str, Dict[str, np.ndarray]] = {}
     enc_p: Dict = {}

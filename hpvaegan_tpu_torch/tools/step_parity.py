@@ -1,5 +1,5 @@
-"""One training iteration on two devices, from the same weights and the
-same draws, compared.
+"""One training iteration, or one sampler batch, on two devices, from the
+same weights and the same draws, compared.
 
 `run_iteration` builds a small training state at one scale from a seed
 (He-normal weights, so that activations keep unit scale, and random
@@ -10,19 +10,21 @@ draws (`RecordingNoise`); the second replays them (`ReplayedNoise`), so
 the two see the same batch, refinement noise, eps and GP alpha.
 
 `compare_devices` runs the iteration on the card and on the CPU with TF32
-off and returns the largest differences. chip_smoke.py (phase 5) and
-tests/test_torch_cuda.py call it; it needs a card.
+off and returns the largest differences; `compare_sampler_devices` does
+the same for one `generate_samples` call of a given generator. chip_smoke.py
+(phases 5 and 8) and tests/test_torch_cuda.py call them; they need a card.
 """
 
 from __future__ import annotations
 
+import copy
 import math
 from typing import Dict, List, Sequence
 
 import numpy as np
 import torch
 
-from ..models.blocks import BatchNorm2d, Conv2d, SNConv2d
+from ..models.blocks import BatchNorm, Conv, SNConv
 from ..models.networks_2d import GeneratorHPVAEGAN, WDiscriminator2D
 from ..optim import ClippedAdam, adam
 from ..training.partition import apply_lr_plan, make_lr_plan
@@ -84,15 +86,15 @@ def he_init_(module: torch.nn.Module, gen: torch.Generator) -> None:
 
     with torch.no_grad():
         for m in module.modules():
-            if isinstance(m, (Conv2d, SNConv2d)):
-                w = m.weight if isinstance(m, Conv2d) else m.weight_orig
+            if isinstance(m, (Conv, SNConv)):
+                w = m.weight if isinstance(m, Conv) else m.weight_orig
                 w.copy_(randn(w) * math.sqrt(2.0 / w[0].numel()))
                 m.bias.copy_(0.1 * randn(m.bias))
-            if isinstance(m, SNConv2d):
+            if isinstance(m, SNConv):
                 for buf in (m.weight_u, m.weight_v):
                     v = randn(buf)
                     buf.copy_(v / v.norm())
-            elif isinstance(m, BatchNorm2d):
+            elif isinstance(m, BatchNorm):
                 m.weight.copy_(1.0 + 0.1 * randn(m.weight))
                 m.bias.copy_(0.1 * randn(m.bias))
                 m.running_mean.copy_(0.1 * randn(m.running_mean))
@@ -174,3 +176,27 @@ def compare_devices(cfg, scale_idx: int, seed: int = 0,
         math.isfinite(v) for v in card["metrics"].values()))
     errs["metrics"] = card["metrics"]
     return errs
+
+
+def compare_sampler_devices(cfg, generator, ndim: int, train: bool,
+                            seed: int = 0, device="cuda") -> float:
+    """One `generate_samples` call of `generator` on `device` (TF32 off)
+    and of a CPU copy from the same draws; the largest absolute
+    difference of the samples."""
+    from ..evaluation import generate_samples
+
+    cudnn_tf32 = torch.backends.cudnn.allow_tf32
+    mm_tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        rec = RecordingNoise(seed, device)
+        card = generate_samples(cfg, generator.to(device), ndim,
+                                train_mode=train, noise=rec)
+    finally:
+        torch.backends.cudnn.allow_tf32 = cudnn_tf32
+        torch.backends.cuda.matmul.allow_tf32 = mm_tf32
+    host = generate_samples(cfg, copy.deepcopy(generator).cpu(), ndim,
+                            train_mode=train,
+                            noise=ReplayedNoise(rec.drawn, "cpu"))
+    return float(np.abs(card - host).max())

@@ -15,7 +15,10 @@ from hpvaegan_tpu_torch.config import Config
 from hpvaegan_tpu_torch.evaluation import generate_samples
 from hpvaegan_tpu_torch.models.networks_2d import GeneratorHPVAEGAN
 from hpvaegan_tpu_torch.ops import fused_upscale_noise as k1
-from hpvaegan_tpu_torch.tools.step_parity import compare_devices
+from hpvaegan_tpu_torch.models.networks_3d import (
+    GeneratorHPVAEGAN as GeneratorHPVAEGAN3D)
+from hpvaegan_tpu_torch.tools.step_parity import (compare_devices,
+                                                  compare_sampler_devices)
 
 pytestmark = pytest.mark.cuda
 
@@ -86,3 +89,22 @@ def test_training_iteration_matches_cpu(cuda, scale_idx):
     assert errs["finite"], errs
     assert errs["metrics_rel"] <= 1e-4, errs
     assert errs["grads_abs"] <= 1e-4 and errs["state_abs"] <= 1e-4, errs
+
+
+@pytest.mark.parametrize("train", [True, False])
+def test_video_sampler_matches_cpu(cuda, train):
+    """The 3D sampler on the card (TF32 off) equals the same samples on the
+    CPU from the same weights and draws, in both BatchNorm modes; the video
+    path launches no kernel of its own."""
+    cfg = Config(nfc=8, latent_dim=8, num_layer=2, enc_blocks=1, img_size=32,
+                 min_size=16, max_size=32, vae_levels=2, niter=1,
+                 num_samples=3, sampling_rates=[2, 1]).finalize()
+    cfg.org_fps, cfg.ar, cfg.fps_lcm, cfg.td = 24.0, 0.75, 2, 3
+    cfg.Noise_Amps = [1.0] + [0.3] * cfg.stop_scale
+    gen = GeneratorHPVAEGAN3D(cfg)
+    for _ in range(cfg.stop_scale):
+        gen.init_next_stage(torch.Generator().manual_seed(0))
+    k1.fused_upscale_noise_2d.launches = 0
+    diff = compare_sampler_devices(cfg, gen, 3, train, seed=0, device=cuda)
+    assert diff <= 1e-4
+    assert k1.fused_upscale_noise_2d.launches == 0

@@ -331,6 +331,22 @@ def test_port_imports_no_jax(tmp_path):
         "    '--img-size', '24', '--min-size', '16', '--max-size', '24',\n"
         "    '--vae-levels', '1', '--run-dir', sys.argv[1]])\n"
         "assert os.path.isfile(os.path.join(exp, 'netD_1.ckpt'))\n"
+        "import hpvaegan_tpu_torch.eval_video, hpvaegan_tpu_torch.metrics.c3d\n"
+        "from hpvaegan_tpu_torch.data.video import SingleVideoDataset\n"
+        "from hpvaegan_tpu_torch.models import networks_3d\n"
+        "vcfg = Config(nfc=4, latent_dim=4, num_layer=1, img_size=24,\n"
+        "              min_size=16, max_size=24, niter=1, num_samples=2,\n"
+        "              video_path='data/vids/synthetic.avi', max_frames=5,\n"
+        "              sampling_rates=[2, 1]).finalize()\n"
+        "SingleVideoDataset(vcfg, 'cpu')\n"
+        "vcfg.Noise_Amps = [1.0] * (vcfg.stop_scale + 1)\n"
+        "vcfg.scale_idx = vcfg.stop_scale\n"
+        "vg = networks_3d.GeneratorHPVAEGAN(vcfg)\n"
+        "for _ in range(vcfg.stop_scale):\n"
+        "    vg.init_next_stage(torch.Generator().manual_seed(0))\n"
+        "for mode in (True, False):\n"
+        "    out = generate_samples(vcfg, vg, ndim=3, train_mode=mode)\n"
+        "    assert out.ndim == 5 and np.isfinite(out).all()\n"
         "bad = [m for m in sys.modules\n"
         "       if m == 'jax' or m.startswith(('jax.', 'jaxlib'))\n"
         "       or m == 'hpvaegan_tpu' or m.startswith('hpvaegan_tpu.')]\n"

@@ -34,7 +34,7 @@ from hpvaegan_tpu_torch import losses as tlosses
 from hpvaegan_tpu_torch import optim as toptim
 from hpvaegan_tpu_torch.data import image as timage
 from hpvaegan_tpu_torch.models import get_discriminator
-from hpvaegan_tpu_torch.models.blocks import SNConv2d, assign_sn_state
+from hpvaegan_tpu_torch.models.blocks import SNConv, assign_sn_state
 from hpvaegan_tpu_torch.models.networks_2d import GeneratorHPVAEGAN
 from hpvaegan_tpu_torch.ops.spectral_norm import spectral_normalize
 from hpvaegan_tpu_torch.tools.convert import (_hwio_to_oihw, _v_perm,
@@ -165,7 +165,7 @@ def test_spectral_normalize_matches_jax():
     np.testing.assert_allclose(v_new.numpy()[_v_perm(w_t.shape)],
                                np.asarray(st["v"]), **OP_TOL)
 
-    conv = SNConv2d(5, 7, 3)
+    conv = SNConv(5, 7, 3)
     with torch.no_grad():
         conv.weight_orig.copy_(w_t)
         conv.bias.copy_(torch.from_numpy(b))
