@@ -48,6 +48,21 @@ Phases, each of which exits non-zero on a failed check:
              video experiment dir (netG_9.ckpt from a numpy seed), 10
              samples: finite SVFID, random_samples.npy, real_full_scale.npy,
              the GIFs and unfold PNGs, metrics.json
+ 10. video step  phase 5 for the 3D networks: one VAE-scale G step and one
+             GAN-scale iteration of a tiny 3D config (synthetic.avi, 5
+             frames, rates 2 1, hflip, batch 2) on the card with TF32 off
+             against the CPU from the same draws
+ 11. video train  the video training CLI (hpvaegan_tpu_torch.train_video.
+             main) at full width, Config() defaults on balloons_pan.avi (13
+             frames, rates 4 3 2 1), 10 scales x 2 iterations: the
+             checkpoints, intermediate.json, finite logged losses, K1's
+             count 0, seconds per scale; then the eval_video CLI scores the
+             experiment (finite SVFID)
+ 12. video timing  phase 7's timing of train iterations for the 3D model at
+             scale 9 (GAN, 13x192x257) and scale 2 (VAE, 4x38x51), batch
+             1, with the device time of the GP double backward's
+             convolutions by shape; iteration counts cut where one
+             iteration takes over 2 s
 Then it prints the kernels' JSON line, the card's name and power limit as
 nvidia-smi gives them, and last {"ok": true, "device": {...}}.
 
@@ -412,14 +427,15 @@ def tiny_config(**kw):
                   **kw).finalize()
 
 
-def phase_step_parity(torch):
-    """One VAE-scale G step and one GAN-scale iteration, card vs CPU."""
+def phase_step_parity(torch, cfg, ndim=2):
+    """One VAE-scale G step and one GAN-scale iteration of a tiny 2D or 3D
+    config, card vs CPU."""
     from hpvaegan_tpu_torch.tools.step_parity import compare_devices
 
-    cfg = tiny_config()
     out = {}
     for scale_idx in (1, 3):
-        errs = compare_devices(cfg, scale_idx, seed=SEED, device="cuda")
+        errs = compare_devices(cfg, scale_idx, seed=SEED, device="cuda",
+                               ndim=ndim)
         check(errs["finite"], f"scale {scale_idx}: non-finite values on "
               f"the card: {errs}")
         check(errs["metrics_rel"] <= 1e-4, f"scale {scale_idx}: metrics "
@@ -520,42 +536,54 @@ def device_summary(prof, wall_ms, what):
             "top_kernels_ms": [[k[:70], round(v, 3)] for k, v in top]}
 
 
-def time_scale(torch, cfg, dataset, scale_idx, amps):
-    """Steps/s, D and G ms and one profiled iteration at one scale."""
+def time_scale(torch, cfg, dataset, scale_idx, amps, ndim=2):
+    """Steps/s, D and G ms and one profiled iteration at one scale of a 2D
+    or 3D run: 3 warm-up and 20 timed iterations, cut to 2 and 3 when the
+    second warm-up takes over 2 s."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from hpvaegan_tpu_torch.data.image import make_image_batch
     from hpvaegan_tpu_torch.tools.step_parity import build_state
-    from hpvaegan_tpu_torch.training.steps import (d_step, g_step,
-                                                   train_iteration)
+    from hpvaegan_tpu_torch.training.steps import (batch_former, d_step,
+                                                   g_step, train_iteration)
     from hpvaegan_tpu_torch.utils.noise import NoiseSource
 
     vae = cfg.vae_levels >= scale_idx + 1
-    st = build_state(cfg, scale_idx, SEED, "cuda")
+    st = build_state(cfg, scale_idx, SEED, "cuda", ndim)
     st.noise = NoiseSource(SEED, "cuda")
-    data = dataset.scale_image(scale_idx), dataset.scale_image(0)
+    if ndim == 2:
+        data = dataset.scale_image(scale_idx), dataset.scale_image(0)
+    else:
+        data = dataset.scale_frames(scale_idx), dataset.scale_frames(0)
+    former = batch_former(ndim, scale_idx)
 
     def iteration():
-        return train_iteration(cfg, st, data[0], data[1], amps, vae)
+        return train_iteration(cfg, st, data[0], data[1], amps, vae, former)
 
-    for _ in range(3):
+    iteration()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    iteration()
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    cut = warm_s > 2.0
+    reps = 3 if cut else 20
+    if not cut:
         iteration()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    for _ in range(20):
+    for _ in range(reps):
         metrics = iteration()
     torch.cuda.synchronize()
-    step_s = (time.perf_counter() - t0) / 20
+    step_s = (time.perf_counter() - t0) / reps
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     check(all(math.isfinite(float(v)) for v in metrics.values()),
           f"scale {scale_idx}: metrics {metrics}")
 
     d_ms = g_ms = 0.0
-    for _ in range(20):
-        real, real_zero, noise_init = make_image_batch(
-            cfg, data[0], data[1], st.noise)
+    for _ in range(reps):
+        real, real_zero, noise_init = former(cfg, data[0], data[1], st.noise)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         if not vae:
@@ -564,8 +592,8 @@ def time_scale(torch, cfg, dataset, scale_idx, amps):
         t1 = time.perf_counter()
         g_step(cfg, st, real, real_zero, noise_init, amps, vae)
         torch.cuda.synchronize()
-        d_ms += (t1 - t0) * 1e3 / 20
-        g_ms += (time.perf_counter() - t1) * 1e3 / 20
+        d_ms += (t1 - t0) * 1e3 / reps
+        g_ms += (time.perf_counter() - t1) * 1e3 / reps
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  record_shapes=True) as prof:
@@ -576,20 +604,33 @@ def time_scale(torch, cfg, dataset, scale_idx, amps):
     summary = device_summary(prof, wall_ms, f"scale {scale_idx}")
     # the operators that launched them, by input shapes (self device time:
     # no double counting between an op and the ops it calls)
+    averages = [e for e in prof.key_averages(group_by_input_shape=True)
+                if e.device_type == DeviceType.CPU
+                and e.self_device_time_total > 0]
     ops = sorted(((e.key, e.count, e.self_device_time_total / 1e3,
-                   str(e.input_shapes)[:120])
-                  for e in prof.key_averages(group_by_input_shape=True)
-                  if e.device_type == DeviceType.CPU
-                  and e.self_device_time_total > 0), key=lambda r: -r[2])[:8]
-    h, w = dataset.scale_size(scale_idx)
+                   str(e.input_shapes)[:120]) for e in averages),
+                 key=lambda r: -r[2])[:8]
+    # the GP double backward's weight gradient of D's input-gradient: the
+    # convolutions whose "weight" is a whole activation of the scale
+    size = list(real.shape[2:])
+    huge = [(str(e.input_shapes[:2]), e.count,
+             round(e.self_device_time_total / 1e3, 3)) for e in averages
+            if e.key == "aten::cudnn_convolution" and len(e.input_shapes) > 1
+            and list(e.input_shapes[1][2:]) == size]
     return {
-        "phase": "vae" if vae else "gan", "hw": [h, w],
+        "phase": "vae" if vae else "gan", "size": size,
+        "timed_iterations": reps,
+        "cut": f"second warm-up took {warm_s:.2f} s > 2 s: 2 warm-up, "
+               f"{reps} timed iterations" if cut else None,
         "steps_per_s": round(1.0 / step_s, 3),
         "d_step_ms": round(d_ms, 3) if not vae else None,
         "g_step_ms": round(g_ms, 3), "peak_gb": round(peak_gb, 3),
         **summary,
         "top_ops_ms": [[k[:40], n, round(v, 3), shapes]
-                       for k, n, v, shapes in ops]}
+                       for k, n, v, shapes in ops],
+        "gp_image_kernel_convs_ms": {
+            "total": round(sum(ms for _, _, ms in huge), 3),
+            "by_shape": [[s_, n, ms] for s_, n, ms in huge]}}
 
 
 def phase_step_timing(torch):
@@ -868,6 +909,96 @@ def _run_video_cli(k1, cfg, ckpt, eval_video):
     return {"svfid": svfid, "s": secs}
 
 
+def phase_video_train_cli(torch, k1):
+    """The video training CLI at full width, then eval_video on its
+    output."""
+    import numpy as np
+
+    from hpvaegan_tpu_torch import eval_video, train_video
+    from hpvaegan_tpu_torch.training import trainer
+
+    video = os.path.join(HERE, "data", "vids", "balloons_pan.avi")
+    # seconds per scale, from a wrapper around the trainer's per-scale call
+    # (it returns after the checkpoints' copy to the host)
+    scale_s = []
+    train_scale = trainer.train_scale
+
+    def timed(*args):
+        t0 = time.perf_counter()
+        try:
+            return train_scale(*args)
+        finally:
+            scale_s.append(round(time.perf_counter() - t0, 2))
+
+    trainer.train_scale = timed
+    with tempfile.TemporaryDirectory(prefix="hpv_vtrain_") as run:
+        try:
+            k1.fused_upscale_noise_2d.launches = 0
+            t0 = time.perf_counter()
+            exp = train_video.main([
+                "--video-path", video, "--max-frames", "13",
+                "--sampling-rates", "4", "3", "2", "1", "--niter", "2",
+                "--print-interval", "1", "--run-dir", run,
+                "--checkname", "smoke", "--manualSeed", "1"])
+            train_s = time.perf_counter() - t0
+        finally:
+            trainer.train_scale = train_scale
+        check(len(scale_s) == 10, f"{len(scale_s)} scales timed")
+        launches = k1.fused_upscale_noise_2d.launches
+        check(launches == 0, f"video training launched K1 {launches} times")
+        check(exp == os.path.join(run, "balloons_pan", "smoke",
+                                  "experiment_0"), f"experiment dir {exp}")
+        files = set(os.listdir(exp))
+        for k in range(10):
+            check(f"netG_{k}.ckpt" in files, f"no netG_{k}.ckpt in {exp}")
+            check((f"netD_{k}.ckpt" in files) == (k >= 3),
+                  f"netD_{k}.ckpt: {sorted(files)}")
+        with open(os.path.join(exp, "intermediate.json")) as f:
+            inter = json.load(f)
+        amps = inter["noise_amps"]
+        check(inter["scale_idx"] == 9 and len(amps) == 10 and amps[0] == 1.0
+              and all(math.isfinite(a) and a > 0 for a in amps),
+              f"intermediate.json {inter}")
+        with open(os.path.join(exp, "logbook.txt")) as f:
+            logged = [ln.split("] ", 1)[1] for ln in f.read().splitlines()
+                      if "[Scale " in ln]
+        check(len(logged) == 20, f"{len(logged)} logged loss lines, want 20")
+        losses = [float(kv.split(": ")[1]) for ln in logged
+                  for kv in ln.split(", ")]
+        check(all(math.isfinite(v) for v in losses), f"losses {logged}")
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            eval_video.main(["--exp-dir", exp, "--num-samples", "10"])
+        eval_s = time.perf_counter() - t0
+        lines = [ln for ln in buf.getvalue().splitlines()
+                 if ln.startswith("SVFID: ")]
+        check(len(lines) == 1, f"eval_video CLI printed {buf.getvalue()!r}")
+        svfid = float(lines[0].split()[1])
+        check(math.isfinite(svfid) and svfid >= 0, f"SVFID {svfid}")
+        samples = np.load(os.path.join(exp, "eval", "random_samples.npy"))
+        check(samples.shape == (10, 3, 13, 192, 257), f"npy {samples.shape}")
+        check(bool(np.isfinite(samples).all()), "non-finite samples")
+    print(f"  trained 10 scales x 2 iterations in {train_s:.1f} s (seconds "
+          f"per scale {scale_s}), amps {[round(a, 5) for a in amps]}, last "
+          f"losses {logged[-1]}; K1 launches {launches}; eval_video CLI "
+          f"SVFID: {svfid} ({eval_s:.2f} s)", flush=True)
+    return {"train_s": train_s, "scale_s": scale_s, "amps": amps,
+            "svfid": svfid, "eval_s": eval_s}
+
+
+def phase_video_step_timing(torch):
+    """Video train iterations at full width, batch 1: scale 9 (GAN,
+    13x192x257) and scale 2 (VAE, 4x38x51), as the trainer runs them."""
+    cfg, dataset = video_config(batch_size=1)
+    amps = [1.0] + [0.05] * (cfg.stop_scale + 1)
+    out = {}
+    for name, scale_idx in (("scale 9", 9), ("scale 2", 2)):
+        out[name] = time_scale(torch, cfg, dataset, scale_idx, amps, ndim=3)
+        print(f"  video {name}: " + json.dumps(out[name]), flush=True)
+    return out
+
+
 def main():
     try:
         import torch
@@ -914,7 +1045,7 @@ def main():
     phase_cli(torch, k1, ckpt)
 
     print("phase 5: one training iteration, card vs CPU", flush=True)
-    phase_step_parity(torch)
+    phase_step_parity(torch, tiny_config())
 
     print("phase 6: train_image CLI at full width, then eval_image",
           flush=True)
@@ -936,6 +1067,24 @@ def main():
     print("phase 9: eval_video CLI on a JAX-format experiment dir",
           flush=True)
     phase_video_cli(torch, k1, vcfg, vckpt)
+    del vckpt
+
+    print("phase 10: one video training iteration, card vs CPU", flush=True)
+    from hpvaegan_tpu_torch.data.video import SingleVideoDataset
+    tiny = tiny_config(video_path=os.path.join(HERE, "data", "vids",
+                                               "synthetic.avi"),
+                       max_frames=5, sampling_rates=[2, 1], hflip=True,
+                       batch_size=2)
+    SingleVideoDataset(tiny, "cpu")  # sets org_fps, ar, fps_lcm
+    phase_step_parity(torch, tiny, ndim=3)
+
+    print("phase 11: train_video CLI at full width, then eval_video",
+          flush=True)
+    phase_video_train_cli(torch, k1)
+
+    print("phase 12: video training step timing at full width, batch 1",
+          flush=True)
+    phase_video_step_timing(torch)
 
     kernels = [{
         "name": "fused_upscale_noise_2d",

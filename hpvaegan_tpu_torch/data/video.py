@@ -4,8 +4,9 @@ The port of the JAX package's `data/video.py:27-68` (reference
 src/datasets/video.py:13-96): one host decode at full resolution
 (data/frames.py), then per scale a half-pixel bilinear resize of every
 frame (cv2 INTER_LINEAR, no antialias) on the device, cached. Tensors are
-NCDHW. The training batch former (temporal windows, flips, z_init) is not
-ported yet.
+NCDHW. `make_video_batch` forms a training batch on the device (the port
+of `make_video_batch_body`, data/video.py:71-115 there): random temporal
+windows at the scale's sampling rate, per-sample flips, z_init.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import torch
 
 from ..ops.resize import resize_bilinear
 from ..utils import pyramid
+from ..utils.noise import NoiseSource
 from .frames import video_metadata, video_to_frames
 
 
@@ -63,3 +65,50 @@ class SingleVideoDataset:
                 self.frames_full_scale, self.scale_size(scale_idx),
                 align_corners=False)
         return self._cache[scale_idx]
+
+
+def make_video_batch(cfg, scale_frames: torch.Tensor,
+                     zero_frames: torch.Tensor, noise: NoiseSource,
+                     scale_idx: int):
+    """(real, real_zero, noise_init) for scale `scale_idx`, the first two in
+    [-1, 1].
+
+    Draws, in the order of the JAX package's key split (k_start, k_flip,
+    k_noise): B window starts in [0, max(T_full - fps_lcm, 1)), the hflip
+    flags (under cfg.hflip), then noise_init (B, latent_dim, td0, h0, w0) at
+    scale 0's time depth (reference train_video.py:43-46). Each window is
+    frames[s : s + fps_lcm + 1 : every], `every` = the scale's sampling rate
+    for `real` and sampling_rates[0] for `real_zero`, from the same starts
+    (reference video.py:50-63). The frames are gathered with device index
+    arithmetic, so forming a batch never waits on the device.
+    """
+    batch = cfg.batch_size
+    _, _, fps_index = pyramid.get_fps_td_by_index(
+        scale_idx, cfg.stop_scale_time, cfg.sampling_rates, cfg.org_fps,
+        cfg.fps_lcm)
+    t_full = scale_frames.shape[2]
+    starts = noise.randint(max(t_full - cfg.fps_lcm, 1), (batch,))
+
+    def take(frames, every):
+        c, _, h, w = frames.shape[1:]
+        idx = starts[:, None] + torch.arange(0, cfg.fps_lcm + 1, every,
+                                             device=starts.device)
+        win = frames[0].index_select(1, idx.reshape(-1))
+        return win.reshape(c, batch, idx.shape[1], h, w).transpose(
+            0, 1).contiguous()
+
+    real = take(scale_frames, cfg.sampling_rates[fps_index])
+    real_zero = take(zero_frames, cfg.sampling_rates[0])
+    if cfg.hflip:
+        flips = noise.bernoulli((batch,)).reshape(batch, 1, 1, 1, 1)
+        real = torch.where(flips, real.flip(-1), real)
+        real_zero = torch.where(flips, real_zero.flip(-1), real_zero)
+    real = real * 2.0 - 1.0
+    real_zero = real_zero * 2.0 - 1.0
+    h0, w0 = pyramid.scale_size_2d(0, cfg.scale_factor, cfg.stop_scale,
+                                   cfg.img_size, cfg.ar)
+    _, td0, _ = pyramid.get_fps_td_by_index(0, cfg.stop_scale_time,
+                                            cfg.sampling_rates, cfg.org_fps,
+                                            cfg.fps_lcm)
+    noise_init = noise.normal((batch, cfg.latent_dim, td0, h0, w0))
+    return real, real_zero, noise_init

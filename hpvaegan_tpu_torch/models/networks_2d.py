@@ -73,21 +73,26 @@ class Encode2DVAE(nn.Module):
 class WDiscriminator2D(nn.Module):
     """WGAN critic (networks_2d.py:112-137): an SN head block, num_layer SN
     body blocks and a plain tail conv to one channel with padding 1 (the
-    reference hard-codes it, networks_2d.py:178)."""
+    reference hard-codes it, networks_2d.py:178). models/networks_3d.py
+    subclasses it for video (`ndim` is what differs)."""
+
+    ndim = 2
 
     def __init__(self, cfg):
         super().__init__()
         n = int(cfg.nfc)
-        self.head = SNBlock(cfg.nc_im, n, cfg.ker_size)
+        self.head = SNBlock(cfg.nc_im, n, cfg.ker_size, self.ndim)
         self.body = nn.Module()
         for i in range(cfg.num_layer):
-            setattr(self.body, f"block{i}", SNBlock(n, n, cfg.ker_size))
+            setattr(self.body, f"block{i}",
+                    SNBlock(n, n, cfg.ker_size, self.ndim))
         self.num_layer = cfg.num_layer
-        self.tail = Conv(n, 1, cfg.ker_size, 1)
+        self.tail = Conv(n, 1, cfg.ker_size, 1, self.ndim)
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, SNState]:
-        """Returns (scores (B, 1, H', W'), the new (u, v) of every SN conv,
-        head first). The buffers are not written."""
+        """Returns (scores, the new (u, v) of every SN conv, head first);
+        scores are (B, 1, H', W'), in 3D (B, 1, T', H', W'). The buffers
+        are not written."""
         blocks = [self.head] + [getattr(self.body, f"block{i}")
                                 for i in range(self.num_layer)]
         y, state = sn_blocks_apply(blocks, x)

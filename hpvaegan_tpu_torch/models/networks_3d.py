@@ -1,10 +1,11 @@
-"""3D networks as `nn.Module`s: the video VAE encoder and the hierarchical
-generator GeneratorHPVAEGAN.
+"""3D networks as `nn.Module`s: the video VAE encoder, the WGAN critic
+WDiscriminator3D and the hierarchical generator GeneratorHPVAEGAN.
 
-The port of the JAX package's `models/networks_3d.py:44-66, 186-282`
-(reference src/modules/networks_3d.py:89-112, 354-451). Both are the 2D
-classes of networks_2d.py with 3D convolutions (OIDHW weights, NCDHW
-tensors) and one difference in the refinement chain: noise is added only at
+The port of the JAX package's `models/networks_3d.py:44-66, 126-150,
+186-282` (reference src/modules/networks_3d.py:89-112, 170-193, 354-451).
+All are the 2D classes of networks_2d.py with 3D convolutions (OIDHW
+weights, NCDHW tensors), and the generator has one difference in the
+refinement chain: noise is added only at
 stages with vae_levels <= idx + 1 (networks_3d.py:227-228 there, reference
 networks_3d.py:443), so the VAE stages below vae_levels refine without it.
 Each upscale grows the time depth with the pyramid (trilinear,
@@ -49,6 +50,13 @@ def refinement_layers_3d(cfg, body: Sequence[nn.Module], x: torch.Tensor,
         y = body[idx](x_in, bn, commit)
         x = torch.tanh(y + x_up)
     return x
+
+
+class WDiscriminator3D(networks_2d.WDiscriminator2D):
+    """WDiscriminator3D (networks_3d.py:126-150): the 2D critic with 3D SN
+    blocks; the tail conv keeps padding 1, hard-coded as in 2D."""
+
+    ndim = 3
 
 
 class GeneratorHPVAEGAN(networks_2d.GeneratorHPVAEGAN):

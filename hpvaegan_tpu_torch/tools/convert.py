@@ -1,4 +1,4 @@
-"""Carry GeneratorHPVAEGAN (2D and 3D) and WDiscriminator2D weights between
+"""Carry GeneratorHPVAEGAN and WDiscriminator2D / 3D weights between
 the JAX package and the port.
 
 The JAX package keeps a network as a (params, state) pytree of numpy arrays
@@ -11,8 +11,9 @@ naming with OIHW / OIDHW weights:
   (D) head.conv.*, body.block<i>.conv.* (SN convs), tail.{weight,bias}
 `from_jax` is the port of the JAX package's `tools/convert.py::j2t_HPVAEGAN`
 (`ndim` 2 or 3), `to_jax` of `p2j_HPVAEGAN` for the state_dicts `from_jax`
-makes; `to_jax_discriminator` of `p2j_WDiscriminator` (2D) and
-`from_jax_discriminator` its inverse. Spectral-norm v vectors are
+makes; `to_jax_discriminator` of `p2j_WDiscriminator` (`ndim` 2 or 3) and
+`from_jax_discriminator` its inverse. Each checks the rank of the conv
+weights against `ndim`. Spectral-norm v vectors are
 re-permuted between torch's (I, [KD,] KH, KW) flattening and the JAX
 package's ([KD,] KH, KW, I).
 """
@@ -183,24 +184,27 @@ def to_jax(state_dict: Dict[str, torch.Tensor], ndim: int = 2
     return params, state
 
 
-def from_jax_discriminator(params: Dict, state: Dict
+def from_jax_discriminator(params: Dict, state: Dict, ndim: int = 2
                            ) -> Dict[str, torch.Tensor]:
-    """The JAX package's WDiscriminator2D (params, state) -> the port's
-    state_dict."""
+    """The JAX package's WDiscriminator2D / WDiscriminator3D (params,
+    state), per `ndim` -> the port's state_dict."""
     out: Dict[str, np.ndarray] = {}
     _sn_from_jax("head.conv", params["head"], state["head"], out)
     for i, (bp, bs) in enumerate(zip(params["body"], state["body"])):
         _sn_from_jax(f"body.block{i}.conv", bp, bs, out)
     out["tail.weight"] = _hwio_to_oihw(params["tail"]["w"])
     out["tail.bias"] = _f32(params["tail"]["b"])
+    _check_rank(out, ndim)
     return {k: torch.tensor(v) for k, v in out.items()}  # copies
 
 
-def to_jax_discriminator(state_dict: Dict[str, torch.Tensor]
+def to_jax_discriminator(state_dict: Dict[str, torch.Tensor], ndim: int = 2
                          ) -> Tuple[Dict, Dict]:
-    """The port's WDiscriminator2D state_dict -> the JAX package's (params,
-    state) numpy pytree (what its netD_<k>.ckpt holds)."""
+    """The port's WDiscriminator2D / WDiscriminator3D state_dict, per `ndim`
+    -> the JAX package's (params, state) numpy pytree (what its
+    netD_<k>.ckpt holds)."""
     sd = _numpy_sd(state_dict)
+    _check_rank(sd, ndim)
     head: Dict[str, np.ndarray] = {}
     body: Dict[int, Dict[str, np.ndarray]] = {}
     tail = {}

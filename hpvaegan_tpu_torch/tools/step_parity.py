@@ -3,16 +3,20 @@ same weights and the same draws, compared.
 
 `run_iteration` builds a small training state at one scale from a seed
 (He-normal weights, so that activations keep unit scale, and random
-BatchNorm statistics), runs training/steps.py::train_iteration once (D
-then G on a GAN scale), and returns its metrics, every gradient and every
+BatchNorm statistics), 2D or 3D per `ndim`, runs
+training/steps.py::train_iteration once (D then G on a GAN scale) on
+random data (an image, or a clip of cfg.max_frames frames whose batch is
+random temporal windows), and returns its metrics, every gradient and every
 BatchNorm and spectral-norm buffer as numpy. The first run records its
 draws (`RecordingNoise`); the second replays them (`ReplayedNoise`), so
-the two see the same batch, refinement noise, eps and GP alpha.
+the two see the same batch (window starts, flips, z_init), refinement
+noise, eps and GP alpha.
 
 `compare_devices` runs the iteration on the card and on the CPU with TF32
 off and returns the largest differences; `compare_sampler_devices` does
 the same for one `generate_samples` call of a given generator. chip_smoke.py
-(phases 5 and 8) and tests/test_torch_cuda.py call them; they need a card.
+(phases 5, 8 and 10) and tests/test_torch_cuda.py call them; they need a
+card.
 """
 
 from __future__ import annotations
@@ -24,12 +28,12 @@ from typing import Dict, List, Sequence
 import numpy as np
 import torch
 
+from ..models import get_discriminator, get_generator
 from ..models.blocks import BatchNorm, Conv, SNConv
-from ..models.networks_2d import GeneratorHPVAEGAN, WDiscriminator2D
 from ..optim import ClippedAdam, adam
 from ..training.partition import apply_lr_plan, make_lr_plan
 from ..training.state import ScaleTrainState
-from ..training.steps import train_iteration
+from ..training.steps import batch_former, train_iteration
 from ..utils.noise import NoiseSource
 from ..utils.pyramid import scale_size_2d
 
@@ -54,6 +58,9 @@ class RecordingNoise(NoiseSource):
     def bernoulli(self, shape):
         return self._keep(super().bernoulli(shape))
 
+    def randint(self, high, shape):
+        return self._keep(super().randint(high, shape))
+
 
 class ReplayedNoise(NoiseSource):
     """Hands out another run's draws, in call order, on `device`."""
@@ -76,6 +83,12 @@ class ReplayedNoise(NoiseSource):
 
     def bernoulli(self, shape):
         return self._next(shape)
+
+    def randint(self, high, shape):
+        t = self._next(shape)
+        if t.numel() and not 0 <= int(t.min()) <= int(t.max()) < high:
+            raise ValueError(f"replayed draw outside [0, {high})")
+        return t.long()
 
 
 def he_init_(module: torch.nn.Module, gen: torch.Generator) -> None:
@@ -102,14 +115,16 @@ def he_init_(module: torch.nn.Module, gen: torch.Generator) -> None:
                                                generator=gen) + 0.5)
 
 
-def build_state(cfg, scale_idx: int, seed: int, device) -> ScaleTrainState:
-    """G grown to `scale_idx` stages and a D, both from `seed`, with the
-    scale's optimizers; the noise source is left to the caller."""
+def build_state(cfg, scale_idx: int, seed: int, device,
+                ndim: int = 2) -> ScaleTrainState:
+    """G grown to `scale_idx` stages and a D (2D or 3D per `ndim`), both
+    from `seed`, with the scale's optimizers; the noise source is left to
+    the caller."""
     gen = torch.Generator().manual_seed(seed)
-    G = GeneratorHPVAEGAN(cfg)
+    G = get_generator("GeneratorHPVAEGAN", ndim)(cfg)
     for _ in range(scale_idx):
         G.init_next_stage()
-    D = WDiscriminator2D(cfg)
+    D = get_discriminator(f"WDiscriminator{ndim}D", ndim)(cfg)
     he_init_(G, gen)
     he_init_(D, gen)
     G, D = G.to(device), D.to(device)
@@ -121,18 +136,22 @@ def build_state(cfg, scale_idx: int, seed: int, device) -> ScaleTrainState:
 
 
 def run_iteration(cfg, scale_idx: int, seed: int, device,
-                  noise: NoiseSource) -> Dict[str, Dict[str, np.ndarray]]:
+                  noise: NoiseSource, ndim: int = 2
+                  ) -> Dict[str, Dict[str, np.ndarray]]:
     """One train_iteration at `scale_idx`; returns {"metrics", "grads",
-    "state"} as numpy, keyed by name."""
-    st = build_state(cfg, scale_idx, seed, device)
+    "state"} as numpy, keyed by name. In 3D the config must carry the
+    clip's org_fps, ar and fps_lcm (SingleVideoDataset sets them)."""
+    st = build_state(cfg, scale_idx, seed, device, ndim)
     st.noise = noise
     gen = torch.Generator().manual_seed(seed + 1)
-    data = [torch.rand((1, cfg.nc_im) + tuple(scale_size_2d(
+    frames = (cfg.max_frames,) if ndim == 3 else ()
+    data = [torch.rand((1, cfg.nc_im) + frames + tuple(scale_size_2d(
         k, cfg.scale_factor, cfg.stop_scale, cfg.img_size, cfg.ar)),
         generator=gen).to(device) for k in (scale_idx, 0)]
     amps = [1.0] + [0.5 ** k for k in range(1, cfg.stop_scale + 2)]
     metrics = train_iteration(cfg, st, data[0], data[1], amps,
-                              vae_phase=cfg.vae_levels >= scale_idx + 1)
+                              vae_phase=cfg.vae_levels >= scale_idx + 1,
+                              former=batch_former(ndim, scale_idx))
     out = {"metrics": {k: float(v) for k, v in metrics.items()},
            "grads": {}, "state": {}}
     for prefix, m in (("G.", st.G), ("D.", st.D)):
@@ -144,23 +163,23 @@ def run_iteration(cfg, scale_idx: int, seed: int, device,
     return out
 
 
-def compare_devices(cfg, scale_idx: int, seed: int = 0,
-                    device="cuda") -> Dict[str, float]:
-    """The iteration on `device` (TF32 off) and on the CPU from the same
-    weights and draws: the largest relative metric difference and the
-    largest absolute gradient and state differences."""
+def compare_devices(cfg, scale_idx: int, seed: int = 0, device="cuda",
+                    ndim: int = 2) -> Dict[str, float]:
+    """The iteration (2D or 3D per `ndim`) on `device` (TF32 off) and on
+    the CPU from the same weights and draws: the largest relative metric
+    difference and the largest absolute gradient and state differences."""
     cudnn_tf32 = torch.backends.cudnn.allow_tf32
     mm_tf32 = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
         rec = RecordingNoise(seed, device)
-        card = run_iteration(cfg, scale_idx, seed, device, rec)
+        card = run_iteration(cfg, scale_idx, seed, device, rec, ndim)
     finally:
         torch.backends.cudnn.allow_tf32 = cudnn_tf32
         torch.backends.cuda.matmul.allow_tf32 = mm_tf32
     host = run_iteration(cfg, scale_idx, seed, "cpu",
-                         ReplayedNoise(rec.drawn, "cpu"))
+                         ReplayedNoise(rec.drawn, "cpu"), ndim)
     if sorted(card["grads"]) != sorted(host["grads"]):
         raise AssertionError("the two devices trained other parameters")
     errs = {"metrics_rel": max(

@@ -130,15 +130,16 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
-def unported(args) -> list:
+def unported(args, ndim: int = 2) -> list:
     """(flag, ROADMAP.md queue 1 item) of every flag set to a value this
-    port does not run."""
+    port does not run. `--visualize` counts only in 2D: the JAX trainer
+    ignores it for video (trainer.py:239 there)."""
     checks = [
         ("--netG", args.netG, _RESUME),
         ("--netD", args.netD, _RESUME),
         ("--intermediate", args.intermediate, _RESUME),
         ("--ckpt-interval", args.ckpt_interval > 0, _RESUME),
-        ("--visualize", args.visualize, "--visualize"),
+        ("--visualize", args.visualize and ndim == 2, "--visualize"),
         ("--generator " + args.generator,
          args.generator != "GeneratorHPVAEGAN", "GeneratorVAE_nb"),
         ("--mesh-data", args.mesh_data > 1, _MULTI),
@@ -156,8 +157,8 @@ def unported(args) -> list:
     return [(flag, item) for flag, is_set, item in checks if is_set]
 
 
-def cfg_from_args(args: argparse.Namespace) -> Config:
-    bad = unported(args)
+def cfg_from_args(args: argparse.Namespace, ndim: int = 2) -> Config:
+    bad = unported(args, ndim)
     if bad:
         raise NotImplementedError("not ported yet: " + "; ".join(
             f"{flag} (ROADMAP.md queue 1: {item})" for flag, item in bad))
@@ -174,11 +175,13 @@ def cfg_from_args(args: argparse.Namespace) -> Config:
     return cfg
 
 
-def main(argv=None):
+def launch(args: argparse.Namespace, ndim: int, summary) -> str:
+    """Train from parsed flags (shared by this CLI and train_video's):
+    a new experiment dir, its logbook, the Experiment Summary (`summary(cfg)`
+    gives its (name, value) lines) and the run. Returns the dir."""
     from .training.trainer import run_training
 
-    args = build_parser().parse_args(argv)
-    cfg = cfg_from_args(args).finalize()
+    cfg = cfg_from_args(args, ndim).finalize()
     device = resolve_device(
         f'cuda:{args.device_id}' if args.device == 'cuda' else 'cpu')
     if cfg.manualSeed is None:
@@ -190,13 +193,17 @@ def main(argv=None):
     logging.info('Random Seed: %s', cfg.manualSeed)
     with hlog.LoggingBlock('Experiment Summary', emph=True):
         logging.info('Experiment dir: %s', saver.experiment_dir)
-        logging.info('Generator      : %s', cfg.generator)
-        logging.info('Iterations     : %s', cfg.niter)
-        logging.info('Rec. Weight    : %s', cfg.rec_weight)
-        logging.info('Scales         : %s', cfg.stop_scale + 1)
-        logging.info('Device         : %s', device)
-    run_training(cfg, saver, device=device, seed=cfg.manualSeed)
+        for name, value in summary(cfg) + [('Device', device)]:
+            logging.info('%-15s: %s', name, value)
+    run_training(cfg, saver, device=device, seed=cfg.manualSeed,
+                 mode="image" if ndim == 2 else "video")
     return saver.experiment_dir
+
+
+def main(argv=None):
+    return launch(build_parser().parse_args(argv), 2, lambda cfg: [
+        ('Generator', cfg.generator), ('Iterations', cfg.niter),
+        ('Rec. Weight', cfg.rec_weight), ('Scales', cfg.stop_scale + 1)])
 
 
 if __name__ == '__main__':

@@ -20,11 +20,13 @@ What each forward keeps of its state, as in the JAX package:
 
 from __future__ import annotations
 
-from typing import Dict, List
+import functools
+from typing import Callable, Dict, List
 
 import torch
 
 from ..data.image import make_image_batch
+from ..data.video import make_video_batch
 from ..losses import d_loss_fn, g_gan_loss_fn, g_vae_loss_fn
 from ..models.blocks import assign_sn_state
 from .state import ScaleTrainState
@@ -88,12 +90,23 @@ def calibrate(G, real, real_zero, amps, noise) -> torch.Tensor:
     return torch.sqrt(torch.mean((real - gen) ** 2))
 
 
+def batch_former(ndim: int, scale_idx: int) -> Callable:
+    """The batch former of a 2D or 3D run at `scale_idx`: (cfg, data_scale,
+    data_zero, noise) -> (real, real_zero, noise_init). What the JAX trainer
+    hands its chunk as `batch_body` (trainer.py:133-139 there)."""
+    if ndim == 2:
+        return make_image_batch
+    return functools.partial(make_video_batch, scale_idx=scale_idx)
+
+
 def train_iteration(cfg, st: ScaleTrainState, data_scale, data_zero, amps,
-                    vae_phase: bool) -> Metrics:
-    """Batch, then D (GAN scales only), then G against the updated D
-    (JAX steps.py:227-245)."""
-    real, real_zero, noise_init = make_image_batch(cfg, data_scale,
-                                                   data_zero, st.noise)
+                    vae_phase: bool, former: Callable = make_image_batch
+                    ) -> Metrics:
+    """Batch from `former` (see batch_former), then D (GAN scales only),
+    then G against the updated D (JAX steps.py:227-245). The D and G steps
+    are the same in 2D and 3D."""
+    real, real_zero, noise_init = former(cfg, data_scale, data_zero,
+                                         st.noise)
     metrics = {}
     if not vae_phase:
         metrics.update(d_step(cfg, st, real, noise_init, amps))

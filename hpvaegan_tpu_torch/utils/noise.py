@@ -4,9 +4,9 @@
 `utils/noise.py::generate_noise`, with a `torch.Generator` in place of the
 PRNG key. `NoiseSource` bundles the draws of sampling and training — the
 latent z_init, the per-stage refinement noise, the per-stage seed of the
-fused upscale+noise kernel, the reparametrisation eps, the GP alpha and the
-hflip flags — so that a test can replace it with one that hands out another
-framework's draws, in call order.
+fused upscale+noise kernel, the reparametrisation eps, the GP alpha, the
+hflip flags and the video windows' starts — so that a test can replace it
+with one that hands out another framework's draws, in call order.
 """
 
 from __future__ import annotations
@@ -60,6 +60,12 @@ class NoiseSource:
     def bernoulli(self, shape: Sequence[int]) -> torch.Tensor:
         """Bool Bernoulli(0.5) flags on the device (per-sample hflips)."""
         return generate_noise(self.gen, shape, "bernoulli", dtype=torch.bool)
+
+    def randint(self, high: int, shape: Sequence[int]) -> torch.Tensor:
+        """int64 draws in [0, high) on the device (the video batch's window
+        starts)."""
+        return torch.randint(0, int(high), tuple(int(s) for s in shape),
+                             generator=self.gen, device=self.device)
 
     def seed(self) -> int:
         """A kernel seed in [0, 2^31 - 1), as networks_2d.py:207 draws it."""

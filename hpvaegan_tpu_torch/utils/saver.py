@@ -56,8 +56,13 @@ def resolve_finalized_scale(inter: dict, what: str = "evaluate") -> int:
 
 def new_experiment_dir(cfg) -> str:
     """run_dir/<clip>/<checkname>/experiment_<n>, n one past the numeric
-    maximum (a string sort would rank experiment_9 above experiment_10)."""
-    clip = ".".join(os.path.basename(cfg.image_path).split(".")[:-1])
+    maximum (a string sort would rank experiment_9 above experiment_10).
+    The clip is named after cfg.image_path, or cfg.video_path when that is
+    empty (JAX utils/saver.py:152-157)."""
+    path = cfg.image_path or cfg.video_path
+    if not path:
+        raise AttributeError("cfg needs image_path or video_path")
+    clip = ".".join(os.path.basename(path).split(".")[:-1])
     directory = os.path.join(cfg.run_dir, clip, cfg.checkname)
     ids = [int(r.split("_")[-1])
            for r in glob.glob(os.path.join(directory, "experiment_*"))

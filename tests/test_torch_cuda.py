@@ -108,3 +108,20 @@ def test_video_sampler_matches_cpu(cuda, train):
     diff = compare_sampler_devices(cfg, gen, 3, train, seed=0, device=cuda)
     assert diff <= 1e-4
     assert k1.fused_upscale_noise_2d.launches == 0
+
+
+@pytest.mark.parametrize("scale_idx", [1, 3])
+def test_video_training_iteration_matches_cpu(cuda, scale_idx):
+    """One 3D training iteration on the card (TF32 off) equals the same
+    iteration on the CPU from the same weights and draws (window starts,
+    flips, z_init, noise, eps, alpha): a VAE-scale G step (scale 1) and a
+    GAN-scale D + G iteration whose GP double backward runs through cuDNN's
+    3D convolutions (scale 3)."""
+    cfg = Config(nfc=8, latent_dim=8, num_layer=2, enc_blocks=1, img_size=32,
+                 min_size=16, max_size=32, vae_levels=2, max_frames=5,
+                 sampling_rates=[2, 1], hflip=True, batch_size=2).finalize()
+    cfg.org_fps, cfg.ar, cfg.fps_lcm = 24.0, 0.75, 2  # synthetic.avi's
+    errs = compare_devices(cfg, scale_idx, seed=0, device=cuda, ndim=3)
+    assert errs["finite"], errs
+    assert errs["metrics_rel"] <= 1e-4, errs
+    assert errs["grads_abs"] <= 1e-4 and errs["state_abs"] <= 1e-4, errs

@@ -347,6 +347,15 @@ def test_port_imports_no_jax(tmp_path):
         "for mode in (True, False):\n"
         "    out = generate_samples(vcfg, vg, ndim=3, train_mode=mode)\n"
         "    assert out.ndim == 5 and np.isfinite(out).all()\n"
+        "from hpvaegan_tpu_torch import train_video\n"
+        "exp = train_video.main(['--video-path', 'data/vids/synthetic.avi',\n"
+        "    '--sampling-rates', '2', '1', '--max-frames', '5',\n"
+        "    '--device', 'cpu', '--nfc', '4', '--latent-dim', '4',\n"
+        "    '--num-layer', '1', '--enc-blocks', '1', '--niter', '1',\n"
+        "    '--img-size', '24', '--min-size', '16', '--max-size', '24',\n"
+        "    '--vae-levels', '1', '--run-dir', sys.argv[1]])\n"
+        "assert os.path.isfile(os.path.join(exp, 'netD_1.ckpt'))\n"
+        "assert os.sep + 'synthetic' + os.sep in exp\n"
         "bad = [m for m in sys.modules\n"
         "       if m == 'jax' or m.startswith(('jax.', 'jaxlib'))\n"
         "       or m == 'hpvaegan_tpu' or m.startswith('hpvaegan_tpu.')]\n"

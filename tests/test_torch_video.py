@@ -47,7 +47,9 @@ from hpvaegan_tpu_torch.data import video as tvideo
 from hpvaegan_tpu_torch.metrics import c3d as tc3d
 from hpvaegan_tpu_torch.metrics import fid as tfid
 from hpvaegan_tpu_torch.models.blocks import ConvStack
-from hpvaegan_tpu_torch.models.networks_3d import Encode3DVAE, GeneratorHPVAEGAN
+from hpvaegan_tpu_torch.models.networks_3d import (Encode3DVAE,
+                                                   GeneratorHPVAEGAN,
+                                                   WDiscriminator3D)
 from hpvaegan_tpu_torch.ops import conv as tconv
 from hpvaegan_tpu_torch.ops import norm as tnorm
 from hpvaegan_tpu_torch.ops import resize as tresize
@@ -324,8 +326,8 @@ def test_converter_refuses_a_checkpoint_of_the_other_rank():
 
 def test_registry_has_the_3d_generator():
     assert tmodels.get_generator("GeneratorHPVAEGAN", 3) is GeneratorHPVAEGAN
-    with pytest.raises(NotImplementedError):
-        tmodels.get_discriminator("WDiscriminator3D", 3)
+    assert tmodels.get_discriminator("WDiscriminator3D", 3) is \
+        WDiscriminator3D
     with pytest.raises(NotImplementedError):
         tmodels.get_generator("GeneratorVAE_nb", 3)
 
