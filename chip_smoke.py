@@ -25,7 +25,8 @@ Phases, each of which exits non-zero on a failed check:
              metrics to rtol 1e-4, gradients, BatchNorm and spectral-norm
              state to atol 1e-4
   6. train   the training CLI (hpvaegan_tpu_torch.train_image.main) at full
-             width, 10 scales of air_balloons.jpg, 4 iterations each: the
+             width, TF32 off and deterministic cuDNN (phase 13 resumes
+             against it), 10 scales of air_balloons.jpg, 4 iterations each: the
              checkpoints, intermediate.json and finite logged losses; then
              the eval CLI scores the experiment (finite SIFID). Training
              runs no kernel: K1's count stays 0 over the run
@@ -34,8 +35,8 @@ Phases, each of which exits non-zero on a failed check:
              warm-up ones, D-step and G-step ms (synchronised), and one
              profiled iteration (device busy ms, idle share, ms by group,
              top 8 kernels, top 8 operators with their input shapes); then
-             scale 9 once more
-             with cudnn.benchmark on (the trainer keeps it off)
+             scale 9 once more with cudnn.benchmark on (the trainer keeps
+             it off), and once with TF32 off and deterministic cuDNN
   8. video   the video main path: generate_samples(ndim=3) of the full-width
              3D model (Config() defaults, data/vids/balloons_pan.avi, 13
              frames, sampling rates 4 3 2 1: 10 scales 4x24x33 ..
@@ -53,7 +54,8 @@ Phases, each of which exits non-zero on a failed check:
              frames, rates 2 1, hflip, batch 2) on the card with TF32 off
              against the CPU from the same draws
  11. video train  the video training CLI (hpvaegan_tpu_torch.train_video.
-             main) at full width, Config() defaults on balloons_pan.avi (13
+             main) at full width, TF32 off and deterministic cuDNN (phase
+             13 resumes against it), Config() defaults on balloons_pan.avi (13
              frames, rates 4 3 2 1), 10 scales x 2 iterations: the
              checkpoints, intermediate.json, finite logged losses, K1's
              count 0, seconds per scale; then the eval_video CLI scores the
@@ -62,7 +64,23 @@ Phases, each of which exits non-zero on a failed check:
              scale 9 (GAN, 13x192x257) and scale 2 (VAE, 4x38x51), batch
              1, with the device time of the GP double backward's
              convolutions by shape; iteration counts cut where one
-             iteration takes over 2 s
+             iteration takes over 2 s; then scale 9 with TF32 off and
+             deterministic cuDNN
+ 13. resume  phase 6's and phase 11's runs (which run with TF32 off and
+             deterministic cuDNN) are the uninterrupted ones: the same CLI
+             runs again with --ckpt-interval, killed through step_callback
+             mid-scale at scale 9, and resumes from its inflight marker;
+             the image run also once from a finalized marker (killed at the
+             start of scale 5). netG_9 of each resumed run against the
+             uninterrupted one (atol 1e-4; 0 expected), the resumed tail's
+             seconds, inflight_9.ckpt's size and write time; the final
+             intermediate.json holds no "inflight" and no "key"
+ 14. VAE_nb  the 2D GeneratorVAE_nb at full width: one 64-sample
+             moving-stat forward with pallas_fused_sampling (K1 launches 9
+             times; kernel path == plain path at amps 0, TF32 off),
+             samples/s in both BatchNorm modes; one tiny iteration card vs
+             CPU; train_image --generator GeneratorVAE_nb (10 scales x 2
+             iterations, seconds per scale), then eval_image (finite SIFID)
 Then it prints the kernels' JSON line, the card's name and power limit as
 nvidia-smi gives them, and last {"ok": true, "device": {...}}.
 
@@ -427,7 +445,7 @@ def tiny_config(**kw):
                   **kw).finalize()
 
 
-def phase_step_parity(torch, cfg, ndim=2):
+def phase_step_parity(torch, cfg, ndim=2, generator="GeneratorHPVAEGAN"):
     """One VAE-scale G step and one GAN-scale iteration of a tiny 2D or 3D
     config, card vs CPU."""
     from hpvaegan_tpu_torch.tools.step_parity import compare_devices
@@ -435,7 +453,7 @@ def phase_step_parity(torch, cfg, ndim=2):
     out = {}
     for scale_idx in (1, 3):
         errs = compare_devices(cfg, scale_idx, seed=SEED, device="cuda",
-                               ndim=ndim)
+                               ndim=ndim, generator=generator)
         check(errs["finite"], f"scale {scale_idx}: non-finite values on "
               f"the card: {errs}")
         check(errs["metrics_rel"] <= 1e-4, f"scale {scale_idx}: metrics "
@@ -449,55 +467,89 @@ def phase_step_parity(torch, cfg, ndim=2):
     return out
 
 
-def phase_train_cli(torch, k1):
-    """The training CLI at full width, then the eval CLI on its output."""
+def image_train_args(run, *extra):
+    """Phase 6's train_image flags (full width, 10 scales x 4 iterations)."""
+    return ["--image-path", os.path.join(HERE, "data", "imgs",
+                                         "air_balloons.jpg"),
+            "--niter", "4", "--print-interval", "2", "--run-dir", run,
+            "--checkname", "smoke", "--manualSeed", "1", *extra]
+
+
+def video_train_args(run, *extra):
+    """Phase 11's train_video flags (full width, 10 scales x 2
+    iterations)."""
+    return ["--video-path", os.path.join(HERE, "data", "vids",
+                                         "balloons_pan.avi"),
+            "--max-frames", "13", "--sampling-rates", "4", "3", "2", "1",
+            "--niter", "2", "--print-interval", "1", "--run-dir", run,
+            "--checkname", "smoke", "--manualSeed", "1", *extra]
+
+
+@contextlib.contextmanager
+def exact_math(torch):
+    """TF32 off and deterministic cuDNN, so that two runs of the same
+    training take the same arithmetic."""
+    flags = (torch.backends.cudnn, "allow_tf32", False), \
+        (torch.backends.cuda.matmul, "allow_tf32", False), \
+        (torch.backends.cudnn, "deterministic", True)
+    saved = [getattr(mod, name) for mod, name, _ in flags]
+    for mod, name, value in flags:
+        setattr(mod, name, value)
+    try:
+        yield
+    finally:
+        for (mod, name, _), value in zip(flags, saved):
+            setattr(mod, name, value)
+
+
+def phase_train_cli(torch, k1, run):
+    """The training CLI at full width (TF32 off, deterministic cuDNN: phase
+    13 resumes against it), then the eval CLI on its output. The experiment
+    stays in `run`."""
     import numpy as np
 
     from hpvaegan_tpu_torch import eval_image, train_image
 
-    image = os.path.join(HERE, "data", "imgs", "air_balloons.jpg")
-    with tempfile.TemporaryDirectory(prefix="hpv_train_") as run:
-        k1.fused_upscale_noise_2d.launches = 0
-        t0 = time.perf_counter()
-        exp = train_image.main(["--image-path", image, "--niter", "4",
-                                "--print-interval", "2", "--run-dir", run,
-                                "--checkname", "smoke", "--manualSeed", "1"])
-        train_s = time.perf_counter() - t0
-        launches = k1.fused_upscale_noise_2d.launches
-        check(launches == 0, f"training launched K1 {launches} times")
-        files = set(os.listdir(exp))
-        for k in range(10):
-            check(f"netG_{k}.ckpt" in files, f"no netG_{k}.ckpt in {exp}")
-            check((f"netD_{k}.ckpt" in files) == (k >= 3),
-                  f"netD_{k}.ckpt: {sorted(files)}")
-        with open(os.path.join(exp, "intermediate.json")) as f:
-            inter = json.load(f)
-        amps = inter["noise_amps"]
-        check(inter["scale_idx"] == 9 and len(amps) == 10 and amps[0] == 1.0
-              and all(math.isfinite(a) and a > 0 for a in amps),
-              f"intermediate.json {inter}")
-        with open(os.path.join(exp, "logbook.txt")) as f:
-            logged = [ln.split("] ", 1)[1] for ln in f.read().splitlines()
-                      if "[Scale " in ln]
-        check(len(logged) == 20, f"{len(logged)} logged loss lines, want 20")
-        losses = [float(kv.split(": ")[1]) for ln in logged
-                  for kv in ln.split(", ")]
-        check(all(math.isfinite(v) for v in losses), f"losses {logged}")
-        buf = io.StringIO()
-        with contextlib.redirect_stdout(buf):
-            eval_image.main(["--exp-dir", exp, "--num-samples", "10"])
-        lines = [ln for ln in buf.getvalue().splitlines()
-                 if ln.startswith("SIFID: ")]
-        check(len(lines) == 1, f"eval CLI printed {buf.getvalue()!r}")
-        sifid = float(lines[0].split()[1])
-        check(math.isfinite(sifid) and sifid >= 0, f"SIFID {sifid}")
-        samples = np.load(os.path.join(exp, "eval", "random_samples.npy"))
-        check(samples.shape == (10, 3, 192, 257), f"npy {samples.shape}")
-    print(f"  trained {len(amps)} scales x 4 iterations in {train_s:.1f} s, "
-          f"amps "
+    k1.fused_upscale_noise_2d.launches = 0
+    t0 = time.perf_counter()
+    with exact_math(torch):
+        exp = train_image.main(image_train_args(run))
+    train_s = time.perf_counter() - t0
+    launches = k1.fused_upscale_noise_2d.launches
+    check(launches == 0, f"training launched K1 {launches} times")
+    files = set(os.listdir(exp))
+    for k in range(10):
+        check(f"netG_{k}.ckpt" in files, f"no netG_{k}.ckpt in {exp}")
+        check((f"netD_{k}.ckpt" in files) == (k >= 3),
+              f"netD_{k}.ckpt: {sorted(files)}")
+    with open(os.path.join(exp, "intermediate.json")) as f:
+        inter = json.load(f)
+    amps = inter["noise_amps"]
+    check(inter["scale_idx"] == 9 and len(amps) == 10 and amps[0] == 1.0
+          and all(math.isfinite(a) and a > 0 for a in amps),
+          f"intermediate.json {inter}")
+    with open(os.path.join(exp, "logbook.txt")) as f:
+        logged = [ln.split("] ", 1)[1] for ln in f.read().splitlines()
+                  if "[Scale " in ln]
+    check(len(logged) == 20, f"{len(logged)} logged loss lines, want 20")
+    losses = [float(kv.split(": ")[1]) for ln in logged
+              for kv in ln.split(", ")]
+    check(all(math.isfinite(v) for v in losses), f"losses {logged}")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        eval_image.main(["--exp-dir", exp, "--num-samples", "10"])
+    lines = [ln for ln in buf.getvalue().splitlines()
+             if ln.startswith("SIFID: ")]
+    check(len(lines) == 1, f"eval CLI printed {buf.getvalue()!r}")
+    sifid = float(lines[0].split()[1])
+    check(math.isfinite(sifid) and sifid >= 0, f"SIFID {sifid}")
+    samples = np.load(os.path.join(exp, "eval", "random_samples.npy"))
+    check(samples.shape == (10, 3, 192, 257), f"npy {samples.shape}")
+    print(f"  trained {len(amps)} scales x 4 iterations in {train_s:.1f} s "
+          f"(TF32 off, deterministic cuDNN), amps "
           f"{[round(a, 5) for a in amps]}, last losses {logged[-1]}; "
           f"K1 launches {launches}; eval CLI SIFID: {sifid}", flush=True)
-    return {"train_s": train_s, "sifid": sifid, "amps": amps}
+    return {"train_s": train_s, "sifid": sifid, "amps": amps, "exp": exp}
 
 
 def _group(name):
@@ -633,10 +685,20 @@ def time_scale(torch, cfg, dataset, scale_idx, amps, ndim=2):
             "by_shape": [[s_, n, ms] for s_, n, ms in huge]}}
 
 
+@contextlib.contextmanager
+def cudnn_benchmark(torch):
+    torch.backends.cudnn.benchmark = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.benchmark = False
+
+
 def phase_step_timing(torch):
     """Train iterations at full width, batch 1: scale 9 (GAN) and 2 (VAE)
     as the trainer runs them (PyTorch's defaults: cuDNN TF32 on, cuDNN
-    benchmark off), then scale 9 again with cudnn.benchmark on."""
+    benchmark off), then scale 9 again with cudnn.benchmark on, and with
+    TF32 off and deterministic cuDNN (phase 13's settings)."""
     from hpvaegan_tpu_torch.data.image import SingleImageDataset
 
     image = os.path.join(HERE, "data", "imgs", "air_balloons.jpg")
@@ -644,14 +706,13 @@ def phase_step_timing(torch):
     dataset = SingleImageDataset(cfg, "cuda")
     amps = [1.0] + [0.05] * (cfg.stop_scale + 1)
     out = {}
-    for name, scale_idx, bench in (("scale 9", 9, False),
-                                   ("scale 2", 2, False),
-                                   ("scale 9, cudnn.benchmark", 9, True)):
-        torch.backends.cudnn.benchmark = bench
-        try:
+    for name, scale_idx, mode in (
+            ("scale 9", 9, contextlib.nullcontext()),
+            ("scale 2", 2, contextlib.nullcontext()),
+            ("scale 9, cudnn.benchmark", 9, cudnn_benchmark(torch)),
+            ("scale 9, TF32 off, deterministic cuDNN", 9, exact_math(torch))):
+        with mode:
             out[name] = time_scale(torch, cfg, dataset, scale_idx, amps)
-        finally:
-            torch.backends.cudnn.benchmark = False
         print(f"  {name}: " + json.dumps(out[name]), flush=True)
     return out
 
@@ -909,92 +970,327 @@ def _run_video_cli(k1, cfg, ckpt, eval_video):
     return {"svfid": svfid, "s": secs}
 
 
-def phase_video_train_cli(torch, k1):
-    """The video training CLI at full width, then eval_video on its
-    output."""
+def timed_scales(trainer, main, args):
+    """main(args) with the seconds of each trainer.train_scale call (it
+    returns after the checkpoints' copy to the host); returns (experiment
+    dir, total seconds, seconds per scale)."""
+    scale_s = []
+    train_scale = trainer.train_scale
+
+    def timed(*a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return train_scale(*a, **kw)
+        finally:
+            scale_s.append(round(time.perf_counter() - t0, 2))
+
+    trainer.train_scale = timed
+    try:
+        t0 = time.perf_counter()
+        exp = main(args)
+        return exp, time.perf_counter() - t0, scale_s
+    finally:
+        trainer.train_scale = train_scale
+
+
+def phase_video_train_cli(torch, k1, run):
+    """The video training CLI at full width (TF32 off, deterministic cuDNN:
+    phase 13 resumes against it), then eval_video on its output. The
+    experiment stays in `run`."""
     import numpy as np
 
     from hpvaegan_tpu_torch import eval_video, train_video
     from hpvaegan_tpu_torch.training import trainer
 
-    video = os.path.join(HERE, "data", "vids", "balloons_pan.avi")
-    # seconds per scale, from a wrapper around the trainer's per-scale call
-    # (it returns after the checkpoints' copy to the host)
-    scale_s = []
-    train_scale = trainer.train_scale
+    k1.fused_upscale_noise_2d.launches = 0
+    with exact_math(torch):
+        exp, train_s, scale_s = timed_scales(trainer, train_video.main,
+                                             video_train_args(run))
+    check(len(scale_s) == 10, f"{len(scale_s)} scales timed")
+    launches = k1.fused_upscale_noise_2d.launches
+    check(launches == 0, f"video training launched K1 {launches} times")
+    check(exp == os.path.join(run, "balloons_pan", "smoke",
+                              "experiment_0"), f"experiment dir {exp}")
+    files = set(os.listdir(exp))
+    for k in range(10):
+        check(f"netG_{k}.ckpt" in files, f"no netG_{k}.ckpt in {exp}")
+        check((f"netD_{k}.ckpt" in files) == (k >= 3),
+              f"netD_{k}.ckpt: {sorted(files)}")
+    with open(os.path.join(exp, "intermediate.json")) as f:
+        inter = json.load(f)
+    amps = inter["noise_amps"]
+    check(inter["scale_idx"] == 9 and len(amps) == 10 and amps[0] == 1.0
+          and all(math.isfinite(a) and a > 0 for a in amps),
+          f"intermediate.json {inter}")
+    with open(os.path.join(exp, "logbook.txt")) as f:
+        logged = [ln.split("] ", 1)[1] for ln in f.read().splitlines()
+                  if "[Scale " in ln]
+    check(len(logged) == 20, f"{len(logged)} logged loss lines, want 20")
+    losses = [float(kv.split(": ")[1]) for ln in logged
+              for kv in ln.split(", ")]
+    check(all(math.isfinite(v) for v in losses), f"losses {logged}")
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        eval_video.main(["--exp-dir", exp, "--num-samples", "10"])
+    eval_s = time.perf_counter() - t0
+    lines = [ln for ln in buf.getvalue().splitlines()
+             if ln.startswith("SVFID: ")]
+    check(len(lines) == 1, f"eval_video CLI printed {buf.getvalue()!r}")
+    svfid = float(lines[0].split()[1])
+    check(math.isfinite(svfid) and svfid >= 0, f"SVFID {svfid}")
+    samples = np.load(os.path.join(exp, "eval", "random_samples.npy"))
+    check(samples.shape == (10, 3, 13, 192, 257), f"npy {samples.shape}")
+    check(bool(np.isfinite(samples).all()), "non-finite samples")
+    print(f"  trained 10 scales x 2 iterations in {train_s:.1f} s (TF32 off, "
+          f"deterministic cuDNN; seconds per scale {scale_s}), amps "
+          f"{[round(a, 5) for a in amps]}, last losses {logged[-1]}; K1 "
+          f"launches {launches}; eval_video CLI SVFID: {svfid} "
+          f"({eval_s:.2f} s)", flush=True)
+    return {"train_s": train_s, "scale_s": scale_s, "amps": amps,
+            "svfid": svfid, "eval_s": eval_s, "exp": exp}
 
-    def timed(*args):
+
+class Killed(Exception):
+    """Raised by phase 13's step_callback to stop a training run."""
+
+
+def killed_run(trainer, main, args, scale_idx, at_iter):
+    """main(args) stopped through step_callback after iteration `at_iter`
+    of scale `scale_idx` (G's stage count tells the scale); returns the
+    experiment dir."""
+    run_training, made = trainer.run_training, []
+
+    def callback(done, st, metrics):
+        if len(st.G.body) == scale_idx and done == at_iter:
+            raise Killed
+
+    def stopped(cfg, saver, *a, **kw):
+        made.append(saver.experiment_dir)
+        return run_training(cfg, saver, *a, step_callback=callback, **kw)
+
+    trainer.run_training = stopped
+    try:
+        main(args)
+        fail(f"the run went past scale {scale_idx} iteration {at_iter}")
+    except Killed:
+        pass
+    finally:
+        trainer.run_training = run_training
+    return made[0]
+
+
+def max_tree_diff(a, b):
+    """The largest absolute difference of two checkpoint pytrees."""
+    import numpy as np
+
+    if isinstance(a, dict):
+        check(sorted(a) == sorted(b), f"keys {sorted(a)} vs {sorted(b)}")
+        return max(max_tree_diff(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        check(len(a) == len(b), "list lengths differ")
+        return max(max_tree_diff(x, y) for x, y in zip(a, b))
+    return float(np.abs(np.asarray(a) - np.asarray(b)).max())
+
+
+def resume_and_compare(torch, main, ref, args, killed, netg):
+    """Resume `killed` from its `netg` and hold netG_9 and the amps against
+    the uninterrupted `ref`; returns (max |diff|, resumed seconds)."""
+    t0 = time.perf_counter()
+    with exact_math(torch):
+        exp = main(args + ["--netG", os.path.join(killed, netg),
+                           "--intermediate",
+                           os.path.join(killed, "intermediate.json")])
+    secs = time.perf_counter() - t0
+    with open(os.path.join(exp, "intermediate.json")) as f:
+        inter = json.load(f)
+    with open(os.path.join(ref, "intermediate.json")) as f:
+        want = json.load(f)
+    check("inflight" not in inter and "key" not in inter,
+          f"final intermediate.json {inter}")
+    check(inter["scale_idx"] == 9 and inter["noise_amps"] == want["noise_amps"],
+          f"resumed amps {inter['noise_amps']} vs {want['noise_amps']}")
+    check(not [f for f in os.listdir(exp) if f.startswith("inflight_")],
+          f"inflight checkpoints left in {exp}")
+    with open(os.path.join(exp, "netG_9.ckpt"), "rb") as f:
+        got = pickle.load(f)
+    with open(os.path.join(ref, "netG_9.ckpt"), "rb") as f:
+        diff = max_tree_diff(got, pickle.load(f))
+    check(diff <= 1e-4, f"resumed netG_9 differs by {diff}")
+    return diff, secs
+
+
+def phase_resume(torch, k1, run, image_exp, video_exp):
+    """Kill-and-resume of phase 6's and phase 11's runs (module doc)."""
+    from hpvaegan_tpu_torch import train_image, train_video
+    from hpvaegan_tpu_torch.training import trainer
+    from hpvaegan_tpu_torch.utils.saver import DataSaver
+
+    writes = []
+    save_inflight = DataSaver.save_inflight
+
+    def timed_save(self, scale_idx, *a, **kw):
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
-        try:
-            return train_scale(*args)
-        finally:
-            scale_s.append(round(time.perf_counter() - t0, 2))
+        save_inflight(self, scale_idx, *a, **kw)
+        writes.append((scale_idx, time.perf_counter() - t0))
 
-    trainer.train_scale = timed
-    with tempfile.TemporaryDirectory(prefix="hpv_vtrain_") as run:
-        try:
-            k1.fused_upscale_noise_2d.launches = 0
+    out = {}
+    DataSaver.save_inflight = timed_save
+    k1.fused_upscale_noise_2d.launches = 0
+    try:
+        for name, main, make_args, ref, niter, interval, at in (
+                ("image", train_image.main, image_train_args, image_exp, 4,
+                 2, 2),
+                ("video", train_video.main, video_train_args, video_exp, 2,
+                 1, 1)):
+            writes.clear()
+            args = make_args(os.path.join(run, f"{name}_kill"),
+                             "--ckpt-interval", str(interval))
             t0 = time.perf_counter()
-            exp = train_video.main([
-                "--video-path", video, "--max-frames", "13",
-                "--sampling-rates", "4", "3", "2", "1", "--niter", "2",
-                "--print-interval", "1", "--run-dir", run,
-                "--checkname", "smoke", "--manualSeed", "1"])
-            train_s = time.perf_counter() - t0
-        finally:
-            trainer.train_scale = train_scale
-        check(len(scale_s) == 10, f"{len(scale_s)} scales timed")
-        launches = k1.fused_upscale_noise_2d.launches
-        check(launches == 0, f"video training launched K1 {launches} times")
-        check(exp == os.path.join(run, "balloons_pan", "smoke",
-                                  "experiment_0"), f"experiment dir {exp}")
-        files = set(os.listdir(exp))
-        for k in range(10):
-            check(f"netG_{k}.ckpt" in files, f"no netG_{k}.ckpt in {exp}")
-            check((f"netD_{k}.ckpt" in files) == (k >= 3),
-                  f"netD_{k}.ckpt: {sorted(files)}")
-        with open(os.path.join(exp, "intermediate.json")) as f:
+            with exact_math(torch):
+                killed = killed_run(trainer, main, args, 9, at)
+            kill_s = time.perf_counter() - t0
+            with open(os.path.join(killed, "intermediate.json")) as f:
+                inter = json.load(f)
+            check(inter.get("inflight") == "inflight_9.ckpt"
+                  and inter["inflight_iter"] == at and "key" not in inter,
+                  f"{name}: killed marker {inter}")
+            mb = os.path.getsize(os.path.join(killed, "inflight_9.ckpt")) / 1e6
+            resumed_args = make_args(os.path.join(run, f"{name}_resumed"),
+                                     "--ckpt-interval", str(interval),
+                                     "--manualSeed", "7")
+            diff, tail_s = resume_and_compare(torch, main, ref, resumed_args,
+                                              killed, "inflight_9.ckpt")
+            out[name] = {"netG_9_max_abs_diff": diff, "bit_equal": diff == 0,
+                         "killed_run_s": round(kill_s, 2),
+                         "resumed_tail_s": round(tail_s, 2),
+                         "inflight_9_mb": round(mb, 2),
+                         "inflight_9_write_ms": round(1e3 * writes[-1][1], 1),
+                         "inflight_writes": len(writes)}
+            print(f"  {name}, killed at scale 9 iteration {at} of {niter}, "
+                  "resumed from inflight_9.ckpt: " + json.dumps(out[name]),
+                  flush=True)
+
+        args = image_train_args(os.path.join(run, "image_kill5"),
+                                "--ckpt-interval", "2")
+        with exact_math(torch):
+            killed = killed_run(trainer, train_image.main, args, 5, 1)
+        with open(os.path.join(killed, "intermediate.json")) as f:
             inter = json.load(f)
-        amps = inter["noise_amps"]
-        check(inter["scale_idx"] == 9 and len(amps) == 10 and amps[0] == 1.0
-              and all(math.isfinite(a) and a > 0 for a in amps),
-              f"intermediate.json {inter}")
-        with open(os.path.join(exp, "logbook.txt")) as f:
-            logged = [ln.split("] ", 1)[1] for ln in f.read().splitlines()
-                      if "[Scale " in ln]
-        check(len(logged) == 20, f"{len(logged)} logged loss lines, want 20")
-        losses = [float(kv.split(": ")[1]) for ln in logged
-                  for kv in ln.split(", ")]
-        check(all(math.isfinite(v) for v in losses), f"losses {logged}")
+        check(inter["scale_idx"] == 4 and inter.get("torch_rng")
+              == "torch_rng_4.pt" and "inflight" not in inter
+              and "key" not in inter, f"finalized marker {inter}")
+        diff, tail_s = resume_and_compare(
+            torch, train_image.main, image_exp,
+            image_train_args(os.path.join(run, "image_resumed5"),
+                             "--ckpt-interval", "2", "--manualSeed", "7"),
+            killed, "netG_4.ckpt")
+        out["image_finalized"] = {"netG_9_max_abs_diff": diff,
+                                  "bit_equal": diff == 0,
+                                  "resumed_s": round(tail_s, 2)}
+        print("  image, killed at the start of scale 5, resumed from the "
+              "finalized marker of scale 4 (torch_rng_4.pt): "
+              + json.dumps(out["image_finalized"]), flush=True)
+    finally:
+        DataSaver.save_inflight = save_inflight
+    launches = k1.fused_upscale_noise_2d.launches
+    check(launches == 0, f"the resumed runs launched K1 {launches} times")
+    return out
+
+
+def phase_vae_nb(torch, k1, moving_hpvaegan):
+    """GeneratorVAE_nb 2D at full width (module doc)."""
+    import numpy as np
+
+    from hpvaegan_tpu_torch import eval_image, train_image
+    from hpvaegan_tpu_torch.evaluation import generate_samples
+    from hpvaegan_tpu_torch.training import trainer
+
+    dev = torch.device("cuda")
+    cfg = full_width_config(pallas_fused_sampling=True,
+                            generator="GeneratorVAE_nb")
+    gen = load_port_generator(cfg, random_jax_checkpoint(cfg, SEED + 3), dev)
+    check(type(gen).__name__ == "GeneratorVAE_nb", f"built {type(gen)}")
+    generate_samples(cfg, gen, train_mode=False, seed=SEED)  # warm-up
+    k1.fused_upscale_noise_2d.launches = 0
+    out = generate_samples(cfg, gen, train_mode=False, seed=SEED + 1)
+    launches = k1.fused_upscale_noise_2d.launches
+    check(launches == cfg.stop_scale,
+          f"K1 launched {launches} times in one VAE_nb forward, want "
+          f"{cfg.stop_scale}")
+    check(out.shape == (BATCH, 257, 257, 3) and bool(np.isfinite(out).all())
+          and float(np.abs(out).max()) <= 1.0,
+          f"VAE_nb samples {out.shape} in [{out.min()}, {out.max()}]")
+    timings = {}
+    for name, train in (("fused_moving", False), ("per_sample_bn", True)):
+        generate_samples(cfg, gen, train_mode=train, seed=SEED)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for r in range(3):
+            generate_samples(cfg, gen, train_mode=train, seed=SEED + r)
+        timings[name] = 3 * BATCH / (time.perf_counter() - t0)
+    timings["GeneratorHPVAEGAN_fused_moving_phase3"] = moving_hpvaegan
+    print(f"  main path: K1 launches in one 64-sample VAE_nb forward: "
+          f"{launches}; samples/s " + json.dumps(timings), flush=True)
+
+    with exact_math(torch):
+        cfg.Noise_Amps = [1.0] + [0.0] * cfg.stop_scale
+        fused = generate_samples(cfg, gen, train_mode=False, seed=SEED + 7)
+        cfg.pallas_fused_sampling = False
+        plain = generate_samples(cfg, gen, train_mode=False, seed=SEED + 7)
+    diff = float(np.abs(fused - plain).max())
+    check(diff <= 1e-4, f"VAE_nb kernel path and plain path differ by {diff}")
+    print(f"  VAE_nb kernel path vs plain path at amps 0 (TF32 off): max "
+          f"|diff| {diff:.3g}", flush=True)
+    del gen, fused, plain, out
+    torch.cuda.empty_cache()
+
+    steps = phase_step_parity(torch, tiny_config(generator="GeneratorVAE_nb"),
+                              generator="GeneratorVAE_nb")
+
+    with tempfile.TemporaryDirectory(prefix="hpv_nb_") as run:
+        k1.fused_upscale_noise_2d.launches = 0
+        exp, train_s, scale_s = timed_scales(
+            trainer, train_image.main,
+            image_train_args(run, "--generator", "GeneratorVAE_nb",
+                             "--niter", "2"))
+        check(k1.fused_upscale_noise_2d.launches == 0,
+              "VAE_nb training launched K1")
+        check(len(scale_s) == 10 and os.path.isfile(
+            os.path.join(exp, "netG_9.ckpt")), f"VAE_nb run {scale_s}")
         buf = io.StringIO()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(buf):
-            eval_video.main(["--exp-dir", exp, "--num-samples", "10"])
+            eval_image.main(["--exp-dir", exp, "--num-samples", "10"])
         eval_s = time.perf_counter() - t0
         lines = [ln for ln in buf.getvalue().splitlines()
-                 if ln.startswith("SVFID: ")]
-        check(len(lines) == 1, f"eval_video CLI printed {buf.getvalue()!r}")
-        svfid = float(lines[0].split()[1])
-        check(math.isfinite(svfid) and svfid >= 0, f"SVFID {svfid}")
-        samples = np.load(os.path.join(exp, "eval", "random_samples.npy"))
-        check(samples.shape == (10, 3, 13, 192, 257), f"npy {samples.shape}")
-        check(bool(np.isfinite(samples).all()), "non-finite samples")
-    print(f"  trained 10 scales x 2 iterations in {train_s:.1f} s (seconds "
-          f"per scale {scale_s}), amps {[round(a, 5) for a in amps]}, last "
-          f"losses {logged[-1]}; K1 launches {launches}; eval_video CLI "
-          f"SVFID: {svfid} ({eval_s:.2f} s)", flush=True)
-    return {"train_s": train_s, "scale_s": scale_s, "amps": amps,
-            "svfid": svfid, "eval_s": eval_s}
+                 if ln.startswith("SIFID: ")]
+        check(len(lines) == 1, f"eval CLI printed {buf.getvalue()!r}")
+        sifid = float(lines[0].split()[1])
+        check(math.isfinite(sifid) and sifid >= 0, f"VAE_nb SIFID {sifid}")
+    print(f"  train_image --generator GeneratorVAE_nb: 10 scales x 2 "
+          f"iterations in {train_s:.1f} s (seconds per scale {scale_s}); "
+          f"eval_image SIFID: {sifid} ({eval_s:.2f} s)", flush=True)
+    return {"launches": launches, "samples_per_s": timings,
+            "kernel_vs_plain": diff, "steps": steps, "train_s": train_s,
+            "scale_s": scale_s, "sifid": sifid}
 
 
 def phase_video_step_timing(torch):
     """Video train iterations at full width, batch 1: scale 9 (GAN,
-    13x192x257) and scale 2 (VAE, 4x38x51), as the trainer runs them."""
+    13x192x257) and scale 2 (VAE, 4x38x51), as the trainer runs them, then
+    scale 9 with TF32 off and deterministic cuDNN (phase 13's settings)."""
     cfg, dataset = video_config(batch_size=1)
     amps = [1.0] + [0.05] * (cfg.stop_scale + 1)
     out = {}
-    for name, scale_idx in (("scale 9", 9), ("scale 2", 2)):
-        out[name] = time_scale(torch, cfg, dataset, scale_idx, amps, ndim=3)
+    for name, scale_idx, mode in (
+            ("scale 9", 9, contextlib.nullcontext()),
+            ("scale 2", 2, contextlib.nullcontext()),
+            ("scale 9, TF32 off, deterministic cuDNN", 9, exact_math(torch))):
+        with mode:
+            out[name] = time_scale(torch, cfg, dataset, scale_idx, amps,
+                                   ndim=3)
         print(f"  video {name}: " + json.dumps(out[name]), flush=True)
     return out
 
@@ -1047,9 +1343,11 @@ def main():
     print("phase 5: one training iteration, card vs CPU", flush=True)
     phase_step_parity(torch, tiny_config())
 
+    # phases 6 and 11 leave their experiments here for phase 13
+    work = tempfile.TemporaryDirectory(prefix="hpv_runs_")
     print("phase 6: train_image CLI at full width, then eval_image",
           flush=True)
-    phase_train_cli(torch, k1)
+    image_run = phase_train_cli(torch, k1, work.name)
 
     print("phase 7: training step timing at full width, batch 1", flush=True)
     phase_step_timing(torch)
@@ -1080,11 +1378,21 @@ def main():
 
     print("phase 11: train_video CLI at full width, then eval_video",
           flush=True)
-    phase_video_train_cli(torch, k1)
+    video_run = phase_video_train_cli(torch, k1, work.name)
 
     print("phase 12: video training step timing at full width, batch 1",
           flush=True)
     phase_video_step_timing(torch)
+
+    print("phase 13: kill and resume the full-width image and video runs",
+          flush=True)
+    t0 = time.perf_counter()
+    phase_resume(torch, k1, work.name, image_run["exp"], video_run["exp"])
+    print(f"  phase 13 took {time.perf_counter() - t0:.1f} s", flush=True)
+    work.cleanup()
+
+    print("phase 14: GeneratorVAE_nb (2D) at full width", flush=True)
+    nb = phase_vae_nb(torch, k1, timings["fused_moving"])
 
     kernels = [{
         "name": "fused_upscale_noise_2d",
@@ -1101,7 +1409,9 @@ def main():
                      else "operations"),
         "library_ms": sum(r["library_ms"] for r in rows),
     }]
-    print("  times are sums over the 9 stage shapes of one 64-sample forward",
+    print("  times are sums over the 9 stage shapes of one 64-sample forward;"
+          f" launches: phase 3's GeneratorHPVAEGAN forward ({launches}), "
+          f"phase 14's GeneratorVAE_nb forward ({nb['launches']})",
           flush=True)
     print(f"  total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

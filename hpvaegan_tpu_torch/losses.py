@@ -1,4 +1,4 @@
-"""Losses: KL, WGAN-GP discriminator loss, VAE- and GAN-phase generator loss.
+"""Losses: KL (Gaussian and Bernoulli), WGAN-GP discriminator loss, VAE- and GAN-phase generator loss.
 
 The port of the JAX package's `losses.py` (reference src/modules/losses.py:
 5-107). Every term is f32. The gradient penalty's inner gradient is
@@ -23,6 +23,14 @@ Metrics = Dict[str, torch.Tensor]
 def kl_criterion(mu: torch.Tensor, logvar: torch.Tensor) -> torch.Tensor:
     """KL(q || N(0, 1)), mean-reduced (reference losses.py:5-7)."""
     return torch.mean(-0.5 * (1 + logvar - mu.pow(2) - torch.exp(logvar)))
+
+
+def kl_bern_criterion(x: torch.Tensor) -> torch.Tensor:
+    """Bernoulli KL against p = 0.5, mean-reduced (reference losses.py:10-14;
+    the JAX package's steps do not call it either)."""
+    log_half = torch.log(torch.tensor(0.5, dtype=x.dtype))
+    return torch.mean(x * (torch.log(x + 1e-20) - log_half)
+                      + (1 - x) * (torch.log(1 - x + 1e-20) - log_half))
 
 
 def mse(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

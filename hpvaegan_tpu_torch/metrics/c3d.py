@@ -9,10 +9,13 @@ the same .npz the JAX package reads (keys "<conv>.w" in DHWIO, "<conv>.b"),
 named by `weights=` or HPVAEGAN_C3D_WEIGHTS; with them the input is scaled
 to [0, 255], as the pretrained weights expect, else to [-1, 1].
 
-Without a weights file both packages use a seeded random init, but from
-different generators (jax.random there, torch.Generator here), so their
-random-feature SVFIDs differ. Only with one shared .npz are the two
-packages' SVFIDs comparable.
+Without a weights file both packages use a seeded random init. At seed 0,
+the only seed the CLIs use, conv1a (block 0, the SVFID default) holds the
+JAX package's own seed-0 arrays (`jax.random`, metrics/c3d.py:50-62 there)
+from default_init.npz, loaded as the default init: the input stays in
+[-1, 1], and the two packages' default SVFIDs agree. Blocks 1-3, and every
+block at other seeds, draw from a torch.Generator and differ from the JAX
+package's.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from ..utils.device import resolve_device
+from .inception import default_init
 
 BLOCK_INDEX_BY_DIM = {64: 0, 128: 1, 256: 2, 512: 3}
 
@@ -47,6 +51,8 @@ def _init_params(seed: int) -> Dict[str, np.ndarray]:
             w = torch.randn((3, 3, 3, cin, cout), generator=gen)
             params[f"{name}.w"] = (w / np.sqrt(cin * 27)).numpy()
             params[f"{name}.b"] = np.zeros((cout,), np.float32)
+    if seed == 0:
+        params.update(default_init("c3d"))
     return params
 
 

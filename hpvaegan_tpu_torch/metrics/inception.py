@@ -7,11 +7,12 @@ pool. Weights come from the same .npz the JAX package reads (keys
 "<conv>.w" in HWIO, "<conv>.bn_gamma/bn_beta/bn_mean/bn_var"), named by
 `weights=` or HPVAEGAN_INCEPTION_WEIGHTS.
 
-Without a weights file both packages use a seeded random init, but from
-different generators (jax.random there, torch.Generator here), so their
-random-feature SIFIDs differ. Only with one shared .npz are the two
-packages' SIFIDs comparable. Blocks 1-3 (dims 192/768/2048) are not ported
-yet.
+Without a weights file both packages use a seeded random init. At seed 0,
+the only seed the CLIs use, the port loads the JAX package's own seed-0
+arrays (`jax.random`, metrics/inception.py:175-188 there) from
+default_init.npz beside this module, so the two packages' default SIFIDs
+agree. Other seeds draw from a torch.Generator and differ from the JAX
+package's. Blocks 1-3 (dims 192/768/2048) are not ported yet.
 """
 
 from __future__ import annotations
@@ -26,6 +27,11 @@ import torch.nn.functional as F
 from ..utils.device import resolve_device
 
 BLOCK_INDEX_BY_DIM = {64: 0, 192: 1, 768: 2, 2048: 3}
+# the JAX package's seed-0 init of the blocks the CLIs use (written by
+# tests/test_torch_metric_init.py), keys "inception/<conv>.<array>" and
+# "c3d/<conv>.<array>"
+DEFAULT_INIT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "default_init.npz")
 
 # block 0: (name, cin, cout, kernel, stride, padding)
 _STEM0 = [("Conv2d_1a_3x3", 3, 32, 3, 2, 0),
@@ -33,7 +39,18 @@ _STEM0 = [("Conv2d_1a_3x3", 3, 32, 3, 2, 0),
           ("Conv2d_2b_3x3", 32, 64, 3, 1, 1)]
 
 
+def default_init(prefix: str) -> Dict[str, np.ndarray]:
+    """The arrays of DEFAULT_INIT under `prefix` ("inception" or "c3d"),
+    keyed without it."""
+    with np.load(DEFAULT_INIT) as npz:
+        return {k.split("/", 1)[1]: np.asarray(npz[k]) for k in npz.files
+                if k.startswith(prefix + "/")}
+
+
 def _init_params(seed: int) -> Dict[str, np.ndarray]:
+    """Seed 0: the JAX package's arrays; other seeds: a torch draw."""
+    if seed == 0:
+        return default_init("inception")
     gen = torch.Generator().manual_seed(int(seed))
     params: Dict[str, np.ndarray] = {}
     for name, cin, cout, k, _, _ in _STEM0:

@@ -1,8 +1,9 @@
-"""2D networks as `nn.Module`s: the VAE encoder, the WGAN discriminator and
-the hierarchical generator GeneratorHPVAEGAN.
+"""2D networks as `nn.Module`s: the VAE encoders, the WGAN discriminator and
+the hierarchical generators GeneratorHPVAEGAN and GeneratorVAE_nb.
 
-The port of the JAX package's `models/networks_2d.py` for GeneratorHPVAEGAN
-and WDiscriminator2D (reference src/modules/networks_2d.py:85-282). The
+The port of the JAX package's `models/networks_2d.py` for GeneratorHPVAEGAN,
+GeneratorVAE_nb and WDiscriminator2D (reference
+src/modules/networks_2d.py:85-384). The
 "growing network" is a ModuleList of refinement stages: `init_next_stage`
 appends a fresh stage first and a deep copy of the last one after that.
 Tensors are NCHW.
@@ -14,7 +15,9 @@ through the decoder, then per refinement stage k = 1..len(body)
 Reconstruction mode (training, `reconstruct`): z = eps * exp(logvar / 2)
 + mu from the encoder, and no refinement noise. In both, the gradient stops
 at the VAE boundary (stage vae_levels - 1) unless cfg.train_all. Every draw
-comes from a `NoiseSource` (utils/noise.py).
+comes from a `NoiseSource` (utils/noise.py). GeneratorVAE_nb multiplies the
+decoder's input by a Bernoulli gate (see the class) and stops the gradient
+at the VAE boundary whatever cfg.train_all says.
 
 State: BatchNorm folds its batch statistics unless a forward runs with
 commit=False; spectral-norm forwards return their new (u, v) and the
@@ -61,13 +64,37 @@ class Encode2DVAE(nn.Module):
         self.mu = _ConvHead(cfg.nfc, out_dim, cfg.ker_size, self.ndim)
         self.logvar = _ConvHead(cfg.nfc, out_dim, cfg.ker_size, self.ndim)
 
+    def features_apply(self, x: torch.Tensor
+                       ) -> Tuple[torch.Tensor, SNState]:
+        """The SN blocks' output and their new (u, v)."""
+        return sn_blocks_apply([getattr(self.features, f"conv_block_{i}")
+                                for i in range(self.num_blocks)], x)
+
     def forward(self, x: torch.Tensor
                 ) -> Tuple[Tuple[torch.Tensor, torch.Tensor], SNState]:
         """Returns ((mu, logvar), the SN blocks' new (u, v))."""
-        blocks = [getattr(self.features, f"conv_block_{i}")
-                  for i in range(self.num_blocks)]
-        feats, state = sn_blocks_apply(blocks, x)
+        feats, state = self.features_apply(x)
         return (self.mu.conv(feats), self.logvar.conv(feats)), state
+
+
+class Encode2DVAE_nb(Encode2DVAE):
+    """Encode2DVAE_nb (JAX networks_2d.py:55-86): the encoder with a third
+    head, a Bernoulli gate bern = sigmoid(conv(feats)) that scales the
+    features, and mu and logvar averaged over space."""
+
+    def __init__(self, cfg, out_dim: int, num_blocks: int):
+        super().__init__(cfg, out_dim, num_blocks)
+        self.bern = _ConvHead(cfg.nfc, 1, cfg.ker_size, self.ndim)
+
+    def forward(self, x: torch.Tensor):
+        """Returns ((mu, logvar, bern), the SN blocks' new (u, v)): mu and
+        logvar (B, out_dim, 1, 1), bern (B, 1, H', W')."""
+        feats, state = self.features_apply(x)
+        bern = torch.sigmoid(self.bern.conv(feats))
+        feats = bern * feats
+        mu = self.mu.conv(feats).mean(dim=(2, 3), keepdim=True)
+        logvar = self.logvar.conv(feats).mean(dim=(2, 3), keepdim=True)
+        return (mu, logvar, bern), state
 
 
 class WDiscriminator2D(nn.Module):
@@ -101,11 +128,14 @@ class WDiscriminator2D(nn.Module):
 
 def refinement_layers(cfg, body: Sequence[nn.Module], x: torch.Tensor, amps,
                       noise: NoiseSource, *, is_random: bool, bn: str,
-                      commit: bool = True) -> torch.Tensor:
+                      commit: bool = True,
+                      train_all_escape: bool = True) -> torch.Tensor:
     """Residual refinement chain (networks_2d.py:177-229 of the JAX package).
 
-    amps: (stop_scale + 2,) per-scale noise amplitudes. The fused kernel
-    runs where the JAX package runs its Pallas kernel: with
+    amps: (stop_scale + 2,) per-scale noise amplitudes. train_all_escape:
+    cfg.train_all lifts the VAE-boundary detach (GeneratorHPVAEGAN);
+    GeneratorVAE_nb passes False and detaches always (JAX :185-187). The
+    fused kernel runs where the JAX package runs its Pallas kernel: with
     `cfg.pallas_fused_sampling`, in random mode, on moving-stat BatchNorm
     (networks_2d.py:193-194 there); one seed per stage. Training forwards
     run batch statistics and never reach it.
@@ -113,7 +143,8 @@ def refinement_layers(cfg, body: Sequence[nn.Module], x: torch.Tensor, amps,
     use_fused = bool(getattr(cfg, "pallas_fused_sampling", False)) \
         and is_random and bn == "moving"
     for idx in range(len(body)):
-        if cfg.vae_levels == idx + 1 and not cfg.train_all:
+        if cfg.vae_levels == idx + 1 \
+                and not (cfg.train_all and train_all_escape):
             x = x.detach()  # the VAE boundary (networks_2d.py:202-204)
         amp = float(amps[idx + 1])
         if use_fused:
@@ -169,13 +200,26 @@ class GeneratorHPVAEGAN(nn.Module):
             stage = copy.deepcopy(self.body[-1])
         self.body.append(stage)
 
+    def _random_z(self, noise_init: torch.Tensor,
+                  noise: NoiseSource) -> torch.Tensor:
+        """The decoder's input in random mode."""
+        return noise_init
+
+    def _latent(self, video: torch.Tensor, noise: NoiseSource):
+        """The decoder's input in reconstruction mode, mu, logvar and the
+        encoder's new (u, v): z = eps * exp(logvar / 2) + mu."""
+        (mu, logvar), enc_state = self.encode(video)
+        std = torch.exp(logvar * 0.5)
+        return noise.normal(std.shape) * std + mu, mu, logvar, enc_state
+
     def forward(self, noise_init: torch.Tensor, amps, noise: NoiseSource, *,
                 bn: str = "batch", commit: bool = True
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Random-mode forward from z = noise_init (B, latent_dim, h0, w0;
         in 3D (B, latent_dim, td, h0, w0)). Returns (x, vae_out). bn:
         "batch", "moving" or "sample" (ops/norm.py)."""
-        vae_out = torch.tanh(self.decoder(noise_init, bn, commit))
+        z = self._random_z(noise_init, noise)
+        vae_out = torch.tanh(self.decoder(z, bn, commit))
         x = self._refine(vae_out, amps, noise, is_random=True, bn=bn,
                          commit=commit)
         return x, vae_out
@@ -184,15 +228,49 @@ class GeneratorHPVAEGAN(nn.Module):
                     commit: bool = True):
         """Training-mode reconstruction of `video` (the scale-0 image, B, C,
         h0, w0; in 3D the scale-0 clip, B, C, T, h0, w0) with
-        batch-statistics BatchNorm (networks_2d.py:240-250):
-        z = eps * exp(logvar / 2) + mu. Returns (x, vae_out, mu, logvar).
-        With commit, BatchNorm folds and the encoder keeps its new (u, v)."""
-        (mu, logvar), enc_state = self.encode(video)
-        std = torch.exp(logvar * 0.5)
-        z = noise.normal(std.shape) * std + mu
+        batch-statistics BatchNorm (networks_2d.py:240-250), from
+        `_latent`. Returns (x, vae_out, mu, logvar). With commit, BatchNorm
+        folds and the encoder keeps its new (u, v)."""
+        z, mu, logvar, enc_state = self._latent(video, noise)
         vae_out = torch.tanh(self.decoder(z, "batch", commit))
         x = self._refine(vae_out, amps, noise, is_random=False, bn="batch",
                          commit=commit)
         if commit:
             assign_sn_state(self.encode, enc_state)
         return x, vae_out, mu, logvar
+
+
+class GeneratorVAE_nb(GeneratorHPVAEGAN):
+    """GeneratorVAE_nb (JAX networks_2d.py:328-384): the decoder's input is
+    z times a gate. Random mode draws the gate Bernoulli(0.5), (B, 1, h0,
+    w0), before the refinement noise; reconstruction draws eps (normal) and
+    then u (uniform, the gate's shape) for a Gumbel relaxation of the
+    encoder's bern:
+        z_bern = log(bern + 1e-20) - log(-log(u + 1e-20) + 1e-20).
+    Growth deep-copies the last stage, as GeneratorHPVAEGAN's does (the
+    reference shares one stage object between scales; the JAX package
+    copies)."""
+
+    encoder_cls = Encode2DVAE_nb
+
+    def _refine(self, x: torch.Tensor, amps, noise: NoiseSource, *,
+                is_random: bool, bn: str, commit: bool) -> torch.Tensor:
+        return refinement_layers(self.cfg, self.body, x, amps, noise,
+                                 is_random=is_random, bn=bn, commit=commit,
+                                 train_all_escape=False)
+
+    def _random_z(self, noise_init: torch.Tensor,
+                  noise: NoiseSource) -> torch.Tensor:
+        gate_shape = (noise_init.shape[0], 1) + tuple(noise_init.shape[2:])
+        return noise_init * noise.bernoulli(gate_shape).to(noise_init.dtype)
+
+    def _latent(self, video: torch.Tensor, noise: NoiseSource):
+        """z_norm * z_bern; the encoder's bern is
+        `self.encode(video)[0][2]`."""
+        (mu, logvar, bern), enc_state = self.encode(video)
+        std = torch.exp(logvar * 0.5)
+        z_norm = noise.normal(std.shape) * std + mu
+        u = noise.uniform(bern.shape)
+        z_bern = torch.log(bern + 1e-20) \
+            - torch.log(-torch.log(u + 1e-20) + 1e-20)
+        return z_norm * z_bern, mu, logvar, enc_state

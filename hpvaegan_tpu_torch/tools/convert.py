@@ -1,12 +1,13 @@
-"""Carry GeneratorHPVAEGAN and WDiscriminator2D / 3D weights between
-the JAX package and the port.
+"""Carry GeneratorHPVAEGAN / GeneratorVAE_nb and WDiscriminator2D / 3D
+weights between the JAX package and the port.
 
 The JAX package keeps a network as a (params, state) pytree of numpy arrays
 with HWIO (2D) / DHWIO (3D) conv weights, pickled as netG_<k>.ckpt /
 netD_<k>.ckpt. The port's state_dicts use the original hp-vae-gan torch
 naming with OIHW / OIDHW weights:
   encode.features.conv_block_<i>.conv.{weight_orig,bias,weight_u,weight_v}
-  encode.{mu,logvar}.conv.{weight,bias}
+  encode.{mu,logvar}.conv.{weight,bias}   (+ encode.bern.conv.* for
+                                          GeneratorVAE_nb)
   {decoder,body.<k>}.{head,block<i>}.{conv,norm}.*   {..}.tail.{weight,bias}
   (D) head.conv.*, body.block<i>.conv.* (SN convs), tail.{weight,bias}
 `from_jax` is the port of the JAX package's `tools/convert.py::j2t_HPVAEGAN`
@@ -100,13 +101,15 @@ def _stack_from_jax(prefix: str, p: Dict, s: Dict, out: Dict) -> None:
 
 def from_jax(params: Dict, state: Dict, ndim: int = 2
              ) -> Dict[str, torch.Tensor]:
-    """The JAX package's GeneratorHPVAEGAN (params, state), 2D or 3D per
-    `ndim` -> the port's state_dict."""
+    """The JAX package's GeneratorHPVAEGAN or GeneratorVAE_nb (params,
+    state), 2D or 3D per `ndim` -> the port's state_dict."""
     out: Dict[str, np.ndarray] = {}
     for i, (fp, fs) in enumerate(zip(params["encode"]["features"],
                                      state["encode"]["features"])):
         _sn_from_jax(f"encode.features.conv_block_{i}.conv", fp, fs, out)
-    for head in ("mu", "logvar"):
+    for head in ("mu", "logvar", "bern"):
+        if head not in params["encode"]:
+            continue
         out[f"encode.{head}.conv.weight"] = _hwio_to_oihw(
             params["encode"][head]["w"])
         out[f"encode.{head}.conv.bias"] = _f32(params["encode"][head]["b"])
@@ -149,8 +152,8 @@ def _stack_to_jax(items: Dict[str, np.ndarray]) -> Tuple[Dict, Dict]:
 
 def to_jax(state_dict: Dict[str, torch.Tensor], ndim: int = 2
            ) -> Tuple[Dict, Dict]:
-    """The port's GeneratorHPVAEGAN state_dict, 2D or 3D per `ndim` -> the
-    JAX package's (params, state) numpy pytree (what its netG_<k>.ckpt
+    """The port's GeneratorHPVAEGAN or GeneratorVAE_nb state_dict, 2D or
+    3D per `ndim` -> the JAX package's (params, state) numpy pytree (what its netG_<k>.ckpt
     holds)."""
     sd = _numpy_sd(state_dict)
     _check_rank(sd, ndim)
@@ -162,7 +165,7 @@ def to_jax(state_dict: Dict[str, torch.Tensor], ndim: int = 2
         if m:
             feats.setdefault(int(m.group(1)), {})[m.group(2)] = value
             continue
-        m = re.match(r"encode\.(mu|logvar)\.conv\.(weight|bias)$", key)
+        m = re.match(r"encode\.(mu|logvar|bern)\.conv\.(weight|bias)$", key)
         if m:
             w = _oihw_to_hwio(value) if m.group(2) == "weight" else value
             enc_p.setdefault(m.group(1), {})[

@@ -3,7 +3,7 @@ same weights and the same draws, compared.
 
 `run_iteration` builds a small training state at one scale from a seed
 (He-normal weights, so that activations keep unit scale, and random
-BatchNorm statistics), 2D or 3D per `ndim`, runs
+BatchNorm statistics) of the named generator, 2D or 3D per `ndim`, runs
 training/steps.py::train_iteration once (D then G on a GAN scale) on
 random data (an image, or a clip of cfg.max_frames frames whose batch is
 random temporal windows), and returns its metrics, every gradient and every
@@ -52,8 +52,8 @@ class RecordingNoise(NoiseSource):
     def normal(self, shape):
         return self._keep(super().normal(shape))
 
-    def uniform(self):
-        return self._keep(super().uniform())
+    def uniform(self, shape=()):
+        return self._keep(super().uniform(shape))
 
     def bernoulli(self, shape):
         return self._keep(super().bernoulli(shape))
@@ -78,8 +78,8 @@ class ReplayedNoise(NoiseSource):
     def normal(self, shape):
         return self._next(shape)
 
-    def uniform(self):
-        return self._next(())
+    def uniform(self, shape=()):
+        return self._next(shape)
 
     def bernoulli(self, shape):
         return self._next(shape)
@@ -115,13 +115,13 @@ def he_init_(module: torch.nn.Module, gen: torch.Generator) -> None:
                                                generator=gen) + 0.5)
 
 
-def build_state(cfg, scale_idx: int, seed: int, device,
-                ndim: int = 2) -> ScaleTrainState:
-    """G grown to `scale_idx` stages and a D (2D or 3D per `ndim`), both
-    from `seed`, with the scale's optimizers; the noise source is left to
-    the caller."""
+def build_state(cfg, scale_idx: int, seed: int, device, ndim: int = 2,
+                generator: str = "GeneratorHPVAEGAN") -> ScaleTrainState:
+    """`generator` grown to `scale_idx` stages and a D (2D or 3D per
+    `ndim`), both from `seed`, with the scale's optimizers; the noise
+    source is left to the caller."""
     gen = torch.Generator().manual_seed(seed)
-    G = get_generator("GeneratorHPVAEGAN", ndim)(cfg)
+    G = get_generator(generator, ndim)(cfg)
     for _ in range(scale_idx):
         G.init_next_stage()
     D = get_discriminator(f"WDiscriminator{ndim}D", ndim)(cfg)
@@ -136,12 +136,13 @@ def build_state(cfg, scale_idx: int, seed: int, device,
 
 
 def run_iteration(cfg, scale_idx: int, seed: int, device,
-                  noise: NoiseSource, ndim: int = 2
+                  noise: NoiseSource, ndim: int = 2,
+                  generator: str = "GeneratorHPVAEGAN"
                   ) -> Dict[str, Dict[str, np.ndarray]]:
     """One train_iteration at `scale_idx`; returns {"metrics", "grads",
     "state"} as numpy, keyed by name. In 3D the config must carry the
     clip's org_fps, ar and fps_lcm (SingleVideoDataset sets them)."""
-    st = build_state(cfg, scale_idx, seed, device, ndim)
+    st = build_state(cfg, scale_idx, seed, device, ndim, generator)
     st.noise = noise
     gen = torch.Generator().manual_seed(seed + 1)
     frames = (cfg.max_frames,) if ndim == 3 else ()
@@ -164,22 +165,25 @@ def run_iteration(cfg, scale_idx: int, seed: int, device,
 
 
 def compare_devices(cfg, scale_idx: int, seed: int = 0, device="cuda",
-                    ndim: int = 2) -> Dict[str, float]:
-    """The iteration (2D or 3D per `ndim`) on `device` (TF32 off) and on
-    the CPU from the same weights and draws: the largest relative metric
-    difference and the largest absolute gradient and state differences."""
+                    ndim: int = 2, generator: str = "GeneratorHPVAEGAN"
+                    ) -> Dict[str, float]:
+    """The iteration of `generator` (2D or 3D per `ndim`) on `device` (TF32
+    off) and on the CPU from the same weights and draws: the largest
+    relative metric difference and the largest absolute gradient and state
+    differences."""
     cudnn_tf32 = torch.backends.cudnn.allow_tf32
     mm_tf32 = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
         rec = RecordingNoise(seed, device)
-        card = run_iteration(cfg, scale_idx, seed, device, rec, ndim)
+        card = run_iteration(cfg, scale_idx, seed, device, rec, ndim,
+                             generator)
     finally:
         torch.backends.cudnn.allow_tf32 = cudnn_tf32
         torch.backends.cuda.matmul.allow_tf32 = mm_tf32
     host = run_iteration(cfg, scale_idx, seed, "cpu",
-                         ReplayedNoise(rec.drawn, "cpu"), ndim)
+                         ReplayedNoise(rec.drawn, "cpu"), ndim, generator)
     if sorted(card["grads"]) != sorted(host["grads"]):
         raise AssertionError("the two devices trained other parameters")
     errs = {"metrics_rel": max(

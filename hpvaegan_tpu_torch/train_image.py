@@ -9,9 +9,18 @@ run/<image>/<checkname>/experiment_<n>/ in the JAX package's format
 (args.txt, logbook.txt, netG_<k>.ckpt, netD_<k>.ckpt, intermediate.json),
 which the eval CLI of either package evaluates.
 
+Resume a run with --netG and --intermediate (training/trainer.py: from an
+inflight_<k>.ckpt, a finalized netG_<k>.ckpt of the port, or reference-style
+from any other marker); --ckpt-interval N writes an inflight checkpoint every
+N iterations:
+
+    python -m hpvaegan_tpu_torch.train_image --image-path <image> \
+        --netG <exp>/inflight_9.ckpt --intermediate <exp>/intermediate.json
+
 The flags are the JAX CLI's, with its defaults. Its XLA knobs are accepted,
-kept in args.txt and change nothing (they change no result there either).
-Flags of parts not ported yet raise NotImplementedError.
+kept in args.txt and change nothing (they change no result there either);
+so is --netD, which the JAX trainer never reads either. Flags of parts not
+ported yet raise NotImplementedError.
 """
 
 import argparse
@@ -19,13 +28,13 @@ import logging
 import os
 import random
 
+from . import models
 from .config import Config
 from .utils import logger as hlog
 from .utils.device import resolve_device
 from .utils.saver import DataSaver
 
 _NO_EFFECT = "accepted and kept in args.txt; no effect in this port (XLA only)"
-_RESUME = "resume and inflight checkpoints"
 _MULTI = "multi-process and mesh training"
 _VARIANTS = "--paired-g, --fused-dg, --flat-opt and bfloat16"
 
@@ -37,9 +46,9 @@ def build_parser() -> argparse.ArgumentParser:
                         help='train on the card (default) or the CPU')
 
     # Load, input, save configurations
-    parser.add_argument('--netG', default='', help='path to netG (to continue training; not ported yet)')
-    parser.add_argument('--netD', default='', help='path to netD (not ported yet)')
-    parser.add_argument('--intermediate', default='', help='path to intermediate file (not ported yet)')
+    parser.add_argument('--netG', default='', help='path to netG (to continue training): a netG_<k>.ckpt or an inflight_<k>.ckpt; needs --intermediate')
+    parser.add_argument('--netD', default='', help='path to netD (accepted and kept in args.txt; no effect, as in the JAX trainer)')
+    parser.add_argument('--intermediate', default='', help="path to the resumed experiment's intermediate.json; needs --netG")
     parser.add_argument('--manualSeed', type=int, help='manual seed')
 
     # Networks hyper parameters
@@ -122,7 +131,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument('--fused-dg', action='store_true', default=False,
                         help='not ported yet')
     parser.add_argument('--ckpt-interval', type=int, default=0,
-                        help='mid-scale checkpoint cadence (not ported yet)')
+                        help='write inflight_<k>.ckpt every N iterations '
+                             '(0: never)')
     parser.add_argument('--bug-compat', action='store_true', default=False,
                         help='replicate reference bugs (frozen GP alpha, severed '
                              'adv G grad, noise amp /batch_size)')
@@ -135,13 +145,11 @@ def unported(args, ndim: int = 2) -> list:
     port does not run. `--visualize` counts only in 2D: the JAX trainer
     ignores it for video (trainer.py:239 there)."""
     checks = [
-        ("--netG", args.netG, _RESUME),
-        ("--netD", args.netD, _RESUME),
-        ("--intermediate", args.intermediate, _RESUME),
-        ("--ckpt-interval", args.ckpt_interval > 0, _RESUME),
         ("--visualize", args.visualize and ndim == 2, "--visualize"),
         ("--generator " + args.generator,
-         args.generator != "GeneratorHPVAEGAN", "GeneratorVAE_nb"),
+         (args.generator, ndim) not in models.GENERATORS,
+         models.REFUSED.get((args.generator, ndim),
+                            "the CSG/SG baselines")),
         ("--mesh-data", args.mesh_data > 1, _MULTI),
         ("--mesh-sp", args.mesh_sp > 1, _MULTI),
         ("--dist-coordinator", args.dist_coordinator, _MULTI),
@@ -158,6 +166,10 @@ def unported(args, ndim: int = 2) -> list:
 
 
 def cfg_from_args(args: argparse.Namespace, ndim: int = 2) -> Config:
+    if bool(args.netG) != bool(args.intermediate):
+        raise SystemExit("--netG and --intermediate go together: a resume "
+                         "needs the checkpoint and its experiment's "
+                         "intermediate.json")
     bad = unported(args, ndim)
     if bad:
         raise NotImplementedError("not ported yet: " + "; ".join(

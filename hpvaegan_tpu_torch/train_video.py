@@ -12,8 +12,10 @@ of either package evaluates.
 
 The flags are train_image's with --image-path swapped for the video ones,
 and the JAX CLI's video defaults (WDiscriminator3D, 50000 iterations,
-checkname DEBUG). `--visualize` is accepted and changes nothing, as in the
-JAX package; the other unported flags raise NotImplementedError.
+checkname DEBUG). Resume works as in train_image. `--visualize` is accepted
+and changes nothing, as in the JAX package; the other unported flags
+(GeneratorVAE_nb among them: the JAX package's 3D one cannot run, so there
+is nothing to port it from) raise NotImplementedError.
 """
 
 import argparse

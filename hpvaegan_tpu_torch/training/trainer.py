@@ -14,26 +14,49 @@ or "video" (3D). Per scale:
     noise_amp_init * RMSE of a reconstruction (divided by batch_size again
     only under bug_compat, the reference's bug #3);
   * niter iterations of training/steps.py::train_iteration, a logbook line
-    every print_interval iterations, and an abort on non-finite metrics;
-  * netG_<k>, netD_<k> (GAN scales) and intermediate.json, in crash order.
+    every print_interval iterations, an abort on non-finite metrics, an
+    inflight checkpoint every ckpt_interval iterations (not after the last),
+    then `step_callback(done, st, metrics)`, in the JAX trainer's order
+    (trainer.py:283-294 there);
+  * netG_<k>, netD_<k> (GAN scales), torch_rng_<k>.pt and intermediate.json,
+    in crash order (utils/saver.py).
 The video mode differs only in its dataset (data/video.py: all frames per
 scale, a batch is random temporal windows), its batch former and its 3D
 networks; the steps are the same.
 
+Resume (`cfg.netG` and `cfg.intermediate`, the JAX trainer's
+trainer.py:448-534) reads the marker in --intermediate's directory:
+  (a) an inflight marker whose "inflight" names --netG: G, D, both
+      optimizers and the generator states come from the checkpoint, and the
+      scale continues at the iteration after the saved one (no D init, no
+      calibration): the run ends as the uninterrupted one would;
+  (b) a finalized marker with "torch_rng": netG_<k> and the generator
+      states at the end of scale k; netD_<k> is copied into the new
+      experiment dir and training continues at scale k + 1, as the
+      uninterrupted run would (--manualSeed plays no part);
+  (c) any other marker (the JAX package's, with or without its "key", or a
+      port marker without "torch_rng"): the reference's resume. G keeps
+      its k trained stages, the amps their first k, D warm-starts from
+      netD_<k-1> of --netG's directory, and scale k is recalibrated and
+      trained again, from --manualSeed.
+
 What the JAX trainer adds for XLA and the TPU has no counterpart here: the
 scan of `steps_per_call` iterations per dispatch, the compile-ahead
 pipeline (training/pipeline.py), the retry of a scale after a runtime
-error (`run_scale_with_retry`) and the device mesh. Resume, inflight
-checkpoints and visualization are not ported yet (ROADMAP.md).
+error (`run_scale_with_retry`) and the device mesh. Visualization is not
+ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
 
+import json
 import logging
 import math
 import os
+import pickle
+import shutil
 import time
-from typing import List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
@@ -42,14 +65,14 @@ from ..data.image import SingleImageDataset
 from ..data.video import SingleVideoDataset
 from ..models.blocks import init_weights_
 from ..optim import ClippedAdam, adam
-from ..tools.convert import (from_jax_discriminator, to_jax,
+from ..tools.convert import (from_jax, from_jax_discriminator, to_jax,
                              to_jax_discriminator)
 from ..utils import pyramid
 from ..utils.device import resolve_device
 from ..utils.logger import logbook
 from ..utils.noise import NoiseSource
 from ..utils.progress import Progress
-from ..utils.saver import DataSaver
+from ..utils.saver import DataSaver, load_inflight, load_pytree
 from .partition import apply_lr_plan, make_lr_plan
 from .state import ScaleTrainState
 from .steps import batch_former, calibrate, train_iteration
@@ -63,15 +86,17 @@ def amps_list(noise_amps: List[float], stop_scale: int) -> List[float]:
 
 
 def make_discriminator(cfg, saver: DataSaver, scale_idx: int,
-                       init_gen: torch.Generator, device,
-                       ndim: int) -> torch.nn.Module:
+                       init_gen: torch.Generator, device, ndim: int,
+                       warm_dir: Optional[str] = None) -> torch.nn.Module:
     """A fresh D, warm-started from the previous GAN scale's checkpoint when
-    vae_levels < scale_idx."""
+    vae_levels < scale_idx, or from warm_dir's (a reference-style resume's
+    --netG directory) whenever it is given."""
     D = models.get_discriminator(cfg.discriminator, ndim)(cfg)
     init_weights_(D, init_gen)
-    if cfg.vae_levels < scale_idx:
+    if warm_dir or cfg.vae_levels < scale_idx:
         try:
-            ckpt = saver.load_checkpoint(f"netD_{scale_idx - 1}.ckpt")
+            ckpt = saver.load_checkpoint(f"netD_{scale_idx - 1}.ckpt",
+                                         path=warm_dir)
         except FileNotFoundError:
             logging.warning("no previous netD checkpoint to warm-start from")
         else:
@@ -80,20 +105,46 @@ def make_discriminator(cfg, saver: DataSaver, scale_idx: int,
     return D.to(device)
 
 
+def rng_state(init_gen: torch.Generator,
+              noise: NoiseSource) -> Dict[str, Any]:
+    """Every generator a run draws from: the weights' and the NoiseSource's
+    two."""
+    return {"init_gen": init_gen.get_state(), "noise": noise.get_state()}
+
+
+def set_rng_state(rng: Dict[str, Any], init_gen: torch.Generator,
+                  noise: NoiseSource) -> None:
+    init_gen.set_state(rng["init_gen"])
+    noise.set_state(rng["noise"])
+
+
 def train_scale(cfg, G, dataset, saver: DataSaver, noise_amps: List[float],
-                noise: NoiseSource, init_gen: torch.Generator) -> List[float]:
+                noise: NoiseSource, init_gen: torch.Generator,
+                step_callback=None, inflight: Optional[Dict] = None,
+                warm_dir: Optional[str] = None) -> List[float]:
     """Train pyramid scale cfg.scale_idx of G (2D or 3D, per G.ndim) on a
     SingleImageDataset or SingleVideoDataset; returns the amps with its
-    own."""
+    own. `inflight`: an inflight checkpoint's payload, whose D, optimizers
+    and iteration the scale continues from (G and the generators are the
+    caller's to restore); `warm_dir`: see make_discriminator."""
     scale_idx = cfg.scale_idx
     ndim = G.ndim
     vae_phase = cfg.vae_levels >= scale_idx + 1
     device = next(G.parameters()).device
-    D = make_discriminator(cfg, saver, scale_idx, init_gen, device, ndim)
+    if inflight is None:
+        D = make_discriminator(cfg, saver, scale_idx, init_gen, device, ndim,
+                               None if vae_phase else warm_dir)
+    else:
+        D = models.get_discriminator(cfg.discriminator, ndim)(cfg)
+        D.load_state_dict(inflight["D"])
+        D = D.to(device)
     plan = make_lr_plan(cfg, scale_idx, len(G.body))
     opt_g = ClippedAdam(apply_lr_plan(G, plan), cfg.beta1,
                         grad_clip=cfg.grad_clip)
     opt_d = adam(D.parameters(), cfg.lr_d, cfg.beta1)
+    if inflight is not None:
+        opt_g.load_state_dict(inflight["opt_g"])
+        opt_d.load_state_dict(inflight["opt_d"])
     st = ScaleTrainState(G, D, opt_g, opt_d, noise)
     if ndim == 2:
         data_scale = dataset.scale_image(scale_idx)
@@ -104,7 +155,12 @@ def train_scale(cfg, G, dataset, saver: DataSaver, noise_amps: List[float],
     former = batch_former(ndim, scale_idx)
 
     noise_amps = list(noise_amps)
-    if cfg.const_amp or scale_idx == 0:
+    if inflight is not None:
+        # calibrated before the checkpoint; the marker carries it
+        if len(noise_amps) != scale_idx + 1:
+            raise ValueError(f"an inflight marker of scale {scale_idx} needs "
+                             f"{scale_idx + 1} amps, has {len(noise_amps)}")
+    elif cfg.const_amp or scale_idx == 0:
         noise_amps.append(1.0)
     else:
         noise_amps.append(0.0)
@@ -115,9 +171,10 @@ def train_scale(cfg, G, dataset, saver: DataSaver, noise_amps: List[float],
         noise_amps[-1] = cfg.noise_amp_init * float(rmse) / denom
     amps = amps_list(noise_amps, cfg.stop_scale)
 
+    start = int(inflight["iter"]) if inflight is not None else 0
     bar = Progress(cfg.niter, "Training scale [{}/{}]".format(
-        scale_idx + 1, cfg.stop_scale + 1))
-    for done in range(1, cfg.niter + 1):
+        scale_idx + 1, cfg.stop_scale + 1), initial=start)
+    for done in range(start + 1, cfg.niter + 1):
         metrics = train_iteration(cfg, st, data_scale, data_zero, amps,
                                   vae_phase, former)
         bar.update()
@@ -131,6 +188,14 @@ def train_scale(cfg, G, dataset, saver: DataSaver, noise_amps: List[float],
             logbook("[Scale {}/Iter {}] Noise amp: {:.5f}, {}".format(
                 scale_idx + 1, done, noise_amps[-1],
                 ", ".join(f"{k}: {v:.5f}" for k, v in sorted(vals.items()))))
+        if cfg.ckpt_interval and done < cfg.niter \
+                and done % cfg.ckpt_interval == 0:
+            saver.save_inflight(scale_idx, {
+                "G": G.state_dict(), "D": D.state_dict(),
+                "opt_g": opt_g.state_dict(), "opt_d": opt_d.state_dict(),
+                "rng": rng_state(init_gen, noise)}, done, noise_amps)
+        if step_callback is not None:
+            step_callback(done, st, metrics)
     bar.close()
 
     params, state = to_jax(G.state_dict(), ndim)
@@ -139,16 +204,92 @@ def train_scale(cfg, G, dataset, saver: DataSaver, noise_amps: List[float],
         d_params, d_state = to_jax_discriminator(D.state_dict(), ndim)
         d_tree = {"params": d_params, "state": d_state}
     saver.finalize_scale(scale_idx, noise_amps,
-                         {"params": params, "state": state}, d_tree)
+                         {"params": params, "state": state}, d_tree,
+                         rng=rng_state(init_gen, noise))
     return noise_amps
 
 
+def _load_netg(path: str) -> Dict:
+    """A finalized netG_<k>.ckpt (a pickled numpy pytree of either
+    package)."""
+    if path.endswith(".pth"):
+        raise NotImplementedError(
+            f"{path}: resuming from the original hp-vae-gan's .pth "
+            "checkpoints is not ported yet (ROADMAP.md queue 1: .pth and "
+            "MindSpore interop)")
+    try:
+        return load_pytree(path)
+    except pickle.UnpicklingError as e:
+        raise NotImplementedError(
+            f"{path} is not a pickled (params, state) checkpoint; resuming "
+            "from MindSpore checkpoints is not ported yet (ROADMAP.md queue "
+            "1: .pth and MindSpore interop)") from e
+
+
+def resume(cfg, saver: DataSaver, G, init_gen: torch.Generator,
+           noise: NoiseSource
+           ) -> Tuple[List[float], int, Optional[Dict], Optional[str]]:
+    """Load the resumed state into G and the generators (cases (a)-(c) of
+    the module docstring). Returns (noise_amps, the scale to train next,
+    the inflight payload or None, the netD warm-start dir or None)."""
+    if not (cfg.netG and cfg.intermediate):
+        raise ValueError("resume needs both --netG and --intermediate")
+    inter_dir = os.path.dirname(cfg.intermediate)
+    with open(os.path.join(inter_dir, "intermediate.json")) as f:
+        inter = json.load(f)
+    amps = [float(a) for a in inter["noise_amps"]]
+    k = int(inter["scale_idx"])
+    resume_dir = os.path.dirname(cfg.netG)
+    inflight = None
+    if inter.get("inflight") \
+            and os.path.basename(cfg.netG) == inter["inflight"]:
+        inflight = load_inflight(cfg.netG)
+        state_dict = inflight["G"]
+    else:
+        ckpt = _load_netg(cfg.netG)
+        state_dict = from_jax(ckpt["params"], ckpt["state"], G.ndim)
+    n_body = len({key.split(".")[1] for key in state_dict
+                  if key.startswith("body.")})
+    if n_body != k:
+        raise RuntimeError(f"{cfg.netG} has {n_body} refinement stages but "
+                           f"the marker's scale_idx is {k}")
+    while len(G.body) < k:
+        G.init_next_stage()
+    G.load_state_dict(state_dict)
+
+    if inflight is not None:
+        set_rng_state(inflight["rng"], init_gen, noise)
+        logging.info("resume: scale %d from %s after iteration %d", k,
+                     cfg.netG, inflight["iter"])
+        return amps, k, inflight, None
+    if inter.get("torch_rng"):
+        if len(amps) != k + 1:
+            raise ValueError(f"a finalized marker of scale {k} needs {k + 1} "
+                             f"amps, has {len(amps)}")
+        set_rng_state(load_inflight(os.path.join(inter_dir,
+                                                 inter["torch_rng"])),
+                      init_gen, noise)
+        src = os.path.join(resume_dir, f"netD_{k}.ckpt")
+        dst = os.path.join(saver.experiment_dir, f"netD_{k}.ckpt")
+        if os.path.isfile(src) and not os.path.exists(dst):
+            shutil.copy(src, dst)
+        logging.info("resume: scale %d complete in %s; continuing at %d", k,
+                     inter_dir, k + 1)
+        return amps, k + 1, None, None
+    logging.info("resume: retraining scale %d from %s (reference-style)", k,
+                 cfg.netG)
+    return amps[:k], k, None, resume_dir
+
+
 def run_training(cfg, saver: DataSaver, device="cuda",
-                 seed: Optional[int] = None, mode: str = "image"):
+                 seed: Optional[int] = None, mode: str = "image",
+                 step_callback=None):
     """The full multi-scale run (reference train_image.py:385-391) on one
-    image (`mode` "image") or one video ("video"). Weights are drawn from a
-    host generator seeded `seed` (default cfg.manualSeed), every training
-    draw from a NoiseSource on `device`. Returns (G, noise_amps)."""
+    image (`mode` "image") or one video ("video"), resumed when cfg.netG is
+    set. Weights are drawn from a host generator seeded `seed` (default
+    cfg.manualSeed), every training draw from a NoiseSource on `device`.
+    `step_callback(done, st, metrics)` runs after every iteration. Returns
+    (G, noise_amps)."""
     if mode not in ("image", "video"):
         raise ValueError(f"mode {mode!r}: 'image' or 'video'")
     if cfg.vae_levels <= 0 or cfg.disc_loss_weight <= 0:
@@ -173,9 +314,13 @@ def run_training(cfg, saver: DataSaver, device="cuda",
     G = G.to(device)
 
     noise_amps: List[float] = []
-    for scale_idx in range(cfg.stop_scale + 1):
+    start, inflight, warm_dir = 0, None, None
+    if cfg.netG or cfg.intermediate:
+        noise_amps, start, inflight, warm_dir = resume(cfg, saver, G,
+                                                       init_gen, noise)
+    for scale_idx in range(start, cfg.stop_scale + 1):
         cfg.scale_idx = scale_idx
-        if scale_idx > 0:
+        if len(G.body) < scale_idx:
             G.init_next_stage(init_gen)
         if ndim == 3:
             cfg.fps, cfg.td, cfg.fps_index = pyramid.get_fps_td_by_index(
@@ -186,8 +331,12 @@ def run_training(cfg, saver: DataSaver, device="cuda",
                          cfg.sampling_rates[cfg.fps_index])
         t0 = time.perf_counter()
         noise_amps = train_scale(cfg, G, dataset, saver, noise_amps, noise,
-                                 init_gen)
+                                 init_gen, step_callback, inflight, warm_dir)
+        inflight = warm_dir = None
         secs = time.perf_counter() - t0
         logging.info("scale %d done in %.1fs (%.2f it/s)", scale_idx, secs,
                      cfg.niter / max(secs, 1e-9))
+    if start > cfg.stop_scale:
+        logging.info("resume: all %d scales already complete",
+                     cfg.stop_scale + 1)
     return G, noise_amps

@@ -5,13 +5,16 @@
 PRNG key. `NoiseSource` bundles the draws of sampling and training — the
 latent z_init, the per-stage refinement noise, the per-stage seed of the
 fused upscale+noise kernel, the reparametrisation eps, the GP alpha, the
-hflip flags and the video windows' starts — so that a test can replace it
-with one that hands out another framework's draws, in call order.
+hflip flags, the video windows' starts and GeneratorVAE_nb's gate — so that
+a test can replace it with one that hands out another framework's draws, in
+call order. `get_state` / `set_state` carry both of its generators through
+a checkpoint (utils/saver.py), so that a resumed run draws what the
+uninterrupted one would have.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -53,12 +56,14 @@ class NoiseSource:
     def normal(self, shape: Sequence[int]) -> torch.Tensor:
         return generate_noise(self.gen, shape, "normal")
 
-    def uniform(self) -> torch.Tensor:
-        """One U[0, 1) scalar on the device (the GP's alpha)."""
-        return generate_noise(self.gen, (), "uniform")
+    def uniform(self, shape: Sequence[int] = ()) -> torch.Tensor:
+        """U[0, 1) draws on the device: one scalar by default (the GP's
+        alpha), or `shape` (GeneratorVAE_nb's Gumbel noise)."""
+        return generate_noise(self.gen, shape, "uniform")
 
     def bernoulli(self, shape: Sequence[int]) -> torch.Tensor:
-        """Bool Bernoulli(0.5) flags on the device (per-sample hflips)."""
+        """Bool Bernoulli(0.5) flags on the device (per-sample hflips,
+        GeneratorVAE_nb's gate)."""
         return generate_noise(self.gen, shape, "bernoulli", dtype=torch.bool)
 
     def randint(self, high: int, shape: Sequence[int]) -> torch.Tensor:
@@ -66,6 +71,15 @@ class NoiseSource:
         starts)."""
         return torch.randint(0, int(high), tuple(int(s) for s in shape),
                              generator=self.gen, device=self.device)
+
+    def get_state(self) -> Dict[str, torch.Tensor]:
+        """Both generators' states (host byte tensors)."""
+        return {"device": self.gen.get_state(),
+                "host": self.host_gen.get_state()}
+
+    def set_state(self, state: Dict[str, torch.Tensor]) -> None:
+        self.gen.set_state(state["device"])
+        self.host_gen.set_state(state["host"])
 
     def seed(self) -> int:
         """A kernel seed in [0, 2^31 - 1), as networks_2d.py:207 draws it."""

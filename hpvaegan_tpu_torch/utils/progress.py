@@ -17,9 +17,10 @@ EVERY_S = 10.0
 
 
 class Progress:
-    def __init__(self, total: int, desc: str = ""):
+    def __init__(self, total: int, desc: str = "", initial: int = 0):
+        """`initial`: iterations done before (a resumed scale's)."""
         self.total, self.desc = total, desc
-        self.n = 0
+        self.n = self.initial = initial
         self.t0 = self.t_last = time.perf_counter()
 
     def update(self, n: int = 1) -> None:
@@ -32,4 +33,5 @@ class Progress:
     def close(self) -> None:
         secs = time.perf_counter() - self.t0
         logging.info("%s: %d/%d [%.1f s, %.2f it/s]", self.desc, self.n,
-                     self.total, secs, self.n / max(secs, 1e-9))
+                     self.total, secs,
+                     (self.n - self.initial) / max(secs, 1e-9))

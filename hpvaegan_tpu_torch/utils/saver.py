@@ -8,10 +8,19 @@ Checkpoints are pickled numpy pytrees ({'params': ..., 'state': ...}) named
 netG_<k>.ckpt / netD_<k>.ckpt, and `intermediate.json` carries
 {noise_amps, scale_idx} (reference: train_image.py:206-210).
 
-The port's marker has no "key": the port has no JAX PRNG key to record. A
-resume by the JAX package therefore reads it as a keyless, reference-style
-marker and retrains the marker's scale from its checkpoint (JAX
-training/trainer.py:499-534) instead of continuing at the next one.
+The port's own resume state is written with `torch.save`, beside them:
+  torch_rng_<k>.pt   the weight generator's and the NoiseSource's states
+                     at the end of scale k; the marker names it in
+                     "torch_rng", which marks scale k as complete for the
+                     port's resume (training/trainer.py)
+  inflight_<k>.ckpt  mid-scale (--ckpt-interval): G and D state_dicts,
+                     both optimizers, the generator states and the
+                     iteration; the marker then also holds "inflight" and
+                     "inflight_iter", the fields the JAX package writes
+The marker never holds a "key": the JAX package would read one as its PRNG
+key and continue at the next scale. Without it, a resume by the JAX package
+reads a port marker as a reference-style one and retrains the marker's
+scale from its checkpoint (JAX training/trainer.py:499-534).
 """
 
 from __future__ import annotations
@@ -21,6 +30,11 @@ import json
 import os
 import pickle
 from typing import Any, Dict, Optional
+
+import torch
+
+# the first bytes of a torch.save archive (a zip file)
+_TORCH_MAGIC = b"PK\x03\x04"
 
 
 def save_pytree(tree, filename: str) -> None:
@@ -37,6 +51,29 @@ def load_pytree(filename: str):
     only checkpoints from a trusted run)."""
     with open(filename, "rb") as f:
         return pickle.load(f)
+
+
+def save_torch(obj, filename: str) -> None:
+    """torch.save atomically (tmp + rename)."""
+    tmp = filename + ".tmp"
+    torch.save(obj, tmp)
+    os.replace(tmp, filename)
+
+
+def load_inflight(path: str) -> Dict[str, Any]:
+    """A port inflight_<k>.ckpt (or torch_rng_<k>.pt), tensors on the CPU.
+    `weights_only` unpickles tensors and plain containers only; a file that
+    is not a torch archive (the JAX package's inflight_<k>.ckpt pickles its
+    ScaleTrainState and would import jax) is refused before anything is
+    unpickled."""
+    with open(path, "rb") as f:
+        magic = f.read(len(_TORCH_MAGIC))
+    if magic != _TORCH_MAGIC:
+        raise ValueError(
+            f"{path} is not a torch archive (a JAX package inflight "
+            "checkpoint?); the port resumes only from its own inflight "
+            "checkpoints, or from a finalized netG_<k>.ckpt")
+    return torch.load(path, map_location="cpu", weights_only=True)
 
 
 def resolve_finalized_scale(inter: dict, what: str = "evaluate") -> int:
@@ -92,16 +129,40 @@ class DataSaver:
     def save_checkpoint(self, tree, filename: str) -> None:
         save_pytree(tree, os.path.join(self.experiment_dir, filename))
 
+    def save_inflight(self, scale_idx: int, payload: Dict[str, Any],
+                      iteration: int, noise_amps) -> None:
+        """Mid-scale checkpoint (--ckpt-interval) in crash order: the
+        checkpoint (atomic), then the marker naming it (atomic), so that a
+        kill anywhere leaves a consistent pair (JAX utils/saver.py:188-197).
+        `payload` is the trainer's state; the iteration is added here."""
+        name = f"inflight_{scale_idx}.ckpt"
+        save_torch({**payload, "iter": int(iteration)},
+                   os.path.join(self.experiment_dir, name))
+        self.save_json({"noise_amps": [float(a) for a in noise_amps],
+                        "scale_idx": scale_idx, "inflight": name,
+                        "inflight_iter": int(iteration)}, "intermediate.json")
+
     def finalize_scale(self, scale_idx: int, noise_amps, g_tree,
-                       d_tree=None) -> None:
-        """Scale-end artifacts in crash order: netG, netD, then the marker,
-        so that a kill before the marker leaves the previous marker with its
-        checkpoints on disk."""
+                       d_tree=None, rng: Optional[Dict[str, Any]] = None
+                       ) -> None:
+        """Scale-end artifacts in crash order: netG, netD, torch_rng_<k>.pt
+        (`rng`: the generator states at the end of the scale), the marker,
+        then the drop of inflight_<k>.ckpt. A kill before the marker leaves
+        the previous marker with its checkpoints on disk."""
         self.save_checkpoint(g_tree, f"netG_{scale_idx}.ckpt")
         if d_tree is not None:
             self.save_checkpoint(d_tree, f"netD_{scale_idx}.ckpt")
-        self.save_json({"noise_amps": [float(a) for a in noise_amps],
-                        "scale_idx": scale_idx}, "intermediate.json")
+        marker = {"noise_amps": [float(a) for a in noise_amps],
+                  "scale_idx": scale_idx}
+        if rng is not None:
+            marker["torch_rng"] = f"torch_rng_{scale_idx}.pt"
+            save_torch(rng, os.path.join(self.experiment_dir,
+                                         marker["torch_rng"]))
+        self.save_json(marker, "intermediate.json")
+        inflight = os.path.join(self.experiment_dir,
+                                f"inflight_{scale_idx}.ckpt")
+        if os.path.exists(inflight):
+            os.remove(inflight)
 
     def load_checkpoint(self, filename: str, path: Optional[str] = None):
         return load_pytree(os.path.join(path or self.experiment_dir, filename))

@@ -7,6 +7,10 @@ also runs where JAX is not installed:
 (`--noconftest`: tests/conftest.py sets up JAX's CPU platform.)
 """
 
+import json
+import os
+import pickle
+
 import numpy as np
 import pytest
 import torch
@@ -19,6 +23,14 @@ from hpvaegan_tpu_torch.models.networks_3d import (
     GeneratorHPVAEGAN as GeneratorHPVAEGAN3D)
 from hpvaegan_tpu_torch.tools.step_parity import (compare_devices,
                                                   compare_sampler_devices)
+from hpvaegan_tpu_torch.training import trainer
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+TINY = ["--image-path", os.path.join(REPO, "data", "imgs", "air_balloons.jpg"),
+        "--nfc", "8", "--latent-dim", "8", "--num-layer", "1",
+        "--enc-blocks", "1", "--img-size", "32", "--min-size", "16",
+        "--max-size", "32", "--vae-levels", "2", "--niter", "4",
+        "--ckpt-interval", "2", "--manualSeed", "1"]
 
 pytestmark = pytest.mark.cuda
 
@@ -125,3 +137,74 @@ def test_video_training_iteration_matches_cpu(cuda, scale_idx):
     assert errs["finite"], errs
     assert errs["metrics_rel"] <= 1e-4, errs
     assert errs["grads_abs"] <= 1e-4 and errs["state_abs"] <= 1e-4, errs
+
+
+@pytest.mark.parametrize("scale_idx", [1, 3])
+def test_vae_nb_iteration_matches_cpu(cuda, scale_idx):
+    """test_training_iteration_matches_cpu for GeneratorVAE_nb (its gate,
+    eps and Gumbel u come from the same recorded draws)."""
+    cfg = Config(nfc=8, latent_dim=8, num_layer=2, enc_blocks=1, img_size=32,
+                 min_size=16, max_size=32, vae_levels=2,
+                 generator="GeneratorVAE_nb").finalize()
+    errs = compare_devices(cfg, scale_idx, seed=0, device=cuda,
+                           generator="GeneratorVAE_nb")
+    assert errs["finite"], errs
+    assert errs["metrics_rel"] <= 1e-4, errs
+    assert errs["grads_abs"] <= 1e-4 and errs["state_abs"] <= 1e-4, errs
+
+
+class _Killed(Exception):
+    pass
+
+
+def _kill_at(scale_idx, at_iter):
+    def callback(done, st, metrics):
+        if len(st.G.body) == scale_idx and done == at_iter:
+            raise _Killed
+    return callback
+
+
+def test_resume_matches_uninterrupted(cuda, tmp_path, monkeypatch):
+    """A tiny run on the card killed after the inflight checkpoint of its
+    last scale and resumed from it ends as the uninterrupted run (TF32
+    off, deterministic cuDNN): netG within 1e-6, the amps equal."""
+    from hpvaegan_tpu_torch import train_image
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    ref = train_image.main(TINY + ["--run-dir", str(tmp_path / "a")])
+    made = []
+    run_training = trainer.run_training
+
+    def killed(cfg, saver, *a, **kw):
+        made.append(saver.experiment_dir)
+        return run_training(cfg, saver, *a, step_callback=_kill_at(4, 3),
+                            **kw)
+
+    monkeypatch.setattr(trainer, "run_training", killed)
+    with pytest.raises(_Killed):
+        train_image.main(TINY + ["--run-dir", str(tmp_path / "b")])
+    monkeypatch.setattr(trainer, "run_training", run_training)
+    resumed = train_image.main(TINY + [
+        "--run-dir", str(tmp_path / "c"),
+        "--netG", os.path.join(made[0], "inflight_4.ckpt"),
+        "--intermediate", os.path.join(made[0], "intermediate.json")])
+
+    def load(exp, name):
+        with open(os.path.join(exp, name), "rb") as f:
+            return pickle.load(f) if name.endswith(".ckpt") else json.load(f)
+
+    assert load(ref, "intermediate.json")["noise_amps"] == \
+        load(resumed, "intermediate.json")["noise_amps"]
+    assert _max_diff(load(ref, "netG_4.ckpt"),
+                     load(resumed, "netG_4.ckpt")) <= 1e-6
+
+
+def _max_diff(a, b) -> float:
+    """The largest absolute difference of two pytrees of arrays."""
+    if isinstance(a, dict):
+        return max(_max_diff(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return max(_max_diff(x, y) for x, y in zip(a, b))
+    return float(np.abs(np.asarray(a) - np.asarray(b)).max())

@@ -331,6 +331,30 @@ def test_port_imports_no_jax(tmp_path):
         "    '--img-size', '24', '--min-size', '16', '--max-size', '24',\n"
         "    '--vae-levels', '1', '--run-dir', sys.argv[1]])\n"
         "assert os.path.isfile(os.path.join(exp, 'netD_1.ckpt'))\n"
+        "from hpvaegan_tpu_torch.training import trainer\n"
+        "class Stop(Exception):\n"
+        "    pass\n"
+        "def stop(done, st, metrics):\n"
+        "    if len(st.G.body) == 1 and done == 1:\n"
+        "        raise Stop\n"
+        "run_training = trainer.run_training\n"
+        "trainer.run_training = lambda *a, **kw: run_training(\n"
+        "    *a, step_callback=stop, **kw)\n"
+        "tiny = ['--image-path', 'data/imgs/air_balloons.jpg', '--device',\n"
+        "    'cpu', '--nfc', '4', '--latent-dim', '4', '--num-layer', '1',\n"
+        "    '--enc-blocks', '1', '--niter', '2', '--img-size', '24',\n"
+        "    '--min-size', '16', '--max-size', '24', '--vae-levels', '1',\n"
+        "    '--ckpt-interval', '1']\n"
+        "killed = os.path.join(sys.argv[1], 'k')\n"
+        "try:\n"
+        "    train_image.main(tiny + ['--run-dir', killed])\n"
+        "except Stop:\n"
+        "    trainer.run_training = run_training\n"
+        "killed = os.path.join(killed, 'air_balloons', 'debug', 'experiment_0')\n"
+        "exp = train_image.main(tiny + ['--run-dir', sys.argv[1] + '/r',\n"
+        "    '--netG', os.path.join(killed, 'inflight_1.ckpt'),\n"
+        "    '--intermediate', os.path.join(killed, 'intermediate.json')])\n"
+        "assert os.path.isfile(os.path.join(exp, 'netG_1.ckpt'))\n"
         "import hpvaegan_tpu_torch.eval_video, hpvaegan_tpu_torch.metrics.c3d\n"
         "from hpvaegan_tpu_torch.data.video import SingleVideoDataset\n"
         "from hpvaegan_tpu_torch.models import networks_3d\n"

@@ -81,10 +81,10 @@ def jax_draws(monkeypatch):
     return drawn
 
 
-def _setup(scale_idx, bug_compat=False, seed=0):
+def _setup(scale_idx, bug_compat=False, seed=0, **kw):
     """The same scale state in both packages: weights, plan, optimizers,
-    and one batch (batch 2)."""
-    cj, ct = cfgs(bug_compat=bug_compat)
+    and one batch (batch 2); `kw` goes to the configs (generator=...)."""
+    cj, ct = cfgs(bug_compat=bug_compat, **kw)
     cj.scale_idx = ct.scale_idx = scale_idx
     g_params, g_state = jax_generator(cj, scale_idx, seed=seed)
     d_params, d_state = jax_discriminator(cj, seed=seed + 7)
@@ -349,9 +349,7 @@ def test_train_cli_on_cpu_writes_a_jax_experiment(tmp_path, restore_logging):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--netG", "x.ckpt"], ["--netD", "x.ckpt"], ["--intermediate", "i.json"],
-    ["--ckpt-interval", "10"], ["--visualize"],
-    ["--generator", "GeneratorVAE_nb"], ["--mesh-data", "2"],
+    ["--visualize"], ["--mesh-data", "2"],
     ["--mesh-sp", "2"], ["--dist-coordinator", "localhost:1234"],
     ["--dist-nprocs", "2"], ["--dist-procid", "0"], ["--paired-g"],
     ["--fused-dg"], ["--flat-opt"], ["--compute-dtype", "bfloat16"],

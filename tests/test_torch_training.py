@@ -23,6 +23,7 @@ import torch
 
 from hpvaegan_tpu import config as jcfg
 from hpvaegan_tpu import losses as jlosses
+from hpvaegan_tpu import models as jmodels
 from hpvaegan_tpu import optim as joptim
 from hpvaegan_tpu.data import image as jimage
 from hpvaegan_tpu.models import networks_2d as jnet
@@ -33,7 +34,7 @@ from hpvaegan_tpu_torch import config as tcfg
 from hpvaegan_tpu_torch import losses as tlosses
 from hpvaegan_tpu_torch import optim as toptim
 from hpvaegan_tpu_torch.data import image as timage
-from hpvaegan_tpu_torch.models import get_discriminator
+from hpvaegan_tpu_torch.models import get_discriminator, get_generator
 from hpvaegan_tpu_torch.models.blocks import SNConv, assign_sn_state
 from hpvaegan_tpu_torch.models.networks_2d import GeneratorHPVAEGAN
 from hpvaegan_tpu_torch.ops.spectral_norm import spectral_normalize
@@ -90,10 +91,11 @@ def replay(draws):
 
 
 def jax_generator(cfg, scale_idx, seed=0):
-    """JAX init grown to `scale_idx` stages, every leaf but the SN vectors
+    """JAX init of cfg.generator grown to `scale_idx` stages, every leaf but the SN vectors
     perturbed so that activations are O(1) and BN moving stats are not
     (0, 1)."""
-    params, state = jnet.generator_hpvaegan_init(cfg, jax.random.PRNGKey(seed))
+    init = jmodels.get_generator(cfg.generator, 2)[0]
+    params, state = init(cfg, jax.random.PRNGKey(seed))
     for k in range(scale_idx):
         params, state = jnet.generator_init_next_stage(
             cfg, params, state, jax.random.PRNGKey(seed + 1 + k))
@@ -115,7 +117,7 @@ def jax_generator(cfg, scale_idx, seed=0):
 
 
 def port_generator(cfg, params, state):
-    gen = GeneratorHPVAEGAN(cfg)
+    gen = get_generator(cfg.generator)(cfg)
     for _ in range(len(params["body"])):
         gen.init_next_stage()
     gen.load_state_dict(from_jax(params, state))

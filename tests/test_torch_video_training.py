@@ -459,7 +459,7 @@ def test_trainer_sets_the_jax_per_scale_schedule(tmp_path, monkeypatch,
     jvideo.SingleVideoDataset(cj)
     seen = []
 
-    def spy(cfg, G, dataset, saver, noise_amps, noise, init_gen):
+    def spy(cfg, G, dataset, saver, noise_amps, noise, init_gen, *resume):
         assert G.ndim == 3 and len(G.body) == cfg.scale_idx
         assert dataset.scale_frames(cfg.scale_idx).ndim == 5
         seen.append((cfg.scale_idx, cfg.fps, cfg.td, cfg.fps_index))
@@ -573,7 +573,6 @@ def test_train_video_cli_on_cpu_writes_a_jax_experiment(tmp_path, capsys,
 
 
 @pytest.mark.parametrize("flag", [
-    ["--netG", "x.ckpt"], ["--ckpt-interval", "10"],
     ["--generator", "GeneratorVAE_nb"], ["--mesh-data", "2"],
     ["--dist-nprocs", "2"], ["--paired-g"], ["--fused-dg"],
     ["--compute-dtype", "bfloat16"], ["--profile-dir", "prof"]])
