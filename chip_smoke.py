@@ -81,6 +81,21 @@ Phases, each of which exits non-zero on a failed check:
              samples/s in both BatchNorm modes; one tiny iteration card vs
              CPU; train_image --generator GeneratorVAE_nb (10 scales x 2
              iterations, seconds per scale), then eval_image (finite SIFID)
+ 15. baselines  the CSG/SG video baselines (WDiscriminatorBaselines):
+             (a) one tiny iteration of each (phase 10's config) card vs
+             CPU, TF32 off; (b) each generator's 64-sample per-sample-BN
+             generate_samples(ndim=3) at full width from a numpy-seed
+             JAX-format netG_9 (10 stages): shape, range, sub-batches [21,
+             21, 22], videos/s, peak GB, conv TFLOP, K1 launches 0, one
+             profiled forward; (c) train_video_baselines for GeneratorCSG at
+             full width, 10 scales x 2 iterations, TF32 off and
+             deterministic cuDNN: the checkpoints at every scale, Z_init.npy,
+             finite losses, seconds per scale, scale 9's D and G step ms,
+             then eval_video (finite SVFID); scale 9's D and G step ms also
+             with PyTorch's defaults; (d) (c)'s run killed after iteration 1
+             of scale 9 and resumed from inflight_9.ckpt: netG_9 against
+             (c)'s (atol 1e-4; 0 expected). GeneratorSG runs (a) and (b)
+             only, to keep the script's time in budget
 Then it prints the kernels' JSON line, the card's name and power limit as
 nvidia-smi gives them, and last {"ok": true, "device": {...}}.
 
@@ -218,7 +233,7 @@ def load_port_generator(cfg, ckpt, device, ndim=2):
     from hpvaegan_tpu_torch.tools.convert import from_jax
 
     gen = get_generator(cfg.generator, ndim)(cfg)
-    for _ in range(len(ckpt["params"]["body"])):
+    while len(gen.body) < len(ckpt["params"]["body"]):
         gen.init_next_stage()
     gen.load_state_dict(from_jax(ckpt["params"], ckpt["state"], ndim))
     return gen.to(device).eval()
@@ -445,15 +460,17 @@ def tiny_config(**kw):
                   **kw).finalize()
 
 
-def phase_step_parity(torch, cfg, ndim=2, generator="GeneratorHPVAEGAN"):
+def phase_step_parity(torch, cfg, ndim=2, generator="GeneratorHPVAEGAN",
+                      discriminator=""):
     """One VAE-scale G step and one GAN-scale iteration of a tiny 2D or 3D
-    config, card vs CPU."""
+    config (a baseline's: two GAN-scale iterations), card vs CPU."""
     from hpvaegan_tpu_torch.tools.step_parity import compare_devices
 
     out = {}
     for scale_idx in (1, 3):
         errs = compare_devices(cfg, scale_idx, seed=SEED, device="cuda",
-                               ndim=ndim, generator=generator)
+                               ndim=ndim, generator=generator,
+                               discriminator=discriminator)
         check(errs["finite"], f"scale {scale_idx}: non-finite values on "
               f"the card: {errs}")
         check(errs["metrics_rel"] <= 1e-4, f"scale {scale_idx}: metrics "
@@ -1062,7 +1079,8 @@ def killed_run(trainer, main, args, scale_idx, at_iter):
     run_training, made = trainer.run_training, []
 
     def callback(done, st, metrics):
-        if len(st.G.body) == scale_idx and done == at_iter:
+        if len(st.G.body) - st.G.body_offset == scale_idx \
+                and done == at_iter:
             raise Killed
 
     def stopped(cfg, saver, *a, **kw):
@@ -1295,6 +1313,239 @@ def phase_video_step_timing(torch):
     return out
 
 
+def baseline_sampler(torch, k1, name):
+    """Phase 15 (b): one generator's full-width 64-sample per-sample-BN
+    sampling (module doc)."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from hpvaegan_tpu_torch.evaluation import eval_z_tail, generate_samples
+    from hpvaegan_tpu_torch.parallel import sampling
+
+    cfg, _ = video_config(generator=name,
+                          discriminator="WDiscriminatorBaselines")
+    gen = load_port_generator(cfg, random_jax_checkpoint(cfg, SEED + 5, 3),
+                              "cuda", ndim=3)
+    check(type(gen).__name__ == name and len(gen.body) == 10,
+          f"built {type(gen).__name__} with {len(gen.body)} stages")
+    z_tail = eval_z_tail(cfg, 3)
+    per = sampling.generator_elements(cfg, gen, 3, z_tail)
+    parts = [b - a for a, b in sampling.sub_batches(BATCH, per)]
+    check(parts == [21, 21, 22] and max(parts) * per < 2 ** 31,
+          f"{name}: sub-batches {parts} of {per} elements per sample")
+    shape = (BATCH,) + tuple(video_sizes(cfg)[-1]) + (3,)
+
+    def run(seed):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        samples = generate_samples(cfg, gen, ndim=3, train_mode=True,
+                                   seed=seed)
+        return samples, time.perf_counter() - t0
+
+    flops = conv_flops(gen, lambda: run(SEED))  # the warm-up call
+    torch.cuda.reset_peak_memory_stats()
+    k1.fused_upscale_noise_2d.launches = 0
+    secs = []
+    for r in range(2):
+        samples, sec = run(SEED + 1 + r)
+        secs.append(sec)
+    launches = k1.fused_upscale_noise_2d.launches
+    check(launches == 0, f"{name} sampling launched K1 {launches} times")
+    check(samples.shape == shape, f"{name}: samples {samples.shape}, want "
+          f"{shape}")
+    check(bool(np.isfinite(samples).all())
+          and float(np.abs(samples).max()) <= 1.0,
+          f"{name}: samples outside [-1, 1] or not finite")
+    sec = sum(secs) / len(secs)
+    out = {"z": (BATCH,) + z_tail, "sub_batches": parts,
+           "elements_per_sample": per, "s": [round(t, 4) for t in secs],
+           "videos_per_s": round(BATCH / sec, 3),
+           "frames_per_s": round(BATCH * shape[1] / sec, 2),
+           "peak_gb": round(torch.cuda.max_memory_allocated() / 1e9, 3),
+           "conv_tflop": round(flops / 1e12, 3),
+           "std": round(float(samples.std()), 4), "k1_launches": launches}
+    del samples
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        samples, sec = run(SEED)
+    out["profile"] = device_summary(prof, sec * 1e3, f"{name} forward")
+    conv_ms = out["profile"]["groups_ms"].get("conv", 0.0)
+    out["profile"]["conv_group_tflop_per_s"] = round(
+        flops / conv_ms / 1e9, 2) if conv_ms else None
+    del samples, gen
+    torch.cuda.empty_cache()
+    print(f"  {name} sampler: " + json.dumps(out), flush=True)
+    return out
+
+
+def baseline_step_ms(torch, dataset, cfg, timed, reps):
+    """D-step and G-step ms of each of `reps` synchronised iterations of
+    GeneratorCSG at scale 9 (full width, batch 1) after one warm-up
+    iteration, and the peak GB."""
+    from hpvaegan_tpu_torch.tools.step_parity import build_state
+    from hpvaegan_tpu_torch.training.steps import batch_former, d_step, g_step
+    from hpvaegan_tpu_torch.utils.noise import NoiseSource
+
+    amps = [1.0] + [0.05] * (cfg.stop_scale + 1)
+    st = build_state(cfg, 9, SEED, "cuda", 3, "GeneratorCSG",
+                     "WDiscriminatorBaselines")
+    st.noise = NoiseSource(SEED, "cuda")
+    former = batch_former(3, 9, baseline=True)
+    data = dataset.scale_frames(9), dataset.scale_frames(0)
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(1 + reps):
+        real, real_zero, noise_init = former(cfg, data[0], data[1], st.noise)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        d_step(cfg, st, real, noise_init, amps)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        metrics = g_step(cfg, st, real, real_zero, noise_init, amps, False)
+        torch.cuda.synchronize()
+        if i:
+            timed.append(((t1 - t0) * 1e3, (time.perf_counter() - t1) * 1e3))
+    check(all(math.isfinite(float(v)) for v in metrics.values()),
+          f"baseline scale 9 metrics {metrics}")
+    return torch.cuda.max_memory_allocated() / 1e9
+
+
+def phase_baselines(torch, k1, run):
+    """Phase 15 (module doc)."""
+    import numpy as np
+
+    from hpvaegan_tpu_torch import eval_video, train_video_baselines
+    from hpvaegan_tpu_torch.data.video import SingleVideoDataset
+    from hpvaegan_tpu_torch.training import baselines_trainer, steps
+
+    out = {"step": {}}
+    tiny = tiny_config(video_path=os.path.join(HERE, "data", "vids",
+                                               "synthetic.avi"),
+                       max_frames=5, sampling_rates=[2, 1], hflip=True,
+                       batch_size=2)
+    SingleVideoDataset(tiny, "cpu")  # sets org_fps, ar, fps_lcm
+    for name in ("GeneratorCSG", "GeneratorSG"):
+        print(f"  (a) {name}, one tiny iteration at scales 1 and 3",
+              flush=True)
+        out["step"][name] = phase_step_parity(
+            torch, tiny, ndim=3, generator=name,
+            discriminator="WDiscriminatorBaselines")
+    for name in ("GeneratorCSG", "GeneratorSG"):
+        out[name] = baseline_sampler(torch, k1, name)
+
+    # (c): the CLI, with the D and G steps of scale 9 timed in place
+    scale = {}
+    d_step, g_step = steps.d_step, steps.g_step
+
+    def sync_timed(fn, slot):
+        def wrapper(cfg, *a, **kw):
+            if cfg.scale_idx != 9:
+                return fn(cfg, *a, **kw)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                return fn(cfg, *a, **kw)
+            finally:
+                torch.cuda.synchronize()
+                scale.setdefault(slot, []).append(
+                    round((time.perf_counter() - t0) * 1e3, 1))
+        return wrapper
+
+    steps.d_step = sync_timed(d_step, "d_ms")
+    steps.g_step = sync_timed(g_step, "g_ms")
+    args = video_train_args(run)
+    k1.fused_upscale_noise_2d.launches = 0
+    try:
+        with exact_math(torch):
+            exp, train_s, scale_s = timed_scales(
+                baselines_trainer, train_video_baselines.main, args)
+    finally:
+        steps.d_step, steps.g_step = d_step, g_step
+    check(k1.fused_upscale_noise_2d.launches == 0,
+          "baselines training launched K1")
+    files = set(os.listdir(exp))
+    for k in range(10):
+        check({f"netG_{k}.ckpt", f"netD_{k}.ckpt"} <= files,
+              f"scale {k}: {sorted(files)}")
+    check({"Z_init.npy", "intermediate.json"} <= files, f"{sorted(files)}")
+    z = np.load(os.path.join(exp, "Z_init.npy"))
+    check(z.shape == (1, 4, 24, 33, 3), f"Z_init {z.shape}")
+    with open(os.path.join(exp, "intermediate.json")) as f:
+        inter = json.load(f)
+    amps = inter["noise_amps"]
+    check(inter["scale_idx"] == 9 and len(amps) == 10 and amps[0] == 1.0
+          and all(math.isfinite(a) and a > 0 for a in amps),
+          f"intermediate.json {inter}")
+    with open(os.path.join(exp, "logbook.txt")) as f:
+        logged = [ln.split("] ", 1)[1] for ln in f.read().splitlines()
+                  if "[Scale " in ln]
+    check(len(logged) == 20 and all("d_loss" in ln for ln in logged),
+          f"{len(logged)} logged loss lines, want 20 with d_loss")
+    losses = [float(kv.split(": ")[1]) for ln in logged
+              for kv in ln.split(", ")]
+    check(all(math.isfinite(v) for v in losses), f"losses {logged}")
+    check(len(scale.get("d_ms", [])) == 2 and len(scale.get("g_ms", [])) == 2,
+          f"scale 9 steps timed: {scale}")
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        eval_video.main(["--exp-dir", exp, "--num-samples", "10"])
+    eval_s = time.perf_counter() - t0
+    lines = [ln for ln in buf.getvalue().splitlines()
+             if ln.startswith("SVFID: ")]
+    check(len(lines) == 1, f"eval_video printed {buf.getvalue()!r}")
+    svfid = float(lines[0].split()[1])
+    check(math.isfinite(svfid) and svfid >= 0, f"SVFID {svfid}")
+    gifs = set(os.listdir(os.path.join(exp, "eval", "images")))
+    check({"fake.gif", "real.gif"} <= gifs, f"eval artifacts {gifs}")
+    out["cli"] = {"train_s": round(train_s, 2), "scale_s": scale_s,
+                  "scale_9_tf32_off_deterministic": scale,
+                  "amps": [round(a, 5) for a in amps], "svfid": svfid,
+                  "eval_s": round(eval_s, 2), "last_losses": logged[-1]}
+    print("  (c) train_video_baselines, GeneratorCSG, 10 scales x 2 "
+          "iterations (TF32 off, deterministic cuDNN), then eval_video: "
+          + json.dumps(out["cli"]), flush=True)
+
+    cfg, dataset = video_config(generator="GeneratorCSG",
+                                discriminator="WDiscriminatorBaselines",
+                                batch_size=1)
+    timed = []
+    peak = baseline_step_ms(torch, dataset, cfg, timed, 2)
+    out["scale_9_defaults"] = {
+        "d_ms": [round(d, 1) for d, _ in timed],
+        "g_ms": [round(g, 1) for _, g in timed], "peak_gb": round(peak, 3)}
+    print("  scale 9 of GeneratorCSG with PyTorch's defaults (TF32 on), "
+          "batch 1: " + json.dumps(out["scale_9_defaults"]), flush=True)
+    del dataset
+    torch.cuda.empty_cache()
+
+    # (d)
+    t0 = time.perf_counter()
+    with exact_math(torch):
+        killed = killed_run(baselines_trainer, train_video_baselines.main,
+                            video_train_args(os.path.join(run, "b_kill"),
+                                             "--ckpt-interval", "1"), 9, 1)
+    kill_s = time.perf_counter() - t0
+    with open(os.path.join(killed, "intermediate.json")) as f:
+        inter = json.load(f)
+    check(inter.get("inflight") == "inflight_9.ckpt"
+          and inter["inflight_iter"] == 1, f"killed marker {inter}")
+    diff, tail_s = resume_and_compare(
+        torch, train_video_baselines.main, exp,
+        video_train_args(os.path.join(run, "b_resumed"), "--ckpt-interval",
+                         "1", "--manualSeed", "7"), killed, "inflight_9.ckpt")
+    check(np.array_equal(np.load(os.path.join(run, "b_resumed", "balloons_pan",
+                                              "smoke", "experiment_0",
+                                              "Z_init.npy")), z),
+          "the resumed run's Z_init differs")
+    out["resume"] = {"netG_9_max_abs_diff": diff, "bit_equal": diff == 0,
+                     "killed_run_s": round(kill_s, 2),
+                     "resumed_tail_s": round(tail_s, 2)}
+    print("  (d) killed at scale 9 iteration 1, resumed from "
+          "inflight_9.ckpt: " + json.dumps(out["resume"]), flush=True)
+    return out
+
+
 def main():
     try:
         import torch
@@ -1394,6 +1645,12 @@ def main():
     print("phase 14: GeneratorVAE_nb (2D) at full width", flush=True)
     nb = phase_vae_nb(torch, k1, timings["fused_moving"])
 
+    print("phase 15: the CSG/SG video baselines", flush=True)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="hpv_base_") as run:
+        phase_baselines(torch, k1, run)
+    print(f"  phase 15 took {time.perf_counter() - t0:.1f} s", flush=True)
+
     kernels = [{
         "name": "fused_upscale_noise_2d",
         "route": "cuda",
@@ -1411,7 +1668,8 @@ def main():
     }]
     print("  times are sums over the 9 stage shapes of one 64-sample forward;"
           f" launches: phase 3's GeneratorHPVAEGAN forward ({launches}), "
-          f"phase 14's GeneratorVAE_nb forward ({nb['launches']})",
+          f"phase 14's GeneratorVAE_nb forward ({nb['launches']}), phase "
+          "15's baselines (0)",
           flush=True)
     print(f"  total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -7,17 +7,19 @@ counterpart, and reads and writes the same experiment formats (args.txt,
 intermediate.json, netG_<k>.ckpt pickled numpy pytrees).
 
 Ported so far: image sampling and SIFID evaluation (eval_image.py),
-single-image training (train_image.py), video sampling and SVFID evaluation
-(eval_video.py).
+single-image and single-video training with resume (train_image.py,
+train_video.py), video sampling and SVFID evaluation (eval_video.py), and
+the CSG/SG video baselines (train_video_baselines.py).
   config.py       typed config, field for field the JAX package's
   utils/          pyramid math, noise sources, saver, media, device choice
   ops/            resize, conv, batchnorm, spectral norm, the fused
                   upscale+noise kernel
   csrc/           hand-written CUDA kernels (built by ops/cuda_build.py)
-  models/         GeneratorHPVAEGAN (2D and 3D), WDiscriminator2D
+  models/         GeneratorHPVAEGAN (2D and 3D), GeneratorVAE_nb (2D),
+                  GeneratorCSG, GeneratorSG, their critics
   data/           single-image and single-video data
   parallel/       batched sampling on one device
-  training/       the image trainer and its steps
+  training/       the trainers (image, video, baselines) and their steps
   tools/          weight conversion to and from the JAX package's pytrees
   metrics/        SIFID with InceptionV3 block 0, SVFID with C3D
   evaluation.py   hydrate / load / sample / score

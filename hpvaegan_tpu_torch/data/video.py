@@ -6,13 +6,15 @@ src/datasets/video.py:13-96): one host decode at full resolution
 frame (cv2 INTER_LINEAR, no antialias) on the device, cached. Tensors are
 NCDHW. `make_video_batch` forms a training batch on the device (the port
 of `make_video_batch_body`, data/video.py:71-115 there): random temporal
-windows at the scale's sampling rate, per-sample flips, z_init.
+windows at the scale's sampling rate, per-sample flips, z_init;
+`make_baseline_batch` the baselines' (JAX training/baselines_trainer.py:
+71-84), whose noise has nc_im channels.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -69,14 +71,15 @@ class SingleVideoDataset:
 
 def make_video_batch(cfg, scale_frames: torch.Tensor,
                      zero_frames: torch.Tensor, noise: NoiseSource,
-                     scale_idx: int):
+                     scale_idx: int, noise_channels: Optional[int] = None):
     """(real, real_zero, noise_init) for scale `scale_idx`, the first two in
     [-1, 1].
 
     Draws, in the order of the JAX package's key split (k_start, k_flip,
     k_noise): B window starts in [0, max(T_full - fps_lcm, 1)), the hflip
-    flags (under cfg.hflip), then noise_init (B, latent_dim, td0, h0, w0) at
-    scale 0's time depth (reference train_video.py:43-46). Each window is
+    flags (under cfg.hflip), then noise_init (B, noise_channels, td0, h0,
+    w0) at scale 0's time depth (reference train_video.py:43-46);
+    noise_channels defaults to cfg.latent_dim. Each window is
     frames[s : s + fps_lcm + 1 : every], `every` = the scale's sampling rate
     for `real` and sampling_rates[0] for `real_zero`, from the same starts
     (reference video.py:50-63). The frames are gathered with device index
@@ -110,5 +113,18 @@ def make_video_batch(cfg, scale_frames: torch.Tensor,
     _, td0, _ = pyramid.get_fps_td_by_index(0, cfg.stop_scale_time,
                                             cfg.sampling_rates, cfg.org_fps,
                                             cfg.fps_lcm)
-    noise_init = noise.normal((batch, cfg.latent_dim, td0, h0, w0))
+    channels = cfg.latent_dim if noise_channels is None else noise_channels
+    noise_init = noise.normal((batch, channels, td0, h0, w0))
     return real, real_zero, noise_init
+
+
+def make_baseline_batch(cfg, scale_frames: torch.Tensor,
+                        zero_frames: torch.Tensor, noise: NoiseSource,
+                        scale_idx: int):
+    """A baseline run's (real, real_zero, noise_init): make_video_batch's
+    window starts, flips and windows, then noise_init (B, nc_im, td0, h0,
+    w0), Z_init's shape. The JAX former also draws make_video_batch_body's
+    latent noise, from a key of its own, and throws it away; it is not
+    drawn here, so the draws that follow are the same."""
+    return make_video_batch(cfg, scale_frames, zero_frames, noise, scale_idx,
+                            noise_channels=cfg.nc_im)

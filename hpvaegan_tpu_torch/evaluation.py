@@ -70,6 +70,8 @@ def load_generator(cfg, exp_dir: str, ndim: int = 2, netG: str = "",
             "checkpoints are not ported yet") from e
     _check_body(ckpt["params"], cfg, path)
     generator = models.get_generator(cfg.generator, ndim)(cfg)
+    # k growths: the k stages of netG_<k>, or a baseline's k + 1 (it is
+    # built with one)
     for _ in range(cfg.scale_idx):
         generator.init_next_stage()
     generator.load_state_dict(from_jax(ckpt["params"], ckpt["state"], ndim))
@@ -78,7 +80,11 @@ def load_generator(cfg, exp_dir: str, ndim: int = 2, netG: str = "",
 
 def _check_body(params, cfg, path: str) -> None:
     """A stage-count/scale mismatch must fail loudly (the reference fails
-    at load_param_into_net)."""
+    at load_param_into_net). The HPVAEGAN family only, as in the JAX
+    package (evaluation.py:86 there); a baseline's stage count is held by
+    load_state_dict."""
+    if cfg.generator in models.BASELINES:
+        return
     if len(params["body"]) != cfg.scale_idx:
         raise RuntimeError(
             f"checkpoint {path!r} has {len(params['body'])} refinement "
@@ -90,15 +96,20 @@ def eval_z_tail(cfg, ndim: int = 2):
     """Per-sample latent shape for eval-time generation, channels-last:
     (h0, w0, latent_dim), in 3D (td, h0, w0, latent_dim) with the time
     depth of the EVAL scale, cfg.td (reference eval_video.py:36-39), or of
-    cfg.scale_idx where cfg.td is unset."""
+    cfg.scale_idx where cfg.td is unset. The baselines keep their Z_init's
+    shape: nc_im channels at scale 0's time depth (JAX evaluation.py:
+    111-131)."""
     h0, w0 = pyramid.scale_size_2d(0, cfg.scale_factor, cfg.stop_scale,
                                    cfg.img_size, cfg.ar)
+    baseline = cfg.generator in models.BASELINES
+    z_ch = cfg.nc_im if baseline else cfg.latent_dim
     if ndim == 2:
-        return (h0, w0, cfg.latent_dim)
-    td = cfg.td or pyramid.get_fps_td_by_index(
-        cfg.scale_idx, cfg.stop_scale_time, cfg.sampling_rates, cfg.org_fps,
-        cfg.fps_lcm)[1]
-    return (td, h0, w0, cfg.latent_dim)
+        return (h0, w0, z_ch)
+    td = None if baseline else cfg.td
+    td = td or pyramid.get_fps_td_by_index(
+        0 if baseline else cfg.scale_idx, cfg.stop_scale_time,
+        cfg.sampling_rates, cfg.org_fps, cfg.fps_lcm)[1]
+    return (td, h0, w0, z_ch)
 
 
 def generate_samples(cfg, generator, ndim: int = 2, seed: int = 0,

@@ -1,15 +1,23 @@
 """Model registry: (name, ndim) -> module class (the port of the JAX
 package's `models/__init__.py`). Ported: GeneratorHPVAEGAN in 2D and 3D,
-GeneratorVAE_nb in 2D, WDiscriminator2D and WDiscriminator3D. REFUSED names
-the entries that stay out, and why."""
+GeneratorVAE_nb in 2D, the video baselines GeneratorCSG and GeneratorSG
+(3D only, as there), WDiscriminator2D, WDiscriminator3D and
+WDiscriminatorBaselines. REFUSED names the entries that stay out, and
+why."""
 
 from . import networks_2d, networks_3d
 
 GENERATORS = {("GeneratorHPVAEGAN", 2): networks_2d.GeneratorHPVAEGAN,
               ("GeneratorVAE_nb", 2): networks_2d.GeneratorVAE_nb,
-              ("GeneratorHPVAEGAN", 3): networks_3d.GeneratorHPVAEGAN}
+              ("GeneratorHPVAEGAN", 3): networks_3d.GeneratorHPVAEGAN,
+              ("GeneratorCSG", 3): networks_3d.GeneratorCSG,
+              ("GeneratorSG", 3): networks_3d.GeneratorSG}
 DISCRIMINATORS = {("WDiscriminator2D", 2): networks_2d.WDiscriminator2D,
-                  ("WDiscriminator3D", 3): networks_3d.WDiscriminator3D}
+                  ("WDiscriminator3D", 3): networks_3d.WDiscriminator3D,
+                  ("WDiscriminatorBaselines", 3):
+                      networks_3d.WDiscriminatorBaselines}
+# the SinGAN-style video baselines: trained by train_video_baselines
+BASELINES = ("GeneratorCSG", "GeneratorSG")
 REFUSED = {
     ("GeneratorVAE_nb", 3):
         "GeneratorVAE_nb 3D: the JAX package's cannot run "

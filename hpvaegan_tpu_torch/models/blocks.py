@@ -37,13 +37,14 @@ from ..ops.spectral_norm import spectral_normalize
 
 
 class Conv(nn.Module):
-    """Plain conv: weight (O, I, k, k) or (O, I, k, k, k), bias (O,)."""
+    """Plain conv: weight (O, I, k, k) or (O, I, k, k, k), bias (O,) unless
+    `bias` is False."""
 
     def __init__(self, cin: int, cout: int, ker: int, padding: int,
-                 ndim: int = 2):
+                 ndim: int = 2, bias: bool = True):
         super().__init__()
         self.weight = nn.Parameter(torch.zeros((cout, cin) + (ker,) * ndim))
-        self.bias = nn.Parameter(torch.zeros(cout))
+        self.bias = nn.Parameter(torch.zeros(cout)) if bias else None
         self.padding = padding
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -177,7 +178,8 @@ def init_weights_(module: nn.Module, gen: torch.Generator) -> nn.Module:
         for m in module.modules():
             if isinstance(m, Conv):
                 m.weight.copy_(torch.randn(m.weight.shape, generator=gen) * 0.02)
-                m.bias.zero_()
+                if m.bias is not None:
+                    m.bias.zero_()
             elif isinstance(m, BatchNorm):
                 m.weight.copy_(1.0 + 0.02 * torch.randn(m.weight.shape,
                                                         generator=gen))

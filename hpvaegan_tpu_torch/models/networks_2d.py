@@ -169,6 +169,8 @@ class GeneratorHPVAEGAN(nn.Module):
 
     ndim = 2
     encoder_cls = Encode2DVAE
+    body_offset = 0  # netG_<k> carries k refinement stages
+    widest_pad = 0  # the widest activation: nfc channels at the last stage
 
     def __init__(self, cfg):
         super().__init__()

@@ -10,9 +10,12 @@ float32) or more runs as equal sub-batches, one forward each, to bound the
 peak memory: one full-width video sample's last stage holds 64 channels x
 13 x 192 x 257 = 41M elements, so 64 samples make 10.5 GB activations, about
 four of them alive at once. On an H100 two sub-batches of 32 peak at 22 GB
-where one forward of 64 peaks at 44 GB and is no faster (PERF.md). The
-split is exact in both sampler modes (neither reads batch statistics); it
-changes only the order of the refinement noise draws.
+where one forward of 64 peaks at 44 GB and is no faster (PERF.md). A CSG/SG
+baseline's widest activation is at its last stage's size padded by
+num_layer + 1 per side, 64 x 25 x 204 x 269 = 87.8M elements at full
+width, so 64 samples run as 21 / 21 / 22. The split is exact in both
+sampler modes (neither reads batch statistics); it changes only the order
+of the refinement noise draws.
 """
 
 from __future__ import annotations
@@ -28,21 +31,30 @@ from ..utils.noise import NoiseSource
 MAX_ELEMENTS = 2 ** 31 - 1  # per activation tensor of one forward
 
 
-def _sample_elements(cfg, ndim: int, n_stages: int, z_tail) -> int:
-    """Elements of one sample's widest activation: nfc channels at the
-    last stage's size, or at z's size when that is larger."""
+def _sample_elements(cfg, ndim: int, scale: int, z_tail, pad: int = 0
+                     ) -> int:
+    """Elements of one sample's widest activation: nfc channels at the size
+    of pyramid scale `scale` (the last stage's) padded by `pad` per side,
+    or at z's size when that is larger."""
     sizes = [math.prod(z_tail[:-1])]
-    if n_stages:
+    if scale or pad:
         if ndim == 2:
-            size = pyramid.scale_size_2d(n_stages, cfg.scale_factor,
+            size = pyramid.scale_size_2d(scale, cfg.scale_factor,
                                          cfg.stop_scale, cfg.img_size, cfg.ar)
         else:
             size = pyramid.scale_size_3d(
-                n_stages, cfg.scale_factor, cfg.stop_scale, cfg.img_size,
+                scale, cfg.scale_factor, cfg.stop_scale, cfg.img_size,
                 cfg.stop_scale_time, cfg.sampling_rates, cfg.org_fps,
                 cfg.fps_lcm, cfg.ar)
-        sizes.append(math.prod(size))
+        sizes.append(math.prod(s + 2 * pad for s in size))
     return int(cfg.nfc) * max(sizes)
+
+
+def generator_elements(cfg, generator, ndim: int, z_tail) -> int:
+    """_sample_elements of `generator` at its stage count."""
+    return _sample_elements(cfg, ndim,
+                            len(generator.body) - generator.body_offset,
+                            z_tail, generator.widest_pad)
 
 
 def sub_batches(num_samples: int, per_sample: int) -> list:
@@ -69,7 +81,8 @@ def sharded_sampler(cfg, generator, ndim: int = 2, train: bool = True,
 
     z_tail: the per-sample latent shape, channels-last as the JAX package
     gives it: (h0, w0, latent_dim) by default in 2D, (td0, h0, w0,
-    latent_dim) in 3D; z is drawn channels-first.
+    latent_dim) in 3D (a baseline's: evaluation.eval_z_tail); z is drawn
+    channels-first.
     """
     if ndim not in (2, 3):
         raise ValueError(f"ndim must be 2 or 3, got {ndim}")
@@ -83,7 +96,7 @@ def sharded_sampler(cfg, generator, ndim: int = 2, train: bool = True,
                 cfg.fps_lcm)
             z_tail = (td0,) + z_tail
     z_tail = tuple(z_tail)
-    per_sample = _sample_elements(cfg, ndim, len(generator.body), z_tail)
+    per_sample = generator_elements(cfg, generator, ndim, z_tail)
 
     amps = np.zeros((cfg.stop_scale + 2,), np.float32)
     amps[:len(cfg.Noise_Amps)] = cfg.Noise_Amps

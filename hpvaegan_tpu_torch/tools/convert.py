@@ -1,5 +1,6 @@
-"""Carry GeneratorHPVAEGAN / GeneratorVAE_nb and WDiscriminator2D / 3D
-weights between the JAX package and the port.
+"""Carry GeneratorHPVAEGAN / GeneratorVAE_nb, GeneratorCSG / GeneratorSG and
+WDiscriminator2D / 3D / Baselines weights between the JAX package and the
+port.
 
 The JAX package keeps a network as a (params, state) pytree of numpy arrays
 with HWIO (2D) / DHWIO (3D) conv weights, pickled as netG_<k>.ckpt /
@@ -9,14 +10,19 @@ naming with OIHW / OIDHW weights:
   encode.{mu,logvar}.conv.{weight,bias}   (+ encode.bern.conv.* for
                                           GeneratorVAE_nb)
   {decoder,body.<k>}.{head,block<i>}.{conv,norm}.*   {..}.tail.{weight,bias}
-  (D) head.conv.*, body.block<i>.conv.* (SN convs), tail.{weight,bias}
+  (baselines) head.{conv,norm}.*, body.<k>.blocks.<i>.{conv,norm}.*,
+              body.<k>.tail.weight[,bias], tail.{weight,bias} (CSG has the
+              head and the outer tail, SG the stage tails, without bias)
+  (D) head.conv.*, body.block<i>.conv.* (SN convs), tail.{weight,bias};
+      WDiscriminatorBaselines' head.conv is a plain conv
 `from_jax` is the port of the JAX package's `tools/convert.py::j2t_HPVAEGAN`
 (`ndim` 2 or 3), `to_jax` of `p2j_HPVAEGAN` for the state_dicts `from_jax`
-makes; `to_jax_discriminator` of `p2j_WDiscriminator` (`ndim` 2 or 3) and
-`from_jax_discriminator` its inverse. Each checks the rank of the conv
-weights against `ndim`. Spectral-norm v vectors are
-re-permuted between torch's (I, [KD,] KH, KW) flattening and the JAX
-package's ([KD,] KH, KW, I).
+makes; both also carry the baselines' trees (JAX networks_3d.py:347-480),
+which the JAX package has no converter for. `to_jax_discriminator` is the
+port of `p2j_WDiscriminator` (`ndim` 2 or 3) and `from_jax_discriminator`
+its inverse. Each checks the rank of the conv weights against `ndim`.
+Spectral-norm v vectors are re-permuted between torch's (I, [KD,] KH, KW)
+flattening and the JAX package's ([KD,] KH, KW, I).
 """
 
 from __future__ import annotations
@@ -86,33 +92,60 @@ def _numpy_sd(state_dict) -> Dict[str, np.ndarray]:
             for k, v in state_dict.items()}
 
 
+def _conv_from_jax(name: str, p: Dict, out: Dict) -> None:
+    """A JAX {w[, b]} conv -> `name`.weight[, `name`.bias]."""
+    out[f"{name}.weight"] = _hwio_to_oihw(p["w"])
+    if "b" in p:
+        out[f"{name}.bias"] = _f32(p["b"])
+
+
+def _block_from_jax(name: str, bp: Dict, bs: Dict, out: Dict) -> None:
+    """A JAX ConvBlock ({conv, bn} params, {bn} state) -> `name`.*."""
+    _conv_from_jax(f"{name}.conv", bp["conv"], out)
+    out[f"{name}.norm.weight"] = _f32(bp["bn"]["gamma"])
+    out[f"{name}.norm.bias"] = _f32(bp["bn"]["beta"])
+    out[f"{name}.norm.running_mean"] = _f32(bs["bn"]["mean"])
+    out[f"{name}.norm.running_var"] = _f32(bs["bn"]["var"])
+
+
 def _stack_from_jax(prefix: str, p: Dict, s: Dict, out: Dict) -> None:
     for i, (bp, bs) in enumerate(zip(p["blocks"], s["blocks"])):
-        name = f"{prefix}.{'head' if i == 0 else f'block{i - 1}'}"
-        out[f"{name}.conv.weight"] = _hwio_to_oihw(bp["conv"]["w"])
-        out[f"{name}.conv.bias"] = _f32(bp["conv"]["b"])
-        out[f"{name}.norm.weight"] = _f32(bp["bn"]["gamma"])
-        out[f"{name}.norm.bias"] = _f32(bp["bn"]["beta"])
-        out[f"{name}.norm.running_mean"] = _f32(bs["bn"]["mean"])
-        out[f"{name}.norm.running_var"] = _f32(bs["bn"]["var"])
-    out[f"{prefix}.tail.weight"] = _hwio_to_oihw(p["tail"]["w"])
-    out[f"{prefix}.tail.bias"] = _f32(p["tail"]["b"])
+        _block_from_jax(f"{prefix}.{'head' if i == 0 else f'block{i - 1}'}",
+                        bp, bs, out)
+    _conv_from_jax(f"{prefix}.tail", p["tail"], out)
+
+
+def _baseline_from_jax(params: Dict, state: Dict, out: Dict) -> None:
+    """GeneratorCSG ({head, body, tail}) or GeneratorSG ({body}) -> the
+    port's keys."""
+    if "head" in params:
+        _block_from_jax("head", params["head"], state["head"], out)
+    for k, (sp, ss) in enumerate(zip(params["body"], state["body"])):
+        for i, (bp, bs) in enumerate(zip(sp["blocks"], ss["blocks"])):
+            _block_from_jax(f"body.{k}.blocks.{i}", bp, bs, out)
+        if "tail" in sp:
+            _conv_from_jax(f"body.{k}.tail", sp["tail"], out)
+    if "tail" in params:
+        _conv_from_jax("tail", params["tail"], out)
 
 
 def from_jax(params: Dict, state: Dict, ndim: int = 2
              ) -> Dict[str, torch.Tensor]:
     """The JAX package's GeneratorHPVAEGAN or GeneratorVAE_nb (params,
-    state), 2D or 3D per `ndim` -> the port's state_dict."""
+    state), 2D or 3D per `ndim`, or its GeneratorCSG / GeneratorSG (a tree
+    without "encode") -> the port's state_dict."""
     out: Dict[str, np.ndarray] = {}
+    if "encode" not in params:
+        _baseline_from_jax(params, state, out)
+        _check_rank(out, ndim)
+        return {k: torch.tensor(v) for k, v in out.items()}  # copies
     for i, (fp, fs) in enumerate(zip(params["encode"]["features"],
                                      state["encode"]["features"])):
         _sn_from_jax(f"encode.features.conv_block_{i}.conv", fp, fs, out)
     for head in ("mu", "logvar", "bern"):
         if head not in params["encode"]:
             continue
-        out[f"encode.{head}.conv.weight"] = _hwio_to_oihw(
-            params["encode"][head]["w"])
-        out[f"encode.{head}.conv.bias"] = _f32(params["encode"][head]["b"])
+        _conv_from_jax(f"encode.{head}.conv", params["encode"][head], out)
     _stack_from_jax("decoder", params["decoder"], state["decoder"], out)
     for k, (sp, ss) in enumerate(zip(params["body"], state["body"])):
         _stack_from_jax(f"body.{k}", sp, ss, out)
@@ -120,43 +153,76 @@ def from_jax(params: Dict, state: Dict, ndim: int = 2
     return {k: torch.tensor(v) for k, v in out.items()}  # copies
 
 
-def _stack_to_jax(items: Dict[str, np.ndarray]) -> Tuple[Dict, Dict]:
-    blocks_p: Dict[int, Dict] = {}
-    blocks_s: Dict[int, Dict] = {}
-    tail = {}
+def _groups(items: Dict[str, np.ndarray], pattern: str, what: str
+            ) -> Dict[str, Dict[str, np.ndarray]]:
+    """{group: {rest: value}} of the keys `pattern` splits into (group,
+    rest); any other key is an error."""
+    out: Dict[str, Dict[str, np.ndarray]] = {}
     for key, value in items.items():
-        if key == "tail.weight":
-            tail["w"] = _oihw_to_hwio(value)
-            continue
-        if key == "tail.bias":
-            tail["b"] = value
-            continue
-        m = re.match(r"(head|block(\d+))\.(conv|norm)\.(\w+)$", key)
+        m = re.match(pattern, key)
         if not m:
-            raise KeyError(f"unexpected conv-stack key {key!r}")
-        idx = 0 if m.group(1) == "head" else int(m.group(2)) + 1
-        bp, bs = blocks_p.setdefault(idx, {}), blocks_s.setdefault(idx, {})
-        mod, name = m.group(3), m.group(4)
-        if mod == "conv":
-            bp.setdefault("conv", {})["w" if name == "weight" else "b"] = (
-                _oihw_to_hwio(value) if name == "weight" else value)
-        elif name in ("weight", "bias"):
-            bp.setdefault("bn", {})["gamma" if name == "weight" else "beta"] = value
-        else:
-            bs.setdefault("bn", {})["mean" if name == "running_mean"
-                                    else "var"] = value
-    n = len(blocks_p)
-    return ({"blocks": [blocks_p[i] for i in range(n)], "tail": tail},
-            {"blocks": [blocks_s[i] for i in range(n)]})
+            raise KeyError(f"unexpected {what} key {key!r}")
+        out.setdefault(m.group(1), {})[m.group(2)] = value
+    return out
+
+
+def _conv_to_jax(e: Dict[str, np.ndarray]) -> Dict:
+    """{weight[, bias]} -> the JAX {w[, b]}."""
+    out = {"w": _oihw_to_hwio(e["weight"])}
+    if "bias" in e:
+        out["b"] = e["bias"]
+    return out
+
+
+def _block_to_jax(e: Dict[str, np.ndarray]) -> Tuple[Dict, Dict]:
+    """{conv.*, norm.*} -> a JAX ConvBlock's (params, state)."""
+    return ({"conv": _conv_to_jax({"weight": e["conv.weight"],
+                                   "bias": e["conv.bias"]}),
+             "bn": {"gamma": e["norm.weight"], "beta": e["norm.bias"]}},
+            {"bn": {"mean": e["norm.running_mean"],
+                    "var": e["norm.running_var"]}})
+
+
+def _stack_to_jax(items: Dict[str, np.ndarray]) -> Tuple[Dict, Dict]:
+    groups = _groups(items, r"(head|block\d+|tail)\.(.+)$", "conv-stack")
+    names = ["head"] + [f"block{i}" for i in range(len(groups) - 2)]
+    blocks = [_block_to_jax(groups[n]) for n in names]
+    return ({"blocks": [p for p, _ in blocks],
+             "tail": _conv_to_jax(groups["tail"])},
+            {"blocks": [s for _, s in blocks]})
+
+
+def _baseline_to_jax(sd: Dict[str, np.ndarray]) -> Tuple[Dict, Dict]:
+    """GeneratorCSG / GeneratorSG keys -> the JAX package's tree."""
+    groups = _groups(sd, r"(head|tail|body\.\d+)\.(.+)$", "baseline")
+    params: Dict = {}
+    state: Dict = {}
+    if "head" in groups:
+        params["head"], state["head"] = _block_to_jax(groups["head"])
+    params["body"], state["body"] = [], []
+    for k in range(sum(g.startswith("body.") for g in groups)):
+        stage = _groups(groups[f"body.{k}"], r"(blocks\.\d+|tail)\.(.+)$",
+                        "baseline stage")
+        n = len(stage) - ("tail" in stage)
+        blocks = [_block_to_jax(stage[f"blocks.{i}"]) for i in range(n)]
+        params["body"].append({"blocks": [p for p, _ in blocks]})
+        state["body"].append({"blocks": [s for _, s in blocks]})
+        if "tail" in stage:
+            params["body"][-1]["tail"] = _conv_to_jax(stage["tail"])
+    if "tail" in groups:
+        params["tail"] = _conv_to_jax(groups["tail"])
+    return params, state
 
 
 def to_jax(state_dict: Dict[str, torch.Tensor], ndim: int = 2
            ) -> Tuple[Dict, Dict]:
-    """The port's GeneratorHPVAEGAN or GeneratorVAE_nb state_dict, 2D or
-    3D per `ndim` -> the JAX package's (params, state) numpy pytree (what its netG_<k>.ckpt
-    holds)."""
+    """The port's GeneratorHPVAEGAN, GeneratorVAE_nb (2D or 3D per `ndim`),
+    GeneratorCSG or GeneratorSG state_dict -> the JAX package's (params,
+    state) numpy pytree (what its netG_<k>.ckpt holds)."""
     sd = _numpy_sd(state_dict)
     _check_rank(sd, ndim)
+    if not any(key.startswith("encode.") for key in sd):
+        return _baseline_to_jax(sd)
     feats: Dict[int, Dict[str, np.ndarray]] = {}
     stacks: Dict[str, Dict[str, np.ndarray]] = {}
     enc_p: Dict = {}
@@ -167,9 +233,7 @@ def to_jax(state_dict: Dict[str, torch.Tensor], ndim: int = 2
             continue
         m = re.match(r"encode\.(mu|logvar|bern)\.conv\.(weight|bias)$", key)
         if m:
-            w = _oihw_to_hwio(value) if m.group(2) == "weight" else value
-            enc_p.setdefault(m.group(1), {})[
-                "w" if m.group(2) == "weight" else "b"] = w
+            enc_p.setdefault(m.group(1), {})[m.group(2)] = value
             continue
         m = re.match(r"(decoder|body\.\d+)\.(.*)$", key)
         if not m:
@@ -180,8 +244,9 @@ def to_jax(state_dict: Dict[str, torch.Tensor], ndim: int = 2
     dec_p, dec_s = _stack_to_jax(stacks.pop("decoder"))
     n_body = len(stacks)
     body = [_stack_to_jax(stacks[f"body.{k}"]) for k in range(n_body)]
-    params = {"encode": {"features": fp, **enc_p}, "decoder": dec_p,
-              "body": [p for p, _ in body]}
+    params = {"encode": {"features": fp, **{k: _conv_to_jax(e) for k, e in
+                                            enc_p.items()}},
+              "decoder": dec_p, "body": [p for p, _ in body]}
     state = {"encode": {"features": fs}, "decoder": dec_s,
              "body": [s for _, s in body]}
     return params, state
@@ -189,40 +254,36 @@ def to_jax(state_dict: Dict[str, torch.Tensor], ndim: int = 2
 
 def from_jax_discriminator(params: Dict, state: Dict, ndim: int = 2
                            ) -> Dict[str, torch.Tensor]:
-    """The JAX package's WDiscriminator2D / WDiscriminator3D (params,
-    state), per `ndim` -> the port's state_dict."""
+    """The JAX package's WDiscriminator2D / WDiscriminator3D /
+    WDiscriminatorBaselines (params, state), per `ndim` -> the port's
+    state_dict. The baselines' head is a plain conv: no SN, no state."""
     out: Dict[str, np.ndarray] = {}
-    _sn_from_jax("head.conv", params["head"], state["head"], out)
+    if "snconv" in params["head"]:
+        _sn_from_jax("head.conv", params["head"], state["head"], out)
+    else:
+        _conv_from_jax("head.conv", params["head"]["conv"], out)
     for i, (bp, bs) in enumerate(zip(params["body"], state["body"])):
         _sn_from_jax(f"body.block{i}.conv", bp, bs, out)
-    out["tail.weight"] = _hwio_to_oihw(params["tail"]["w"])
-    out["tail.bias"] = _f32(params["tail"]["b"])
+    _conv_from_jax("tail", params["tail"], out)
     _check_rank(out, ndim)
     return {k: torch.tensor(v) for k, v in out.items()}  # copies
 
 
 def to_jax_discriminator(state_dict: Dict[str, torch.Tensor], ndim: int = 2
                          ) -> Tuple[Dict, Dict]:
-    """The port's WDiscriminator2D / WDiscriminator3D state_dict, per `ndim`
-    -> the JAX package's (params, state) numpy pytree (what its
-    netD_<k>.ckpt holds)."""
+    """The port's WDiscriminator2D / WDiscriminator3D /
+    WDiscriminatorBaselines state_dict, per `ndim` -> the JAX package's
+    (params, state) numpy pytree (what its netD_<k>.ckpt holds)."""
     sd = _numpy_sd(state_dict)
     _check_rank(sd, ndim)
-    head: Dict[str, np.ndarray] = {}
-    body: Dict[int, Dict[str, np.ndarray]] = {}
-    tail = {}
-    for key, value in sd.items():
-        m = re.match(r"(head|body\.block(\d+))\.conv\.(\w+)$", key)
-        if m:
-            entry = head if m.group(2) is None else \
-                body.setdefault(int(m.group(2)), {})
-            entry[m.group(3)] = value
-        elif key in ("tail.weight", "tail.bias"):
-            tail["w" if key == "tail.weight" else "b"] = (
-                _oihw_to_hwio(value) if key == "tail.weight" else value)
-        else:
-            raise KeyError(f"unexpected discriminator key {key!r}")
-    hp, hs = _sn_to_jax(head)
-    blocks = [_sn_to_jax(body[i]) for i in range(len(body))]
-    return ({"head": hp, "body": [p for p, _ in blocks], "tail": tail},
+    groups = _groups(sd, r"(head\.conv|body\.block\d+\.conv|tail)\.(\w+)$",
+                     "discriminator")
+    head = groups.pop("head.conv")
+    tail = groups.pop("tail")
+    hp, hs = _sn_to_jax(head) if "weight_orig" in head else \
+        ({"conv": _conv_to_jax(head)}, {})
+    blocks = [_sn_to_jax(groups[f"body.block{i}.conv"])
+              for i in range(len(groups))]
+    return ({"head": hp, "body": [p for p, _ in blocks],
+             "tail": _conv_to_jax(tail)},
             {"head": hs, "body": [s for _, s in blocks]})

@@ -3,7 +3,9 @@ same weights and the same draws, compared.
 
 `run_iteration` builds a small training state at one scale from a seed
 (He-normal weights, so that activations keep unit scale, and random
-BatchNorm statistics) of the named generator, 2D or 3D per `ndim`, runs
+BatchNorm statistics) of the named generator and discriminator, 2D or 3D
+per `ndim` (a CSG/SG baseline: its plan, its batch former, a random
+Z_init, every scale a GAN scale), runs
 training/steps.py::train_iteration once (D then G on a GAN scale) on
 random data (an image, or a clip of cfg.max_frames frames whose batch is
 random temporal windows), and returns its metrics, every gradient and every
@@ -15,8 +17,8 @@ noise, eps and GP alpha.
 `compare_devices` runs the iteration on the card and on the CPU with TF32
 off and returns the largest differences; `compare_sampler_devices` does
 the same for one `generate_samples` call of a given generator. chip_smoke.py
-(phases 5, 8 and 10) and tests/test_torch_cuda.py call them; they need a
-card.
+(phases 5, 8, 10, 14 and 15) and tests/test_torch_cuda.py call them; they
+need a card.
 """
 
 from __future__ import annotations
@@ -28,10 +30,12 @@ from typing import Dict, List, Sequence
 import numpy as np
 import torch
 
-from ..models import get_discriminator, get_generator
+from ..models import BASELINES, get_discriminator, get_generator
 from ..models.blocks import BatchNorm, Conv, SNConv
 from ..optim import ClippedAdam, adam
-from ..training.partition import apply_lr_plan, make_lr_plan
+from ..training.baselines_trainer import z_init_shape
+from ..training.partition import (apply_lr_plan, make_baseline_lr_plan,
+                                  make_lr_plan)
 from ..training.state import ScaleTrainState
 from ..training.steps import batch_former, train_iteration
 from ..utils.noise import NoiseSource
@@ -102,7 +106,8 @@ def he_init_(module: torch.nn.Module, gen: torch.Generator) -> None:
             if isinstance(m, (Conv, SNConv)):
                 w = m.weight if isinstance(m, Conv) else m.weight_orig
                 w.copy_(randn(w) * math.sqrt(2.0 / w[0].numel()))
-                m.bias.copy_(0.1 * randn(m.bias))
+                if m.bias is not None:
+                    m.bias.copy_(0.1 * randn(m.bias))
             if isinstance(m, SNConv):
                 for buf in (m.weight_u, m.weight_v):
                     v = randn(buf)
@@ -116,33 +121,44 @@ def he_init_(module: torch.nn.Module, gen: torch.Generator) -> None:
 
 
 def build_state(cfg, scale_idx: int, seed: int, device, ndim: int = 2,
-                generator: str = "GeneratorHPVAEGAN") -> ScaleTrainState:
-    """`generator` grown to `scale_idx` stages and a D (2D or 3D per
-    `ndim`), both from `seed`, with the scale's optimizers; the noise
-    source is left to the caller."""
+                generator: str = "GeneratorHPVAEGAN",
+                discriminator: str = "") -> ScaleTrainState:
+    """`generator` grown to scale `scale_idx`'s stages and a D
+    (`discriminator`, default WDiscriminator<ndim>D; 2D or 3D per `ndim`),
+    both from `seed`, with the scale's optimizers (a baseline also gets a
+    Z_init from `seed`); the noise source is left to the caller."""
     gen = torch.Generator().manual_seed(seed)
     G = get_generator(generator, ndim)(cfg)
-    for _ in range(scale_idx):
+    while len(G.body) < scale_idx + G.body_offset:
         G.init_next_stage()
-    D = get_discriminator(f"WDiscriminator{ndim}D", ndim)(cfg)
+    D = get_discriminator(discriminator or f"WDiscriminator{ndim}D",
+                          ndim)(cfg)
     he_init_(G, gen)
     he_init_(D, gen)
+    if generator in BASELINES:
+        G.z_init = torch.randn(z_init_shape(cfg), generator=gen)
+        plan = make_baseline_lr_plan(cfg, scale_idx, len(G.body),
+                                     has_head=hasattr(G, "head"),
+                                     has_tail=hasattr(G, "tail"))
+        clip = float("inf")
+    else:
+        plan, clip = make_lr_plan(cfg, scale_idx, scale_idx), cfg.grad_clip
     G, D = G.to(device), D.to(device)
-    plan = make_lr_plan(cfg, scale_idx, scale_idx)
     return ScaleTrainState(
-        G, D, ClippedAdam(apply_lr_plan(G, plan), cfg.beta1,
-                          grad_clip=cfg.grad_clip),
+        G, D, ClippedAdam(apply_lr_plan(G, plan), cfg.beta1, grad_clip=clip),
         adam(D.parameters(), cfg.lr_d, cfg.beta1), None)
 
 
 def run_iteration(cfg, scale_idx: int, seed: int, device,
                   noise: NoiseSource, ndim: int = 2,
-                  generator: str = "GeneratorHPVAEGAN"
+                  generator: str = "GeneratorHPVAEGAN",
+                  discriminator: str = ""
                   ) -> Dict[str, Dict[str, np.ndarray]]:
     """One train_iteration at `scale_idx`; returns {"metrics", "grads",
     "state"} as numpy, keyed by name. In 3D the config must carry the
     clip's org_fps, ar and fps_lcm (SingleVideoDataset sets them)."""
-    st = build_state(cfg, scale_idx, seed, device, ndim, generator)
+    st = build_state(cfg, scale_idx, seed, device, ndim, generator,
+                     discriminator)
     st.noise = noise
     gen = torch.Generator().manual_seed(seed + 1)
     frames = (cfg.max_frames,) if ndim == 3 else ()
@@ -150,9 +166,11 @@ def run_iteration(cfg, scale_idx: int, seed: int, device,
         k, cfg.scale_factor, cfg.stop_scale, cfg.img_size, cfg.ar)),
         generator=gen).to(device) for k in (scale_idx, 0)]
     amps = [1.0] + [0.5 ** k for k in range(1, cfg.stop_scale + 2)]
-    metrics = train_iteration(cfg, st, data[0], data[1], amps,
-                              vae_phase=cfg.vae_levels >= scale_idx + 1,
-                              former=batch_former(ndim, scale_idx))
+    baseline = generator in BASELINES
+    metrics = train_iteration(
+        cfg, st, data[0], data[1], amps,
+        vae_phase=not baseline and cfg.vae_levels >= scale_idx + 1,
+        former=batch_former(ndim, scale_idx, baseline))
     out = {"metrics": {k: float(v) for k, v in metrics.items()},
            "grads": {}, "state": {}}
     for prefix, m in (("G.", st.G), ("D.", st.D)):
@@ -165,12 +183,12 @@ def run_iteration(cfg, scale_idx: int, seed: int, device,
 
 
 def compare_devices(cfg, scale_idx: int, seed: int = 0, device="cuda",
-                    ndim: int = 2, generator: str = "GeneratorHPVAEGAN"
-                    ) -> Dict[str, float]:
-    """The iteration of `generator` (2D or 3D per `ndim`) on `device` (TF32
-    off) and on the CPU from the same weights and draws: the largest
-    relative metric difference and the largest absolute gradient and state
-    differences."""
+                    ndim: int = 2, generator: str = "GeneratorHPVAEGAN",
+                    discriminator: str = "") -> Dict[str, float]:
+    """The iteration of `generator` and `discriminator` (2D or 3D per
+    `ndim`) on `device` (TF32 off) and on the CPU from the same weights and
+    draws: the largest relative metric difference and the largest absolute
+    gradient and state differences."""
     cudnn_tf32 = torch.backends.cudnn.allow_tf32
     mm_tf32 = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cudnn.allow_tf32 = False
@@ -178,12 +196,13 @@ def compare_devices(cfg, scale_idx: int, seed: int = 0, device="cuda",
     try:
         rec = RecordingNoise(seed, device)
         card = run_iteration(cfg, scale_idx, seed, device, rec, ndim,
-                             generator)
+                             generator, discriminator)
     finally:
         torch.backends.cudnn.allow_tf32 = cudnn_tf32
         torch.backends.cuda.matmul.allow_tf32 = mm_tf32
     host = run_iteration(cfg, scale_idx, seed, "cpu",
-                         ReplayedNoise(rec.drawn, "cpu"), ndim, generator)
+                         ReplayedNoise(rec.drawn, "cpu"), ndim, generator,
+                         discriminator)
     if sorted(card["grads"]) != sorted(host["grads"]):
         raise AssertionError("the two devices trained other parameters")
     errs = {"metrics_rel": max(

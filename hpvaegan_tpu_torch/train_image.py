@@ -147,9 +147,8 @@ def unported(args, ndim: int = 2) -> list:
     checks = [
         ("--visualize", args.visualize and ndim == 2, "--visualize"),
         ("--generator " + args.generator,
-         (args.generator, ndim) not in models.GENERATORS,
-         models.REFUSED.get((args.generator, ndim),
-                            "the CSG/SG baselines")),
+         (args.generator, ndim) in models.REFUSED,
+         models.REFUSED.get((args.generator, ndim))),
         ("--mesh-data", args.mesh_data > 1, _MULTI),
         ("--mesh-sp", args.mesh_sp > 1, _MULTI),
         ("--dist-coordinator", args.dist_coordinator, _MULTI),
@@ -165,7 +164,23 @@ def unported(args, ndim: int = 2) -> list:
     return [(flag, item) for flag, is_set, item in checks if is_set]
 
 
-def cfg_from_args(args: argparse.Namespace, ndim: int = 2) -> Config:
+def check_generator(name: str, ndim: int, baselines: bool) -> None:
+    """The HP-VAE-GAN CLIs train the registry's other generators, the
+    baselines CLI its BASELINES (unported names are unported()'s)."""
+    if (name, ndim) in models.REFUSED:
+        return
+    if name in models.BASELINES and not baselines:
+        raise ValueError(f"--generator {name}: a video baseline; python -m "
+                         "hpvaegan_tpu_torch.train_video_baselines trains it")
+    if baselines and name not in models.BASELINES:
+        raise ValueError(f"--generator {name}: train_video_baselines trains "
+                         f"{' and '.join(models.BASELINES)}; python -m "
+                         "hpvaegan_tpu_torch.train_video trains the others")
+    models.get_generator(name, ndim)
+
+
+def cfg_from_args(args: argparse.Namespace, ndim: int = 2,
+                  baselines: bool = False) -> Config:
     if bool(args.netG) != bool(args.intermediate):
         raise SystemExit("--netG and --intermediate go together: a resume "
                          "needs the checkpoint and its experiment's "
@@ -174,6 +189,7 @@ def cfg_from_args(args: argparse.Namespace, ndim: int = 2) -> Config:
     if bad:
         raise NotImplementedError("not ported yet: " + "; ".join(
             f"{flag} (ROADMAP.md queue 1: {item})" for flag, item in bad))
+    check_generator(args.generator, ndim, baselines)
     cfg = Config()
     for k, v in vars(args).items():
         if k == "xla_options" and isinstance(v, list):
@@ -187,13 +203,20 @@ def cfg_from_args(args: argparse.Namespace, ndim: int = 2) -> Config:
     return cfg
 
 
-def launch(args: argparse.Namespace, ndim: int, summary) -> str:
-    """Train from parsed flags (shared by this CLI and train_video's):
-    a new experiment dir, its logbook, the Experiment Summary (`summary(cfg)`
-    gives its (name, value) lines) and the run. Returns the dir."""
-    from .training.trainer import run_training
+def launch(args: argparse.Namespace, ndim: int, summary,
+           trainer=None) -> str:
+    """Train from parsed flags (shared by this CLI, train_video's and
+    train_video_baselines'): a new experiment dir, its logbook, the
+    Experiment Summary (`summary(cfg)` gives its (name, value) lines) and
+    the run of `trainer` (a module with run_training: training/trainer.py
+    by default, training/baselines_trainer.py for the baselines). Returns
+    the dir."""
+    from .training import baselines_trainer
+    from .training import trainer as hpvaegan_trainer
 
-    cfg = cfg_from_args(args, ndim).finalize()
+    trainer = trainer or hpvaegan_trainer
+    cfg = cfg_from_args(args, ndim,
+                        baselines=trainer is baselines_trainer).finalize()
     device = resolve_device(
         f'cuda:{args.device_id}' if args.device == 'cuda' else 'cpu')
     if cfg.manualSeed is None:
@@ -207,8 +230,8 @@ def launch(args: argparse.Namespace, ndim: int, summary) -> str:
         logging.info('Experiment dir: %s', saver.experiment_dir)
         for name, value in summary(cfg) + [('Device', device)]:
             logging.info('%-15s: %s', name, value)
-    run_training(cfg, saver, device=device, seed=cfg.manualSeed,
-                 mode="image" if ndim == 2 else "video")
+    trainer.run_training(cfg, saver, device=device, seed=cfg.manualSeed,
+                         mode="image" if ndim == 2 else "video")
     return saver.experiment_dir
 
 

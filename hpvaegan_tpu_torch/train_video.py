@@ -15,7 +15,8 @@ and the JAX CLI's video defaults (WDiscriminator3D, 50000 iterations,
 checkname DEBUG). Resume works as in train_image. `--visualize` is accepted
 and changes nothing, as in the JAX package; the other unported flags
 (GeneratorVAE_nb among them: the JAX package's 3D one cannot run, so there
-is nothing to port it from) raise NotImplementedError.
+is nothing to port it from) raise NotImplementedError. The CSG/SG
+baselines train with train_video_baselines.
 """
 
 import argparse
@@ -47,11 +48,15 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
+def summary(cfg):
+    """The Experiment Summary's lines of a video run."""
+    return [('Start frame', cfg.start_frame), ('Max frames', cfg.max_frames),
+            ('Generator', cfg.generator), ('Iterations', cfg.niter),
+            ('Sampling rates', cfg.sampling_rates)]
+
+
 def main(argv=None):
-    return train_image.launch(build_parser().parse_args(argv), 3, lambda cfg: [
-        ('Start frame', cfg.start_frame), ('Max frames', cfg.max_frames),
-        ('Generator', cfg.generator), ('Iterations', cfg.niter),
-        ('Sampling rates', cfg.sampling_rates)])
+    return train_image.launch(build_parser().parse_args(argv), 3, summary)
 
 
 if __name__ == '__main__':

@@ -8,15 +8,14 @@ from dataclasses import dataclass
 
 import torch
 
-from ..models.networks_2d import GeneratorHPVAEGAN, WDiscriminator2D
 from ..optim import ClippedAdam
 from ..utils.noise import NoiseSource
 
 
 @dataclass
 class ScaleTrainState:
-    G: GeneratorHPVAEGAN
-    D: WDiscriminator2D
+    G: torch.nn.Module
+    D: torch.nn.Module
     opt_g: ClippedAdam
     opt_d: torch.optim.Adam
     noise: NoiseSource

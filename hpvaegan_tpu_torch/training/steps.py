@@ -26,7 +26,7 @@ from typing import Callable, Dict, List
 import torch
 
 from ..data.image import make_image_batch
-from ..data.video import make_video_batch
+from ..data.video import make_baseline_batch, make_video_batch
 from ..losses import d_loss_fn, g_gan_loss_fn, g_vae_loss_fn
 from ..models.blocks import assign_sn_state
 from .state import ScaleTrainState
@@ -90,13 +90,16 @@ def calibrate(G, real, real_zero, amps, noise) -> torch.Tensor:
     return torch.sqrt(torch.mean((real - gen) ** 2))
 
 
-def batch_former(ndim: int, scale_idx: int) -> Callable:
-    """The batch former of a 2D or 3D run at `scale_idx`: (cfg, data_scale,
-    data_zero, noise) -> (real, real_zero, noise_init). What the JAX trainer
-    hands its chunk as `batch_body` (trainer.py:133-139 there)."""
+def batch_former(ndim: int, scale_idx: int, baseline: bool = False
+                 ) -> Callable:
+    """The batch former of a 2D or 3D run at `scale_idx` (`baseline`: of a
+    CSG/SG run, 3D only): (cfg, data_scale, data_zero, noise) -> (real,
+    real_zero, noise_init). What the JAX trainers hand their chunks as
+    `batch_body` (trainer.py:133-139, baselines_trainer.py:146 there)."""
     if ndim == 2:
         return make_image_batch
-    return functools.partial(make_video_batch, scale_idx=scale_idx)
+    return functools.partial(make_baseline_batch if baseline
+                             else make_video_batch, scale_idx=scale_idx)
 
 
 def train_iteration(cfg, st: ScaleTrainState, data_scale, data_zero, amps,

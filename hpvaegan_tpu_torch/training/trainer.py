@@ -22,7 +22,10 @@ or "video" (3D). Per scale:
     in crash order (utils/saver.py).
 The video mode differs only in its dataset (data/video.py: all frames per
 scale, a batch is random temporal windows), its batch former and its 3D
-networks; the steps are the same.
+networks; the steps are the same. A scale is `scale_state` (D and the
+optimizers), `calibrate_amp` and `run_scale` (the iterations and the
+checkpoints), and `train_scales` runs the scales; training/
+baselines_trainer.py composes the same pieces for the CSG/SG baselines.
 
 Resume (`cfg.netG` and `cfg.intermediate`, the JAX trainer's
 trainer.py:448-534) reads the marker in --intermediate's directory:
@@ -36,7 +39,7 @@ trainer.py:448-534) reads the marker in --intermediate's directory:
       uninterrupted run would (--manualSeed plays no part);
   (c) any other marker (the JAX package's, with or without its "key", or a
       port marker without "torch_rng"): the reference's resume. G keeps
-      its k trained stages, the amps their first k, D warm-starts from
+      its trained stages, the amps their first k, D warm-starts from
       netD_<k-1> of --netG's directory, and scale k is recalibrated and
       trained again, from --manualSeed.
 
@@ -87,13 +90,14 @@ def amps_list(noise_amps: List[float], stop_scale: int) -> List[float]:
 
 def make_discriminator(cfg, saver: DataSaver, scale_idx: int,
                        init_gen: torch.Generator, device, ndim: int,
-                       warm_dir: Optional[str] = None) -> torch.nn.Module:
-    """A fresh D, warm-started from the previous GAN scale's checkpoint when
-    vae_levels < scale_idx, or from warm_dir's (a reference-style resume's
-    --netG directory) whenever it is given."""
+                       warm: bool, warm_dir: Optional[str] = None
+                       ) -> torch.nn.Module:
+    """A fresh D, warm-started (when `warm`) from netD_<k-1>.ckpt of
+    warm_dir (a reference-style resume's --netG directory), or of the run's
+    own experiment dir when warm_dir is None."""
     D = models.get_discriminator(cfg.discriminator, ndim)(cfg)
     init_weights_(D, init_gen)
-    if warm_dir or cfg.vae_levels < scale_idx:
+    if warm:
         try:
             ckpt = saver.load_checkpoint(f"netD_{scale_idx - 1}.ckpt",
                                          path=warm_dir)
@@ -118,64 +122,69 @@ def set_rng_state(rng: Dict[str, Any], init_gen: torch.Generator,
     noise.set_state(rng["noise"])
 
 
-def train_scale(cfg, G, dataset, saver: DataSaver, noise_amps: List[float],
-                noise: NoiseSource, init_gen: torch.Generator,
-                step_callback=None, inflight: Optional[Dict] = None,
-                warm_dir: Optional[str] = None) -> List[float]:
-    """Train pyramid scale cfg.scale_idx of G (2D or 3D, per G.ndim) on a
-    SingleImageDataset or SingleVideoDataset; returns the amps with its
-    own. `inflight`: an inflight checkpoint's payload, whose D, optimizers
-    and iteration the scale continues from (G and the generators are the
-    caller's to restore); `warm_dir`: see make_discriminator."""
-    scale_idx = cfg.scale_idx
-    ndim = G.ndim
-    vae_phase = cfg.vae_levels >= scale_idx + 1
+def scale_state(cfg, G, saver: DataSaver, noise: NoiseSource,
+                init_gen: torch.Generator, plan: Dict, grad_clip: float,
+                inflight: Optional[Dict], warm: bool,
+                warm_dir: Optional[str] = None) -> ScaleTrainState:
+    """The scale's training state: a D (make_discriminator's, or the
+    inflight payload's) and fresh optimizers over the plan's trainable
+    subtrees and D (or the payload's)."""
     device = next(G.parameters()).device
     if inflight is None:
-        D = make_discriminator(cfg, saver, scale_idx, init_gen, device, ndim,
-                               None if vae_phase else warm_dir)
+        D = make_discriminator(cfg, saver, cfg.scale_idx, init_gen, device,
+                               G.ndim, warm, warm_dir)
     else:
-        D = models.get_discriminator(cfg.discriminator, ndim)(cfg)
+        D = models.get_discriminator(cfg.discriminator, G.ndim)(cfg)
         D.load_state_dict(inflight["D"])
         D = D.to(device)
-    plan = make_lr_plan(cfg, scale_idx, len(G.body))
     opt_g = ClippedAdam(apply_lr_plan(G, plan), cfg.beta1,
-                        grad_clip=cfg.grad_clip)
+                        grad_clip=grad_clip)
     opt_d = adam(D.parameters(), cfg.lr_d, cfg.beta1)
     if inflight is not None:
         opt_g.load_state_dict(inflight["opt_g"])
         opt_d.load_state_dict(inflight["opt_d"])
-    st = ScaleTrainState(G, D, opt_g, opt_d, noise)
-    if ndim == 2:
-        data_scale = dataset.scale_image(scale_idx)
-        data_zero = dataset.scale_image(0)
-    else:
-        data_scale = dataset.scale_frames(scale_idx)
-        data_zero = dataset.scale_frames(0)
-    former = batch_former(ndim, scale_idx)
+    return ScaleTrainState(G, D, opt_g, opt_d, noise)
 
+
+def calibrate_amp(cfg, G, former, data, noise_amps: List[float],
+                  noise: NoiseSource, inflight: Optional[Dict],
+                  const_amp: bool) -> List[float]:
+    """The amps with scale cfg.scale_idx's: 1.0 at scale 0 and under
+    `const_amp`, else noise_amp_init * the RMSE of a reconstruction of a
+    batch from `former` (divided by batch_size again only under
+    bug_compat, the reference's bug #3). An inflight marker carries it."""
+    scale_idx = cfg.scale_idx
     noise_amps = list(noise_amps)
     if inflight is not None:
-        # calibrated before the checkpoint; the marker carries it
         if len(noise_amps) != scale_idx + 1:
             raise ValueError(f"an inflight marker of scale {scale_idx} needs "
                              f"{scale_idx + 1} amps, has {len(noise_amps)}")
-    elif cfg.const_amp or scale_idx == 0:
+    elif const_amp or scale_idx == 0:
         noise_amps.append(1.0)
     else:
         noise_amps.append(0.0)
-        real, real_zero, _ = former(cfg, data_scale, data_zero, noise)
+        real, real_zero, _ = former(cfg, data[0], data[1], noise)
         rmse = calibrate(G, real, real_zero,
                          amps_list(noise_amps, cfg.stop_scale), noise)
         denom = cfg.batch_size if cfg.bug_compat else 1
         noise_amps[-1] = cfg.noise_amp_init * float(rmse) / denom
-    amps = amps_list(noise_amps, cfg.stop_scale)
+    return noise_amps
 
+
+def run_scale(cfg, st: ScaleTrainState, saver: DataSaver, data,
+              noise_amps: List[float], vae_phase: bool, former,
+              init_gen: torch.Generator, step_callback=None,
+              inflight: Optional[Dict] = None) -> None:
+    """The scale's iterations (after the inflight payload's, when given)
+    and its checkpoints: netG, netD (GAN scales) and torch_rng_<k>.pt."""
+    scale_idx = cfg.scale_idx
+    G, D = st.G, st.D
+    amps = amps_list(noise_amps, cfg.stop_scale)
     start = int(inflight["iter"]) if inflight is not None else 0
     bar = Progress(cfg.niter, "Training scale [{}/{}]".format(
         scale_idx + 1, cfg.stop_scale + 1), initial=start)
     for done in range(start + 1, cfg.niter + 1):
-        metrics = train_iteration(cfg, st, data_scale, data_zero, amps,
+        metrics = train_iteration(cfg, st, data[0], data[1], amps,
                                   vae_phase, former)
         bar.update()
         if done % cfg.print_interval == 0:
@@ -192,20 +201,47 @@ def train_scale(cfg, G, dataset, saver: DataSaver, noise_amps: List[float],
                 and done % cfg.ckpt_interval == 0:
             saver.save_inflight(scale_idx, {
                 "G": G.state_dict(), "D": D.state_dict(),
-                "opt_g": opt_g.state_dict(), "opt_d": opt_d.state_dict(),
-                "rng": rng_state(init_gen, noise)}, done, noise_amps)
+                "opt_g": st.opt_g.state_dict(), "opt_d": st.opt_d.state_dict(),
+                "rng": rng_state(init_gen, st.noise)}, done, noise_amps)
         if step_callback is not None:
             step_callback(done, st, metrics)
     bar.close()
 
-    params, state = to_jax(G.state_dict(), ndim)
+    params, state = to_jax(G.state_dict(), G.ndim)
     d_tree = None
     if not vae_phase:
-        d_params, d_state = to_jax_discriminator(D.state_dict(), ndim)
+        d_params, d_state = to_jax_discriminator(D.state_dict(), G.ndim)
         d_tree = {"params": d_params, "state": d_state}
     saver.finalize_scale(scale_idx, noise_amps,
                          {"params": params, "state": state}, d_tree,
-                         rng=rng_state(init_gen, noise))
+                         rng=rng_state(init_gen, st.noise))
+
+
+def train_scale(cfg, G, dataset, saver: DataSaver, noise_amps: List[float],
+                noise: NoiseSource, init_gen: torch.Generator,
+                step_callback=None, inflight: Optional[Dict] = None,
+                warm_dir: Optional[str] = None) -> List[float]:
+    """Train pyramid scale cfg.scale_idx of G (2D or 3D, per G.ndim) on a
+    SingleImageDataset or SingleVideoDataset; returns the amps with its
+    own. `inflight`: an inflight checkpoint's payload, whose D, optimizers
+    and iteration the scale continues from (G and the generators are the
+    caller's to restore); `warm_dir`: a reference-style resume's --netG
+    directory, whose netD_<k-1> D starts from."""
+    scale_idx = cfg.scale_idx
+    vae_phase = cfg.vae_levels >= scale_idx + 1
+    warm = not vae_phase and bool(warm_dir or cfg.vae_levels < scale_idx)
+    st = scale_state(cfg, G, saver, noise, init_gen,
+                     make_lr_plan(cfg, scale_idx, len(G.body)),
+                     cfg.grad_clip, inflight, warm, warm_dir)
+    if G.ndim == 2:
+        data = dataset.scale_image(scale_idx), dataset.scale_image(0)
+    else:
+        data = dataset.scale_frames(scale_idx), dataset.scale_frames(0)
+    former = batch_former(G.ndim, scale_idx)
+    noise_amps = calibrate_amp(cfg, G, former, data, noise_amps, noise,
+                               inflight, cfg.const_amp)
+    run_scale(cfg, st, saver, data, noise_amps, vae_phase, former, init_gen,
+              step_callback, inflight)
     return noise_amps
 
 
@@ -230,8 +266,9 @@ def resume(cfg, saver: DataSaver, G, init_gen: torch.Generator,
            noise: NoiseSource
            ) -> Tuple[List[float], int, Optional[Dict], Optional[str]]:
     """Load the resumed state into G and the generators (cases (a)-(c) of
-    the module docstring). Returns (noise_amps, the scale to train next,
-    the inflight payload or None, the netD warm-start dir or None)."""
+    the module docstring); the checkpoint must carry scale k's stage count,
+    k + G.body_offset. Returns (noise_amps, the scale to train next, the
+    inflight payload or None, the netD warm-start dir or None)."""
     if not (cfg.netG and cfg.intermediate):
         raise ValueError("resume needs both --netG and --intermediate")
     inter_dir = os.path.dirname(cfg.intermediate)
@@ -250,10 +287,11 @@ def resume(cfg, saver: DataSaver, G, init_gen: torch.Generator,
         state_dict = from_jax(ckpt["params"], ckpt["state"], G.ndim)
     n_body = len({key.split(".")[1] for key in state_dict
                   if key.startswith("body.")})
-    if n_body != k:
+    if n_body != k + G.body_offset:
         raise RuntimeError(f"{cfg.netG} has {n_body} refinement stages but "
-                           f"the marker's scale_idx is {k}")
-    while len(G.body) < k:
+                           f"the marker's scale_idx is {k} (netG_<k> of "
+                           f"{cfg.generator} carries k + {G.body_offset})")
+    while len(G.body) < n_body:
         G.init_next_stage()
     G.load_state_dict(state_dict)
 
@@ -318,11 +356,26 @@ def run_training(cfg, saver: DataSaver, device="cuda",
     if cfg.netG or cfg.intermediate:
         noise_amps, start, inflight, warm_dir = resume(cfg, saver, G,
                                                        init_gen, noise)
+    noise_amps = train_scales(cfg, G, dataset, saver, noise_amps, noise,
+                              init_gen, start, train_scale, step_callback,
+                              inflight, warm_dir)
+    return G, noise_amps
+
+
+def train_scales(cfg, G, dataset, saver: DataSaver, noise_amps: List[float],
+                 noise: NoiseSource, init_gen: torch.Generator, start: int,
+                 train_fn, step_callback=None, inflight: Optional[Dict] = None,
+                 warm_dir: Optional[str] = None) -> List[float]:
+    """Scales start..stop_scale through `train_fn` (train_scale's
+    signature): G grows to scale k's stage count first (k + G.body_offset),
+    and a video run sets cfg.fps, cfg.td and cfg.fps_index of the scale.
+    The inflight payload and warm_dir are the first scale's. Returns the
+    amps."""
     for scale_idx in range(start, cfg.stop_scale + 1):
         cfg.scale_idx = scale_idx
-        if len(G.body) < scale_idx:
+        if len(G.body) < scale_idx + G.body_offset:
             G.init_next_stage(init_gen)
-        if ndim == 3:
+        if G.ndim == 3:
             cfg.fps, cfg.td, cfg.fps_index = pyramid.get_fps_td_by_index(
                 scale_idx, cfg.stop_scale_time, cfg.sampling_rates,
                 cfg.org_fps, cfg.fps_lcm)
@@ -330,8 +383,8 @@ def run_training(cfg, saver: DataSaver, device="cuda",
                          scale_idx, cfg.fps, cfg.td,
                          cfg.sampling_rates[cfg.fps_index])
         t0 = time.perf_counter()
-        noise_amps = train_scale(cfg, G, dataset, saver, noise_amps, noise,
-                                 init_gen, step_callback, inflight, warm_dir)
+        noise_amps = train_fn(cfg, G, dataset, saver, noise_amps, noise,
+                              init_gen, step_callback, inflight, warm_dir)
         inflight = warm_dir = None
         secs = time.perf_counter() - t0
         logging.info("scale %d done in %.1fs (%.2f it/s)", scale_idx, secs,
@@ -339,4 +392,4 @@ def run_training(cfg, saver: DataSaver, device="cuda",
     if start > cfg.stop_scale:
         logging.info("resume: all %d scales already complete",
                      cfg.stop_scale + 1)
-    return G, noise_amps
+    return noise_amps

@@ -17,6 +17,8 @@ import torch
 
 from hpvaegan_tpu_torch.config import Config
 from hpvaegan_tpu_torch.evaluation import generate_samples
+from hpvaegan_tpu_torch.models import get_generator
+from hpvaegan_tpu_torch.models.blocks import init_weights_
 from hpvaegan_tpu_torch.models.networks_2d import GeneratorHPVAEGAN
 from hpvaegan_tpu_torch.ops import fused_upscale_noise as k1
 from hpvaegan_tpu_torch.models.networks_3d import (
@@ -151,6 +153,46 @@ def test_vae_nb_iteration_matches_cpu(cuda, scale_idx):
     assert errs["finite"], errs
     assert errs["metrics_rel"] <= 1e-4, errs
     assert errs["grads_abs"] <= 1e-4 and errs["state_abs"] <= 1e-4, errs
+
+
+@pytest.mark.parametrize("name", ["GeneratorCSG", "GeneratorSG"])
+def test_baseline_iteration_matches_cpu(cuda, name):
+    """One iteration of a CSG/SG baseline against WDiscriminatorBaselines
+    on the card (TF32 off) equals the same iteration on the CPU from the
+    same weights, Z_init and draws (chip_smoke.py phase 15 (a))."""
+    cfg = Config(nfc=8, num_layer=2, img_size=32, min_size=16, max_size=32,
+                 max_frames=5, sampling_rates=[2, 1], hflip=True,
+                 batch_size=2, generator=name,
+                 discriminator="WDiscriminatorBaselines").finalize()
+    cfg.org_fps, cfg.ar, cfg.fps_lcm = 24.0, 0.75, 2  # synthetic.avi's
+    k1.fused_upscale_noise_2d.launches = 0
+    errs = compare_devices(cfg, 3, seed=0, device=cuda, ndim=3,
+                           generator=name,
+                           discriminator="WDiscriminatorBaselines")
+    assert errs["finite"], errs
+    assert errs["metrics_rel"] <= 1e-4, errs
+    assert errs["grads_abs"] <= 1e-4 and errs["state_abs"] <= 1e-4, errs
+    assert k1.fused_upscale_noise_2d.launches == 0
+
+
+@pytest.mark.parametrize("name", ["GeneratorCSG", "GeneratorSG"])
+@pytest.mark.parametrize("train", [True, False])
+def test_baseline_sampler_matches_cpu(cuda, name, train):
+    """A tiny baseline's sampler (z of nc_im channels at scale 0's time
+    depth, netG_4's 5 stages) on the card (TF32 off) equals the CPU's from
+    the same draws, in both BatchNorm modes."""
+    cfg = Config(nfc=8, num_layer=2, img_size=32, min_size=16, max_size=32,
+                 niter=1, num_samples=3, sampling_rates=[2, 1],
+                 generator=name).finalize()
+    cfg.org_fps, cfg.ar, cfg.fps_lcm = 24.0, 0.75, 2
+    cfg.scale_idx = cfg.stop_scale
+    cfg.Noise_Amps = [1.0] + [0.3] * cfg.stop_scale
+    gen = get_generator(name, 3)(cfg)
+    init_weights_(gen, torch.Generator().manual_seed(0))
+    for _ in range(cfg.stop_scale):
+        gen.init_next_stage()
+    diff = compare_sampler_devices(cfg, gen, 3, train, seed=0, device=cuda)
+    assert diff <= 1e-4
 
 
 class _Killed(Exception):

@@ -380,6 +380,16 @@ def test_port_imports_no_jax(tmp_path):
         "    '--vae-levels', '1', '--run-dir', sys.argv[1]])\n"
         "assert os.path.isfile(os.path.join(exp, 'netD_1.ckpt'))\n"
         "assert os.sep + 'synthetic' + os.sep in exp\n"
+        "from hpvaegan_tpu_torch import train_video_baselines\n"
+        "exp = train_video_baselines.main(['--video-path',\n"
+        "    'data/vids/synthetic.avi', '--sampling-rates', '2', '1',\n"
+        "    '--max-frames', '5', '--device', 'cpu', '--nfc', '4',\n"
+        "    '--num-layer', '1', '--niter', '1', '--img-size', '24',\n"
+        "    '--min-size', '16', '--max-size', '24', '--generator',\n"
+        "    'GeneratorSG', '--run-dir', sys.argv[1] + '/b'])\n"
+        "assert os.path.isfile(os.path.join(exp, 'Z_init.npy'))\n"
+        "hpvaegan_tpu_torch.eval_video.main(['--exp-dir', exp, '--device',\n"
+        "    'cpu', '--num-samples', '2'])\n"
         "bad = [m for m in sys.modules\n"
         "       if m == 'jax' or m.startswith(('jax.', 'jaxlib'))\n"
         "       or m == 'hpvaegan_tpu' or m.startswith('hpvaegan_tpu.')]\n"

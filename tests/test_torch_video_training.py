@@ -46,7 +46,8 @@ from hpvaegan_tpu_torch import train_image as timage_cli
 from hpvaegan_tpu_torch import train_video as tvideo_cli
 from hpvaegan_tpu_torch.data import video as tvideo
 from hpvaegan_tpu_torch.models.blocks import assign_sn_state
-from hpvaegan_tpu_torch.models.networks_3d import WDiscriminator3D
+from hpvaegan_tpu_torch.models.networks_3d import (WDiscriminator3D,
+                                                   WDiscriminatorBaselines)
 from hpvaegan_tpu_torch.tools.convert import (_v_perm, from_jax_discriminator,
                                               to_jax, to_jax_discriminator)
 from hpvaegan_tpu_torch.tools.step_parity import ReplayedNoise
@@ -164,10 +165,14 @@ def test_wdiscriminator3d_checkpoint_round_trip_and_rank_check():
 
 def test_registry_has_the_3d_discriminator():
     assert tmodels.get_discriminator("WDiscriminator3D", 3) is WDiscriminator3D
-    with pytest.raises(NotImplementedError):
-        tmodels.get_discriminator("WDiscriminatorBaselines", 3)
+    assert tmodels.get_discriminator("WDiscriminatorBaselines", 3) is \
+        WDiscriminatorBaselines
     with pytest.raises(NotImplementedError):
         tmodels.get_discriminator("WDiscriminator3D", 2)
+    with pytest.raises(NotImplementedError):
+        tmodels.get_discriminator("WDiscriminatorBaselines", 2)
+    with pytest.raises(NotImplementedError):
+        tmodels.get_generator("GeneratorCSG", 2)
 
 
 # ------------------------------------------------------ batch former ---
