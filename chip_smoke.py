@@ -96,6 +96,22 @@ Phases, each of which exits non-zero on a failed check:
              of scale 9 and resumed from inflight_9.ckpt: netG_9 against
              (c)'s (atol 1e-4; 0 expected). GeneratorSG runs (a) and (b)
              only, to keep the script's time in budget
+ 16. flags  the training flags (--compute-dtype bfloat16, --fused-dg,
+             --paired-g, --flat-opt, --visualize, --profile-dir): (a) one
+             tiny GAN-scale iteration per flag card vs CPU (TF32 off):
+             --fused-dg in 2D, 3D and CSG, --paired-g and --flat-opt in 2D
+             at atol 1e-4, bf16 in 2D and 3D within BF16_CARD_TOL; (b) scale
+             9 at full width, batch 1, 2D and 3D, with PyTorch's defaults:
+             f32, bf16, fused-dg, bf16+fused-dg (2D also paired-g,
+             flat-opt; 2D twice, in order and reversed, being host-bound):
+             steps/s, D and G (or fused-iteration) ms, peak GB,
+             and for bf16 one profiled iteration's GP image-sized
+             convolutions with their kernels and TFLOP/s; (c) the main path
+             train_video --compute-dtype bfloat16 --fused-dg at full width,
+             10 scales x 2, then eval_video (finite SVFID, float32 samples,
+             K1 launches 0), and train_image --paired-g --flat-opt
+             --visualize --image-interval 2 --profile-dir, 10 x 4 (the
+             img/ files, one trace with CUDA kernel events)
 Then it prints the kernels' JSON line, the card's name and power limit as
 nvidia-smi gives them, and last {"ok": true, "device": {...}}.
 
@@ -104,6 +120,7 @@ scale through the stacks. Nothing here imports JAX or the JAX package.
 """
 
 import contextlib
+import dataclasses
 import io
 import json
 import math
@@ -478,7 +495,8 @@ def phase_step_parity(torch, cfg, ndim=2, generator="GeneratorHPVAEGAN",
         for part in ("grads_abs", "state_abs"):
             check(errs[part] <= 1e-4, f"scale {scale_idx}: {part} "
                   f"{errs[part]} > 1e-4")
-        out[scale_idx] = {k: v for k, v in errs.items() if k != "finite"}
+        out[scale_idx] = {k: v for k, v in errs.items()
+                          if k not in ("finite", "metrics_host")}
         print(f"  scale {scale_idx} (card vs CPU, TF32 off): " + json.dumps(
             out[scale_idx]), flush=True)
     return out
@@ -1546,6 +1564,328 @@ def phase_baselines(torch, k1, run):
     return out
 
 
+# the training flags of phase 16 (a): (name, ndim, generator, Config flags)
+FLAG_CASES = (
+    ("--fused-dg 2D", 2, "GeneratorHPVAEGAN", dict(fused_dg=True)),
+    ("--fused-dg 3D", 3, "GeneratorHPVAEGAN", dict(fused_dg=True)),
+    ("--fused-dg CSG", 3, "GeneratorCSG", dict(fused_dg=True)),
+    ("--paired-g 2D", 2, "GeneratorHPVAEGAN", dict(paired_g=True)),
+    ("--flat-opt 2D", 2, "GeneratorHPVAEGAN", dict(flat_opt=True)),
+    ("bf16 2D", 2, "GeneratorHPVAEGAN", dict(compute_dtype="bfloat16")),
+    ("bf16 3D", 3, "GeneratorHPVAEGAN", dict(compute_dtype="bfloat16")))
+# card (cuDNN bf16) against CPU (oneDNN bf16): one-ulp rounding differences
+# of the two convolutions, spread by the bf16 chain; measured 2.1e-5, 3.9e-3
+# and 9.5e-6 on an H100 (tests/test_torch_cuda.py)
+BF16_CARD_TOL = {"metrics_scaled": 1e-3, "grads_abs": 2e-2,
+                 "state_abs": 1e-4}
+F32_CARD_TOL = {"metrics_rel": 1e-4, "grads_abs": 1e-4, "state_abs": 1e-4}
+# phase 16 (b): the variants timed at scale 9, 2D and (first four) 3D
+FLAG_VARIANTS = (("f32", {}), ("bf16", dict(compute_dtype="bfloat16")),
+                 ("fused-dg", dict(fused_dg=True)),
+                 ("bf16+fused-dg", dict(compute_dtype="bfloat16",
+                                        fused_dg=True)),
+                 ("paired-g", dict(paired_g=True)),
+                 ("flat-opt", dict(flat_opt=True)))
+
+
+def flags_parity(torch):
+    """Phase 16 (a): one tiny GAN-scale iteration per flag, card (TF32 off,
+    deterministic cuDNN) against CPU."""
+    from hpvaegan_tpu_torch.data.video import SingleVideoDataset
+    from hpvaegan_tpu_torch.tools.step_parity import compare_devices
+
+    out = {}
+    for name, ndim, generator, flags in FLAG_CASES:
+        kw = dict(flags, generator=generator)
+        if ndim == 3:
+            kw.update(video_path=os.path.join(HERE, "data", "vids",
+                                              "synthetic.avi"),
+                      max_frames=5, sampling_rates=[2, 1], hflip=True,
+                      batch_size=2)
+        disc = ""
+        if generator == "GeneratorCSG":
+            disc = kw["discriminator"] = "WDiscriminatorBaselines"
+        cfg = tiny_config(**kw)
+        if ndim == 3:
+            SingleVideoDataset(cfg, "cpu")  # sets org_fps, ar, fps_lcm
+        with exact_math(torch):
+            errs = compare_devices(cfg, 3, seed=SEED, device="cuda",
+                                   ndim=ndim, generator=generator,
+                                   discriminator=disc)
+        tol = BF16_CARD_TOL if "compute_dtype" in flags else F32_CARD_TOL
+        check(errs["finite"], f"{name}: non-finite values on the card")
+        for k, bound in tol.items():
+            check(errs[k] <= bound, f"{name}: {k} {errs[k]} > {bound}")
+        out[name] = {k: v for k, v in errs.items()
+                     if k not in ("finite", "metrics", "metrics_host")}
+        if "compute_dtype" in flags:
+            out[name]["metrics_card_host"] = {
+                k: [round(v, 6), round(errs["metrics_host"][k], 6)]
+                for k, v in errs["metrics"].items()}
+        print(f"  (a) {name}, scale 3 (card vs CPU, TF32 off; bound "
+              f"{tol}): " + json.dumps(out[name]), flush=True)
+    return out
+
+
+def gp_image_convs(prof, size, ker):
+    """The GP double backward's convolutions whose weight is a whole
+    activation of `size` (PERF.md §5), by input shapes: calls, device ms,
+    kernel names, TFLOP/s (2 * N * Cout * ker^d * Cin * prod(size) per
+    call: their output is the kernel's size)."""
+    rows = {}
+    for e in prof.events():
+        if e.name != "aten::cudnn_convolution" or len(e.input_shapes) < 2 \
+                or list(e.input_shapes[1][2:]) != size:
+            continue
+        (n, cin), cout = e.input_shapes[0][:2], e.input_shapes[1][0]
+        row = rows.setdefault(str(e.input_shapes[:2]), {
+            "calls": 0, "device_ms": 0.0, "flop": 0, "kernels": set()})
+        row["calls"] += 1
+        row["device_ms"] += e.device_time_total / 1e3
+        row["flop"] += 2 * n * cout * ker ** len(size) * cin * math.prod(size)
+        row["kernels"].update(k.name[:60] for k in getattr(e, "kernels", []))
+    return {shape: {"calls": r["calls"], "device_ms": round(r["device_ms"], 3),
+                    "tflop_per_s": round(r["flop"] / r["device_ms"] / 1e9, 3)
+                    if r["device_ms"] else None,
+                    "kernels": sorted(r["kernels"])}
+            for shape, r in rows.items()}
+
+
+def time_flag_variant(torch, cfg, dataset, ndim, warm, reps, split_reps,
+                      profiled=False):
+    """Scale 9 of a full-width 2D or 3D run, batch 1, with the flags in cfg
+    (PyTorch's defaults otherwise): steps/s over `reps` iterations after
+    `warm`, the D and G step ms (or the fused iteration's) synchronised,
+    peak GB; with `profiled`, one profiled iteration's GP image-sized
+    convolutions."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from hpvaegan_tpu_torch.tools.step_parity import build_state
+    from hpvaegan_tpu_torch.training.steps import (batch_former, d_step,
+                                                   fused_dg_iteration,
+                                                   g_step, train_iteration)
+    from hpvaegan_tpu_torch.utils.noise import NoiseSource
+
+    st = build_state(cfg, 9, SEED, "cuda", ndim)
+    st.noise = NoiseSource(SEED, "cuda")
+    if ndim == 2:
+        data = dataset.scale_image(9), dataset.scale_image(0)
+    else:
+        data = dataset.scale_frames(9), dataset.scale_frames(0)
+    former = batch_former(ndim, 9)
+    amps = [1.0] + [0.05] * (cfg.stop_scale + 1)
+
+    def iteration():
+        return train_iteration(cfg, st, data[0], data[1], amps, False, former)
+
+    for _ in range(warm):
+        iteration()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        metrics = iteration()
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / reps
+    check(all(math.isfinite(float(v)) for v in metrics.values()),
+          f"scale 9 metrics {metrics}")
+    split = {}
+    for _ in range(split_reps):
+        real, real_zero, noise_init = former(cfg, data[0], data[1], st.noise)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if cfg.fused_dg:
+            fused_dg_iteration(cfg, st, real, real_zero, noise_init, amps)
+        else:
+            d_step(cfg, st, real, noise_init, amps)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            split["d_ms"] = split.get("d_ms", 0.0) + (t1 - t0) * 1e3
+            t0 = t1
+            g_step(cfg, st, real, real_zero, noise_init, amps, False)
+        torch.cuda.synchronize()
+        slot = "fused_iteration_ms" if cfg.fused_dg else "g_ms"
+        split[slot] = split.get(slot, 0.0) + (time.perf_counter() - t0) * 1e3
+    out = {"steps_per_s": round(1.0 / step_s, 3),
+           **{k: round(v / split_reps, 1) for k, v in split.items()},
+           "peak_gb": round(torch.cuda.max_memory_allocated() / 1e9, 3),
+           "iterations": [warm, reps, split_reps]}
+    if profiled:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     record_shapes=True) as prof:
+            t0 = time.perf_counter()
+            iteration()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        summary = device_summary(prof, wall_ms, "flags profile")
+        convs = gp_image_convs(prof, list(real.shape[2:]), cfg.ker_size)
+        out["profile"] = {k: summary[k] for k in (
+            "profiled_wall_ms", "device_busy_ms", "idle_share",
+            "groups_ms")}
+        out["profile"]["gp_image_convs"] = convs
+        out["profile"]["gp_image_convs_ms"] = round(sum(
+            r["device_ms"] for r in convs.values()), 3)
+    del st
+    torch.cuda.empty_cache()
+    return out
+
+
+def flags_timing(torch):
+    """Phase 16 (b): scale 9 at full width, batch 1, 2D (192x257) and 3D
+    (13x192x257), each FLAG_VARIANTS entry in one call (3D: the first four,
+    iteration counts cut as phase 12 cuts them); the bf16 variant
+    profiled. 2D is host-bound, so its variants run twice, in order and
+    then in reverse, and both rates are kept."""
+    from hpvaegan_tpu_torch.data.image import SingleImageDataset
+
+    out = {}
+    image = os.path.join(HERE, "data", "imgs", "air_balloons.jpg")
+    for ndim in (2, 3):
+        if ndim == 2:
+            base = full_width_config(image_path=image, batch_size=1)
+            dataset = SingleImageDataset(base, "cuda")
+            variants, counts = FLAG_VARIANTS, (3, 10, 3)
+        else:
+            base, dataset = video_config(batch_size=1)
+            variants, counts = FLAG_VARIANTS[:4], (1, 2, 1)
+        order = list(variants)
+        if ndim == 2:
+            order += order[::-1]
+        for name, flags in order:
+            cfg = dataclasses.replace(base, **flags)
+            key = f"{ndim}D {name}"
+            res = time_flag_variant(torch, cfg, dataset, ndim, *counts,
+                                    profiled=name == "bf16" and key not in out)
+            if key in out:
+                out[key]["steps_per_s_again"] = res["steps_per_s"]
+                key += " again"
+            else:
+                out[key] = res
+            print(f"  (b) scale 9 {key} (PyTorch's defaults): "
+                  + json.dumps(res), flush=True)
+        del dataset
+        torch.cuda.empty_cache()
+    return out
+
+
+def flags_main_path(torch, k1, run):
+    """Phase 16 (c): train_video --compute-dtype bfloat16 --fused-dg at full
+    width (10 scales x 2 iterations) then eval_video; train_image --paired-g
+    --flat-opt --visualize --image-interval 2 --profile-dir (10 x 4)."""
+    import numpy as np
+
+    from hpvaegan_tpu_torch import eval_video, train_image, train_video
+    from hpvaegan_tpu_torch.models import networks_2d
+    from hpvaegan_tpu_torch.models.blocks import Conv
+    from hpvaegan_tpu_torch.training import steps, trainer
+
+    out = {}
+    fused, dtypes = [], set()
+    orig = steps.fused_dg_iteration
+
+    def spy(cfg, st, *a):
+        fused.append(cfg.scale_idx)
+        dtypes.update(m.compute_dtype for m in st.G.modules()
+                      if isinstance(m, Conv))
+        return orig(cfg, st, *a)
+
+    steps.fused_dg_iteration = spy
+    k1.fused_upscale_noise_2d.launches = 0
+    try:
+        exp, train_s, scale_s = timed_scales(
+            trainer, train_video.main,
+            video_train_args(os.path.join(run, "bf16"), "--compute-dtype",
+                             "bfloat16", "--fused-dg"))
+    finally:
+        steps.fused_dg_iteration = orig
+    launches = k1.fused_upscale_noise_2d.launches
+    check(launches == 0, f"the bf16 fused video run launched K1 {launches} "
+          "times")
+    check(fused == [k for k in range(3, 10) for _ in range(2)],
+          f"fused iterations at scales {fused}")
+    check(dtypes == {torch.bfloat16}, f"G's convs ran in {dtypes}")
+    with open(os.path.join(exp, "logbook.txt")) as f:
+        logged = [ln.split("] ", 1)[1] for ln in f.read().splitlines()
+                  if "[Scale " in ln]
+    losses = [float(kv.split(": ")[1]) for ln in logged
+              for kv in ln.split(", ")]
+    check(len(logged) == 20 and all(math.isfinite(v) for v in losses),
+          f"losses {logged}")
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        eval_video.main(["--exp-dir", exp, "--num-samples", "10"])
+    eval_s = time.perf_counter() - t0
+    lines = [ln for ln in buf.getvalue().splitlines()
+             if ln.startswith("SVFID: ")]
+    check(len(lines) == 1, f"eval_video printed {buf.getvalue()!r}")
+    svfid = float(lines[0].split()[1])
+    check(math.isfinite(svfid) and svfid >= 0, f"SVFID {svfid}")
+    samples = np.load(os.path.join(exp, "eval", "random_samples.npy"))
+    check(samples.dtype == np.float32 and samples.shape == (10, 3, 13, 192,
+                                                            257),
+          f"npy {samples.dtype} {samples.shape}")
+    out["video"] = {"train_s": round(train_s, 2), "scale_s": scale_s,
+                    "fused_iterations": len(fused), "k1_launches": launches,
+                    "last_losses": logged[-1], "svfid": svfid,
+                    "eval_s": round(eval_s, 2)}
+    print("  (c) train_video --compute-dtype bfloat16 --fused-dg, 10 scales "
+          "x 2, then eval_video: " + json.dumps(out["video"]), flush=True)
+
+    paired = []
+    pair = networks_2d.GeneratorHPVAEGAN.reconstruct_pair
+
+    def counted(self, *a, **kw):
+        paired.append(1)
+        return pair(self, *a, **kw)
+
+    prof_dir = os.path.join(run, "prof")
+    networks_2d.GeneratorHPVAEGAN.reconstruct_pair = counted
+    k1.fused_upscale_noise_2d.launches = 0
+    t0 = time.perf_counter()
+    try:
+        exp = train_image.main(image_train_args(
+            os.path.join(run, "flags"), "--paired-g", "--flat-opt",
+            "--visualize", "--image-interval", "2", "--profile-dir",
+            prof_dir))
+    finally:
+        networks_2d.GeneratorHPVAEGAN.reconstruct_pair = pair
+    train_s = time.perf_counter() - t0
+    launches = k1.fused_upscale_noise_2d.launches
+    check(launches == 0, f"the flagged image run launched K1 {launches} "
+          "times")
+    check(len(paired) == 7 * 4, f"{len(paired)} paired G steps, want 28")
+    images = set(os.listdir(os.path.join(exp, "img")))
+    want = {f"{p}_{i + 1}.jpg" for i in (2, 4)
+            for p in ("real", "generated", "generated_vae")} | {
+        f"fake_var_{i}.jpg" for i in (2, 4)} | {
+        f"fake_vae_var{i}.jpg" for i in (2, 4)}
+    check(images == want, f"img/ holds {sorted(images)}")
+    check(os.listdir(prof_dir) == ["trace.json"],
+          f"profile dir {os.listdir(prof_dir)}")
+    path = os.path.join(prof_dir, "trace.json")
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = sum(1 for e in events if e.get("cat") == "kernel")
+    check(kernels > 0, "the trace holds no CUDA kernel events")
+    out["image"] = {"train_s": round(train_s, 2), "paired_g_steps":
+                    len(paired), "images": len(images),
+                    "trace_mb": round(os.path.getsize(path) / 1e6, 1),
+                    "trace_events": len(events), "kernel_events": kernels,
+                    "k1_launches": launches}
+    print("  (c) train_image --paired-g --flat-opt --visualize "
+          "--image-interval 2 --profile-dir, 10 scales x 4: "
+          + json.dumps(out["image"]), flush=True)
+    return out
+
+
+def phase_flags(torch, k1, run):
+    """Phase 16 (module doc)."""
+    return {"parity": flags_parity(torch), "timing": flags_timing(torch),
+            "main": flags_main_path(torch, k1, run)}
+
+
 def main():
     try:
         import torch
@@ -1651,6 +1991,12 @@ def main():
         phase_baselines(torch, k1, run)
     print(f"  phase 15 took {time.perf_counter() - t0:.1f} s", flush=True)
 
+    print("phase 16: the training flags", flush=True)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="hpv_flags_") as run:
+        phase_flags(torch, k1, run)
+    print(f"  phase 16 took {time.perf_counter() - t0:.1f} s", flush=True)
+
     kernels = [{
         "name": "fused_upscale_noise_2d",
         "route": "cuda",
@@ -1669,7 +2015,7 @@ def main():
     print("  times are sums over the 9 stage shapes of one 64-sample forward;"
           f" launches: phase 3's GeneratorHPVAEGAN forward ({launches}), "
           f"phase 14's GeneratorVAE_nb forward ({nb['launches']}), phase "
-          "15's baselines (0)",
+          "15's baselines (0), phase 16's training-flag runs (0)",
           flush=True)
     print(f"  total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,7 +1,8 @@
 """Losses: KL (Gaussian and Bernoulli), WGAN-GP discriminator loss, VAE- and GAN-phase generator loss.
 
 The port of the JAX package's `losses.py` (reference src/modules/losses.py:
-5-107). Every term is f32. The gradient penalty's inner gradient is
+5-107). Every term is f32, also when activations flow in bfloat16
+(losses.py:37-91 there). The gradient penalty's inner gradient is
 `torch.autograd.grad(..., create_graph=True)`, so the outer backward runs
 through it (the double backward).
 
@@ -40,8 +41,11 @@ def mse(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def gradient_penalty(d_apply: Callable, real: torch.Tensor,
                      fake: torch.Tensor, alpha, lam: float) -> torch.Tensor:
     """WGAN-GP (reference losses.py:47-52) with the reference's per-CHANNEL
-    gradient norm (dim 1 of NCHW; the JAX package's axis -1 of NHWC)."""
-    interp = (alpha * real + (1 - alpha) * fake).requires_grad_(True)
+    gradient norm (dim 1 of NCHW; the JAX package's axis -1 of NHWC). The
+    interpolate is float32 whatever the fake's dtype: JAX promotes its
+    float32 alpha with a bfloat16 fake to float32, where PyTorch's rules
+    would keep a zero-dim alpha's product in bfloat16."""
+    interp = (alpha * real + (1 - alpha) * fake.float()).requires_grad_(True)
     grads, = torch.autograd.grad(d_apply(interp).float().sum(), interp,
                                  create_graph=True)
     norms = torch.sqrt(torch.sum(grads.float() ** 2, dim=1) + 1e-12)

@@ -3,7 +3,9 @@ package's `models/__init__.py`). Ported: GeneratorHPVAEGAN in 2D and 3D,
 GeneratorVAE_nb in 2D, the video baselines GeneratorCSG and GeneratorSG
 (3D only, as there), WDiscriminator2D, WDiscriminator3D and
 WDiscriminatorBaselines. REFUSED names the entries that stay out, and
-why."""
+why. Of these, only the 2D GeneratorHPVAEGAN has the paired forward of
+--paired-g (`reconstruct_pair`; JAX GENERATOR_PAIRS); the others set it to
+None, and the G step then runs unpaired."""
 
 from . import networks_2d, networks_3d
 

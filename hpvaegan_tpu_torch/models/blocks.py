@@ -18,7 +18,18 @@ unless it is called with commit=False: the training step's forwards whose
 new state the JAX package discards (the D step's fake, the calibration)
 pass that. The fold of a later pass lands on the earlier one's, which is
 the JAX package's state threading, since batch-mode outputs do not read
-the buffers.
+the buffers. A `DeferredFolds` list as `commit` keeps the batch statistics
+for a fold later (`DeferredFolds.apply`): the fused D/G iteration folds its
+one fake forward after the reconstruction, as the JAX package threads it.
+`groups` (batch mode only) normalises equal parts of the batch on their
+own statistics and folds them in order (ops/norm.py), for the paired
+forward.
+
+`compute_dtype` (None, or bfloat16 under `--compute-dtype bfloat16`) is an
+attribute of every Conv and SNConv, set by `set_compute_dtype`; the
+training state sets it from cfg.compute_dtype (`cfg_compute_dtype`), and
+nothing else does, so evaluation samples in float32 whatever args.txt says,
+as the JAX package's does. Parameters and buffers stay float32.
 
 Spectral-norm forwards never write their buffers: they return the new
 (u, v) pairs, and `assign_sn_state` keeps them where a step does.
@@ -26,19 +37,21 @@ Spectral-norm forwards never write their buffers: they return the new
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn as nn
 
 from ..ops.conv import conv, lrelu
-from ..ops.norm import batchnorm
+from ..ops.norm import batch_stats, batchnorm, fold, normalize_batch
 from ..ops.spectral_norm import spectral_normalize
 
 
 class Conv(nn.Module):
     """Plain conv: weight (O, I, k, k) or (O, I, k, k, k), bias (O,) unless
     `bias` is False."""
+
+    compute_dtype: Optional[torch.dtype] = None
 
     def __init__(self, cin: int, cout: int, ker: int, padding: int,
                  ndim: int = 2, bias: bool = True):
@@ -48,7 +61,24 @@ class Conv(nn.Module):
         self.padding = padding
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return conv(x, self.weight, self.bias, padding=self.padding)
+        return conv(x, self.weight, self.bias, padding=self.padding,
+                    compute_dtype=self.compute_dtype)
+
+
+class DeferredFolds(list):
+    """Batch statistics of forwards run with this list as `commit`, folded
+    into their BatchNorms' buffers by `apply`, in the order they ran."""
+
+    @torch.no_grad()
+    def apply(self) -> None:
+        for bn, b_mean, b_var in self:
+            mean, var = fold(bn.running_mean, bn.running_var, b_mean, b_var)
+            bn.running_mean.copy_(mean)
+            bn.running_var.copy_(var)
+        self.clear()
+
+
+Commit = Union[bool, DeferredFolds]
 
 
 class BatchNorm(nn.Module):
@@ -61,15 +91,21 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(ch))
         self.register_buffer("running_var", torch.ones(ch))
 
-    def forward(self, x: torch.Tensor, mode: str,
-                commit: bool = True) -> torch.Tensor:
-        y, mean, var = batchnorm(x, self.weight, self.bias, self.running_mean,
-                                 self.running_var, mode)
-        if mode == "batch" and commit:
+    def forward(self, x: torch.Tensor, mode: str, commit: Commit = True,
+                groups: int = 1) -> torch.Tensor:
+        if mode != "batch":
+            return batchnorm(x, self.weight, self.bias, self.running_mean,
+                             self.running_var, mode, groups=groups)[0]
+        b_mean, b_var = batch_stats(x, groups)
+        if isinstance(commit, DeferredFolds):
+            commit.append((self, b_mean.detach(), b_var.detach()))
+        elif commit:
             with torch.no_grad():
+                mean, var = fold(self.running_mean, self.running_var,
+                                 b_mean, b_var)
                 self.running_mean.copy_(mean)
                 self.running_var.copy_(var)
-        return y
+        return normalize_batch(x, self.weight, self.bias, b_mean, b_var)
 
 
 class ConvBlock(nn.Module):
@@ -79,9 +115,9 @@ class ConvBlock(nn.Module):
         self.conv = Conv(cin, cout, ker, padding, ndim)
         self.norm = BatchNorm(cout)
 
-    def forward(self, x: torch.Tensor, bn: str,
-                commit: bool = True) -> torch.Tensor:
-        return lrelu(self.norm(self.conv(x), bn, commit))
+    def forward(self, x: torch.Tensor, bn: str, commit: Commit = True,
+                groups: int = 1) -> torch.Tensor:
+        return lrelu(self.norm(self.conv(x), bn, commit, groups))
 
 
 class ConvStack(nn.Module):
@@ -97,18 +133,22 @@ class ConvStack(nn.Module):
         self.num_layer = num_layer
         self.tail = Conv(mid, cout, ker, ker // 2, ndim)
 
-    def forward(self, x: torch.Tensor, bn: str,
-                commit: bool = True) -> torch.Tensor:
-        x = self.head(x, bn, commit)
+    def forward(self, x: torch.Tensor, bn: str, commit: Commit = True,
+                groups: int = 1) -> torch.Tensor:
+        x = self.head(x, bn, commit, groups)
         for i in range(self.num_layer):
-            x = getattr(self, f"block{i}")(x, bn, commit)
+            x = getattr(self, f"block{i}")(x, bn, commit, groups)
         return self.tail(x)
 
 
 class SNConv(nn.Module):
     """Spectral-norm conv (JAX ops/spectral_norm.py::sn_conv_apply):
     `weight_orig`, `bias`, and the power-iteration vectors `weight_u` (O,)
-    and `weight_v` (I * k^ndim,) as buffers; zero padding ker // 2."""
+    and `weight_v` (I * k^ndim,) as buffers; zero padding ker // 2. The
+    power iteration and W / sigma stay float32 under a compute dtype; only
+    the conv runs in it (ops/spectral_norm.py:55-71 there)."""
+
+    compute_dtype: Optional[torch.dtype] = None
 
     def __init__(self, cin: int, cout: int, ker: int, ndim: int = 2):
         super().__init__()
@@ -124,7 +164,8 @@ class SNConv(nn.Module):
         """Conv with W / sigma from one power step on (u, v); returns the
         output and the new (u, v). The buffers are not written."""
         w, u, v = spectral_normalize(self.weight_orig, u, v)
-        return conv(x, w, self.bias, padding=self.padding), (u, v)
+        return conv(x, w, self.bias, padding=self.padding,
+                    compute_dtype=self.compute_dtype), (u, v)
 
 
 class SNBlock(nn.Module):
@@ -168,6 +209,26 @@ def assign_sn_state(module: nn.Module, state: SNState) -> None:
         for conv, (u, v) in zip(convs, state):
             conv.weight_u.copy_(u)
             conv.weight_v.copy_(v)
+
+
+def cfg_compute_dtype(cfg) -> Optional[torch.dtype]:
+    """The convolutions' dtype of cfg.compute_dtype: None for float32,
+    torch.bfloat16 for bfloat16."""
+    dtypes = {"float32": None, "bfloat16": torch.bfloat16}
+    if cfg.compute_dtype not in dtypes:
+        raise ValueError(f"compute_dtype {cfg.compute_dtype!r}: float32 or "
+                         "bfloat16")
+    return dtypes[cfg.compute_dtype]
+
+
+def set_compute_dtype(module: nn.Module,
+                      dtype: Optional[torch.dtype]) -> nn.Module:
+    """Run every Conv and SNConv of `module` in `dtype` (None: the input's
+    dtype)."""
+    for m in module.modules():
+        if isinstance(m, (Conv, SNConv)):
+            m.compute_dtype = dtype
+    return module
 
 
 def init_weights_(module: nn.Module, gen: torch.Generator) -> nn.Module:

@@ -23,6 +23,12 @@ State: BatchNorm folds its batch statistics unless a forward runs with
 commit=False; spectral-norm forwards return their new (u, v) and the
 caller keeps them (models/blocks.py). The encoder's pairs are kept by
 `reconstruct(commit=True)`; the discriminator's by the D step.
+
+Under a compute dtype (models/blocks.py::set_compute_dtype) activations
+flow in it from the first conv on; the latents (mu, logvar, the gate) are
+float32, and the refinement noise is cast to the activations' dtype before
+the add. `reconstruct_pair` is the paired G step's forward
+(`--paired-g`), GeneratorHPVAEGAN's only.
 """
 
 from __future__ import annotations
@@ -37,8 +43,8 @@ from ..ops.fused_upscale_noise import fused_upscale_noise_2d
 from ..ops.resize import upscale_2d
 from ..utils.noise import NoiseSource
 from ..utils.pyramid import scale_size_2d
-from .blocks import (Conv, ConvStack, SNBlock, SNState, assign_sn_state,
-                     init_weights_, sn_blocks_apply)
+from .blocks import (Commit, Conv, ConvStack, SNBlock, SNState,
+                     assign_sn_state, init_weights_, sn_blocks_apply)
 
 
 class _ConvHead(nn.Module):
@@ -74,7 +80,9 @@ class Encode2DVAE(nn.Module):
                 ) -> Tuple[Tuple[torch.Tensor, torch.Tensor], SNState]:
         """Returns ((mu, logvar), the SN blocks' new (u, v))."""
         feats, state = self.features_apply(x)
-        return (self.mu.conv(feats), self.logvar.conv(feats)), state
+        # the latents stay float32 under a compute dtype (JAX :51-52)
+        return (self.mu.conv(feats).float(),
+                self.logvar.conv(feats).float()), state
 
 
 class Encode2DVAE_nb(Encode2DVAE):
@@ -94,7 +102,7 @@ class Encode2DVAE_nb(Encode2DVAE):
         feats = bern * feats
         mu = self.mu.conv(feats).mean(dim=(2, 3), keepdim=True)
         logvar = self.logvar.conv(feats).mean(dim=(2, 3), keepdim=True)
-        return (mu, logvar, bern), state
+        return (mu.float(), logvar.float(), bern.float()), state
 
 
 class WDiscriminator2D(nn.Module):
@@ -128,20 +136,25 @@ class WDiscriminator2D(nn.Module):
 
 def refinement_layers(cfg, body: Sequence[nn.Module], x: torch.Tensor, amps,
                       noise: NoiseSource, *, is_random: bool, bn: str,
-                      commit: bool = True,
-                      train_all_escape: bool = True) -> torch.Tensor:
+                      commit: Commit = True,
+                      train_all_escape: bool = True, groups: int = 1,
+                      noise_mask: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
     """Residual refinement chain (networks_2d.py:177-229 of the JAX package).
 
     amps: (stop_scale + 2,) per-scale noise amplitudes. train_all_escape:
     cfg.train_all lifts the VAE-boundary detach (GeneratorHPVAEGAN);
     GeneratorVAE_nb passes False and detaches always (JAX :185-187). The
-    fused kernel runs where the JAX package runs its Pallas kernel: with
-    `cfg.pallas_fused_sampling`, in random mode, on moving-stat BatchNorm
-    (networks_2d.py:193-194 there); one seed per stage. Training forwards
-    run batch statistics and never reach it.
+    refinement noise is drawn in float32 and cast to the activations' dtype
+    before the add (JAX :220); `noise_mask` (the paired forward's) zeroes it
+    on the reconstruction rows, and `groups` goes to BatchNorm. The fused
+    kernel runs where the JAX package runs its Pallas kernel: with
+    `cfg.pallas_fused_sampling`, in random mode, on moving-stat BatchNorm,
+    without a noise mask (networks_2d.py:189-195 there); one seed per
+    stage. Training forwards run batch statistics and never reach it.
     """
     use_fused = bool(getattr(cfg, "pallas_fused_sampling", False)) \
-        and is_random and bn == "moving"
+        and is_random and bn == "moving" and noise_mask is None
     for idx in range(len(body)):
         if cfg.vae_levels == idx + 1 \
                 and not (cfg.train_all and train_all_escape):
@@ -157,8 +170,13 @@ def refinement_layers(cfg, body: Sequence[nn.Module], x: torch.Tensor, amps,
         else:
             x_up = upscale_2d(x, idx + 1, cfg.scale_factor, cfg.stop_scale,
                               cfg.img_size, cfg.ar)
-            x_in = x_up + noise.normal(x_up.shape) * amp if is_random else x_up
-        y = body[idx](x_in, bn, commit)
+            x_in = x_up
+            if is_random:
+                z = noise.normal(x_up.shape)
+                if noise_mask is not None:
+                    z = z * noise_mask
+                x_in = x_up + (z * amp).to(x_up.dtype)
+        y = body[idx](x_in, bn, commit, groups)
         x = torch.tanh(y + x_up)
     return x
 
@@ -182,7 +200,7 @@ class GeneratorHPVAEGAN(nn.Module):
         self.body = nn.ModuleList()
 
     def _refine(self, x: torch.Tensor, amps, noise: NoiseSource, *,
-                is_random: bool, bn: str, commit: bool) -> torch.Tensor:
+                is_random: bool, bn: str, commit: Commit) -> torch.Tensor:
         return refinement_layers(self.cfg, self.body, x, amps, noise,
                                  is_random=is_random, bn=bn, commit=commit)
 
@@ -215,7 +233,7 @@ class GeneratorHPVAEGAN(nn.Module):
         return noise.normal(std.shape) * std + mu, mu, logvar, enc_state
 
     def forward(self, noise_init: torch.Tensor, amps, noise: NoiseSource, *,
-                bn: str = "batch", commit: bool = True
+                bn: str = "batch", commit: Commit = True
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Random-mode forward from z = noise_init (B, latent_dim, h0, w0;
         in 3D (B, latent_dim, td, h0, w0)). Returns (x, vae_out). bn:
@@ -241,6 +259,33 @@ class GeneratorHPVAEGAN(nn.Module):
             assign_sn_state(self.encode, enc_state)
         return x, vae_out, mu, logvar
 
+    def reconstruct_pair(self, video: torch.Tensor, noise_init: torch.Tensor,
+                         amps, noise: NoiseSource):
+        """The GAN-phase G step's reconstruction of `video` and random-mode
+        fake from `noise_init` as one forward of width 2B (JAX
+        generator_hpvaegan_apply_pair, networks_2d.py:275-323 there):
+        decoder input concat(z, noise_init), BatchNorm on each half's own
+        statistics, folded reconstruction half first, and the refinement
+        noise drawn at the 2B shape and masked to the fake half. Folds
+        BatchNorm and keeps the encoder's new (u, v), as reconstruct() and
+        then forward() do. Returns (gen, fake, vae_out, mu, logvar).
+        `None` on the classes the JAX package has no pair for."""
+        z, mu, logvar, enc_state = self._latent(video, noise)
+        b = z.shape[0]
+        if noise_init.shape[0] != b:
+            raise ValueError(f"the paired forward needs equal batches, got "
+                             f"{b} and {noise_init.shape[0]}")
+        z_all = torch.cat([z, noise_init.to(z.dtype)])
+        vae_all = torch.tanh(self.decoder(z_all, "batch", True, groups=2))
+        # made on the device: a host tensor's copy would wait for the queue
+        mask = torch.cat([torch.zeros(b, device=z.device),
+                          torch.ones(b, device=z.device)])
+        x = refinement_layers(self.cfg, self.body, vae_all, amps, noise,
+                              is_random=True, bn="batch", groups=2,
+                              noise_mask=mask.reshape(-1, 1, 1, 1))
+        assign_sn_state(self.encode, enc_state)
+        return x[:b], x[b:], vae_all[:b], mu, logvar
+
 
 class GeneratorVAE_nb(GeneratorHPVAEGAN):
     """GeneratorVAE_nb (JAX networks_2d.py:328-384): the decoder's input is
@@ -254,9 +299,10 @@ class GeneratorVAE_nb(GeneratorHPVAEGAN):
     copies)."""
 
     encoder_cls = Encode2DVAE_nb
+    reconstruct_pair = None  # the JAX package pairs GeneratorHPVAEGAN only
 
     def _refine(self, x: torch.Tensor, amps, noise: NoiseSource, *,
-                is_random: bool, bn: str, commit: bool) -> torch.Tensor:
+                is_random: bool, bn: str, commit: Commit) -> torch.Tensor:
         return refinement_layers(self.cfg, self.body, x, amps, noise,
                                  is_random=is_random, bn=bn, commit=commit,
                                  train_all_escape=False)

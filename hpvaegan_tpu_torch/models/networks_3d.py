@@ -17,6 +17,10 @@ this path: `cfg.pallas_fused_sampling` is ignored, as in the JAX package.
 The baselines (see `_Baseline`) are a GAN at every scale: no encoder, a
 growing body of padding-0 stages fed through explicit zero pads, and a
 fixed reconstruction noise Z_init that the baselines trainer sets.
+
+Under a compute dtype the 3D networks flow in it as the 2D ones do: the
+refinement noise (the baselines' random-mode stage input too) is drawn in
+float32 and cast before the add (JAX :232, :420, :472).
 """
 
 from __future__ import annotations
@@ -32,7 +36,7 @@ from ..ops.conv import lrelu
 from ..ops.resize import resize_trilinear, upscale_3d
 from ..utils.noise import NoiseSource
 from . import networks_2d
-from .blocks import Conv, ConvBlock, SNBlock, sn_blocks_apply
+from .blocks import Commit, Conv, ConvBlock, SNBlock, sn_blocks_apply
 
 
 class Encode3DVAE(networks_2d.Encode2DVAE):
@@ -44,7 +48,7 @@ class Encode3DVAE(networks_2d.Encode2DVAE):
 
 def refinement_layers_3d(cfg, body: Sequence[nn.Module], x: torch.Tensor,
                          amps, noise: NoiseSource, *, is_random: bool,
-                         bn: str, commit: bool = True) -> torch.Tensor:
+                         bn: str, commit: Commit = True) -> torch.Tensor:
     """Residual refinement chain (networks_3d.py:214-240 of the JAX
     package). amps: (stop_scale + 2,) per-scale noise amplitudes."""
     for idx in range(len(body)):
@@ -54,7 +58,8 @@ def refinement_layers_3d(cfg, body: Sequence[nn.Module], x: torch.Tensor,
                           cfg.img_size, cfg.stop_scale_time,
                           cfg.sampling_rates, cfg.org_fps, cfg.fps_lcm, cfg.ar)
         if is_random and cfg.vae_levels <= idx + 1:
-            x_in = x_up + noise.normal(x_up.shape) * float(amps[idx + 1])
+            z = noise.normal(x_up.shape) * float(amps[idx + 1])
+            x_in = x_up + z.to(x_up.dtype)  # float32 noise, cast (JAX :232)
         else:
             x_in = x_up
         y = body[idx](x_in, bn, commit)
@@ -75,9 +80,10 @@ class GeneratorHPVAEGAN(networks_2d.GeneratorHPVAEGAN):
 
     ndim = 3
     encoder_cls = Encode3DVAE
+    reconstruct_pair = None  # the JAX package pairs the 2D model only
 
     def _refine(self, x: torch.Tensor, amps, noise: NoiseSource, *,
-                is_random: bool, bn: str, commit: bool) -> torch.Tensor:
+                is_random: bool, bn: str, commit: Commit) -> torch.Tensor:
         return refinement_layers_3d(self.cfg, self.body, x, amps, noise,
                                     is_random=is_random, bn=bn, commit=commit)
 
@@ -126,7 +132,7 @@ class BaselineStage(nn.Module):
             self.tail = Conv(nfc, cout_tail, ker, 0, 3, bias=tail_bias)
 
     def forward(self, x: torch.Tensor, bn: str,
-                commit: bool = True) -> torch.Tensor:
+                commit: Commit = True) -> torch.Tensor:
         for block in self.blocks:
             x = block(x, bn, commit)
         return self.tail(x) if hasattr(self, "tail") else x
@@ -178,7 +184,7 @@ class _Baseline(nn.Module):
 
     def _refine(self, idx: int, x_prev_out: torch.Tensor, amps,
                 noise: NoiseSource, is_random: bool, bn: str,
-                commit: bool) -> torch.Tensor:
+                commit: Commit) -> torch.Tensor:
         cfg, p = self.cfg, self.pad
         x_up = upscale_3d(x_prev_out, idx, cfg.scale_factor, cfg.stop_scale,
                           cfg.img_size, cfg.stop_scale_time,
@@ -186,13 +192,14 @@ class _Baseline(nn.Module):
         if is_random:
             t, h, w = x_up.shape[2:]
             x2 = resize_trilinear(x_prev_out, (t + 2 * p, h + 2 * p, w + 2 * p))
-            x_in = x2 + noise.normal(x2.shape) * float(amps[idx])
+            z = noise.normal(x2.shape) * float(amps[idx])
+            x_in = x2 + z.to(x2.dtype)  # float32 noise, cast (JAX :420, :472)
         else:
             x_in = _zero_pad(x_up, p)
         return self.body[idx](x_in, bn, commit) + x_up
 
     def forward(self, noise_init: torch.Tensor, amps, noise: NoiseSource, *,
-                bn: str = "batch", commit: bool = True
+                bn: str = "batch", commit: Commit = True
                 ) -> Tuple[torch.Tensor]:
         """Random mode from noise_init (B, nc_im, td0, h0, w0); returns
         (x,). bn: "batch", "moving" or "sample" (ops/norm.py)."""

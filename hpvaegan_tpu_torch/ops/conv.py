@@ -5,6 +5,11 @@ DHWIO weights and channels-last activations; the port keeps PyTorch's
 layouts, and tools/convert.py carries weights across. The convolutions
 themselves are `F.conv2d` / `F.conv3d` (cuDNN on the card), as XLA ran them
 outside any Pallas kernel in the JAX package.
+
+`compute_dtype` (bfloat16 under `--compute-dtype bfloat16`) is the JAX
+package's flow-through, not autocast: the input and the weight are cast to
+it, the output stays in it, and the bias is added in the output's dtype
+(ops/conv.py:40-75 there). Without it the conv runs in the input's dtype.
 """
 
 from __future__ import annotations
@@ -15,29 +20,50 @@ import torch
 import torch.nn.functional as F
 
 
+def _conv(fn, x: torch.Tensor, weight: torch.Tensor,
+          bias: Optional[torch.Tensor], stride: int, padding: int,
+          compute_dtype: Optional[torch.dtype]) -> torch.Tensor:
+    if compute_dtype is None:
+        return fn(x, weight, bias, stride=stride, padding=padding)
+    out = fn(x.to(compute_dtype), weight.to(compute_dtype), None,
+             stride=stride, padding=padding)
+    if bias is None:
+        return out
+    return out + bias.to(out.dtype).reshape((-1,) + (1,) * (out.ndim - 2))
+
+
 def conv2d(x: torch.Tensor, weight: torch.Tensor,
            bias: Optional[torch.Tensor] = None, stride: int = 1,
-           padding: int = 0) -> torch.Tensor:
+           padding: int = 0,
+           compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """Plain 2D convolution, zero padding (reference networks_2d.py:47-49)."""
-    return F.conv2d(x, weight, bias, stride=stride, padding=padding)
+    return _conv(F.conv2d, x, weight, bias, stride, padding, compute_dtype)
 
 
 def conv3d(x: torch.Tensor, weight: torch.Tensor,
            bias: Optional[torch.Tensor] = None, stride: int = 1,
-           padding: int = 0) -> torch.Tensor:
+           padding: int = 0,
+           compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """Plain 3D convolution, zero padding (reference networks_3d.py:48-50)."""
-    return F.conv3d(x, weight, bias, stride=stride, padding=padding)
+    return _conv(F.conv3d, x, weight, bias, stride, padding, compute_dtype)
 
 
 def conv(x: torch.Tensor, weight: torch.Tensor,
          bias: Optional[torch.Tensor] = None, stride: int = 1,
-         padding: int = 0) -> torch.Tensor:
+         padding: int = 0,
+         compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """conv2d or conv3d, by the weight's rank (OIHW or OIDHW)."""
     fn = conv2d if weight.ndim == 4 else conv3d
-    return fn(x, weight, bias, stride=stride, padding=padding)
+    return fn(x, weight, bias, stride=stride, padding=padding,
+              compute_dtype=compute_dtype)
+
+
+# 0.2 rounded to bfloat16: the slope JAX's weakly typed 0.2 takes there
+_BF16_SLOPE = 0.2001953125
 
 
 def lrelu(x: torch.Tensor) -> torch.Tensor:
     """LeakyReLU with MindSpore's default slope 0.2 (reference
-    networks_2d.py:16-24), the activation of every block of the port."""
-    return F.leaky_relu(x, 0.2)
+    networks_2d.py:16-24), the activation of every block of the port; in
+    bfloat16 the slope is 0.2 rounded to bfloat16, as in the JAX package."""
+    return F.leaky_relu(x, _BF16_SLOPE if x.dtype == torch.bfloat16 else 0.2)

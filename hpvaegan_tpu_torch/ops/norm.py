@@ -8,13 +8,20 @@ BIASED batch variance, as `moving = 0.9 * moving + 0.1 * batch`, and eps is
 
 Three modes:
   * "batch":  statistics of the whole batch, over (0, 2, ...); returns the
-    folded moving stats.
+    folded moving stats. With `groups` > 1 the batch splits into that many
+    equal contiguous parts, each normalised by its own statistics, and the
+    moving stats fold them in order, part 0 first: one forward of width
+    G * B equals G forwards of width B (the paired G step's).
   * "moving": the carried moving statistics; state unchanged.
   * "sample": statistics over the spatial (and time) axes (2, ...) of each
     sample on its own. One batched forward in this mode equals the JAX
     sampler's vmap of batch-1 train-mode forwards (parallel/sampling.py:73-82
     there); the moving stats those forwards would fold are discarded, so
     state is unchanged.
+
+Statistics are reduced in float32 whatever the activations' dtype, and the
+normalisation runs in the activations' dtype (bfloat16 under
+`--compute-dtype bfloat16`, ops/norm.py:40-75 there).
 """
 
 from __future__ import annotations
@@ -26,24 +33,62 @@ import torch
 BN_MODES = ("batch", "moving", "sample")
 
 
+def batch_stats(x: torch.Tensor, groups: int = 1
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Float32 mean and biased variance over (0, 2, ...) of each of `groups`
+    equal parts of the batch: two (groups, C) tensors."""
+    xf = x.float()
+    if groups == 1:
+        dims = (0,) + tuple(range(2, x.ndim))
+        return (xf.mean(dim=dims).unsqueeze(0),
+                xf.var(dim=dims, unbiased=False).unsqueeze(0))
+    xg = xf.reshape((groups, -1) + tuple(x.shape[1:]))
+    dims = (1,) + tuple(range(3, xg.ndim))
+    return xg.mean(dim=dims), xg.var(dim=dims, unbiased=False)
+
+
+def fold(mean: torch.Tensor, var: torch.Tensor, b_mean: torch.Tensor,
+         b_var: torch.Tensor, momentum: float = 0.9
+         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The moving stats after folding each row of (b_mean, b_var), row 0
+    first."""
+    for i in range(b_mean.shape[0]):
+        mean = momentum * mean + (1 - momentum) * b_mean[i]
+        var = momentum * var + (1 - momentum) * b_var[i]
+    return mean, var
+
+
+def normalize_batch(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+                    b_mean: torch.Tensor, b_var: torch.Tensor,
+                    eps: float = 1e-5) -> torch.Tensor:
+    """x normalised by batch_stats' (groups, C) statistics, in x's dtype."""
+    groups = b_mean.shape[0]
+    shape = (groups, 1, -1) + (1,) * (x.ndim - 2)
+    inv = torch.rsqrt(b_var + eps) * gamma
+    xg = x.reshape((groups, -1) + tuple(x.shape[1:]))
+    y = (xg - b_mean.reshape(shape).to(x.dtype)) \
+        * inv.reshape(shape).to(x.dtype) + beta.reshape(shape[1:]).to(x.dtype)
+    return y.reshape(x.shape)
+
+
 def batchnorm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
               mean: torch.Tensor, var: torch.Tensor, mode: str,
-              momentum: float = 0.9, eps: float = 1e-5
+              momentum: float = 0.9, eps: float = 1e-5, groups: int = 1
               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """x: (B, C, H, W) or (B, C, T, H, W). Returns (y, new_mean, new_var)."""
     shape = (1, -1) + (1,) * (x.ndim - 2)
     spatial = tuple(range(2, x.ndim))
     if mode == "batch":
-        b_mean = x.mean(dim=(0,) + spatial)
-        b_var = x.var(dim=(0,) + spatial, unbiased=False)
-        new_mean = momentum * mean + (1 - momentum) * b_mean
-        new_var = momentum * var + (1 - momentum) * b_var
-        inv = torch.rsqrt(b_var + eps) * gamma
-        y = (x - b_mean.reshape(shape)) * inv.reshape(shape) + beta.reshape(shape)
-        return y, new_mean, new_var
+        b_mean, b_var = batch_stats(x, groups)
+        new_mean, new_var = fold(mean, var, b_mean, b_var, momentum)
+        return normalize_batch(x, gamma, beta, b_mean, b_var, eps), \
+            new_mean, new_var
+    if groups != 1:
+        raise ValueError(f"groups={groups} needs batch mode, not {mode!r}")
     if mode == "moving":
         inv = torch.rsqrt(var + eps) * gamma
-        y = (x - mean.reshape(shape)) * inv.reshape(shape) + beta.reshape(shape)
+        y = (x - mean.reshape(shape).to(x.dtype)) \
+            * inv.reshape(shape).to(x.dtype) + beta.reshape(shape).to(x.dtype)
         return y, mean, var
     if mode == "sample":
         s_mean = x.mean(dim=spatial, keepdim=True)  # (B, C, 1, 1[, 1])

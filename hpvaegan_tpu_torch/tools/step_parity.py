@@ -14,11 +14,15 @@ draws (`RecordingNoise`); the second replays them (`ReplayedNoise`), so
 the two see the same batch (window starts, flips, z_init), refinement
 noise, eps and GP alpha.
 
+The training flags come with the config: cfg.compute_dtype,
+cfg.fused_dg, cfg.paired_g and cfg.flat_opt act in the iteration as in the
+trainer (the state is the trainer's `scale_state` minus D's warm start).
+
 `compare_devices` runs the iteration on the card and on the CPU with TF32
 off and returns the largest differences; `compare_sampler_devices` does
 the same for one `generate_samples` call of a given generator. chip_smoke.py
-(phases 5, 8, 10, 14 and 15) and tests/test_torch_cuda.py call them; they
-need a card.
+(phases 5, 8, 10, 14, 15 and 16) and tests/test_torch_cuda.py call them;
+they need a card.
 """
 
 from __future__ import annotations
@@ -31,13 +35,13 @@ import numpy as np
 import torch
 
 from ..models import BASELINES, get_discriminator, get_generator
-from ..models.blocks import BatchNorm, Conv, SNConv
-from ..optim import ClippedAdam, adam
+from ..models.blocks import (BatchNorm, Conv, SNConv, cfg_compute_dtype,
+                             set_compute_dtype)
 from ..training.baselines_trainer import z_init_shape
-from ..training.partition import (apply_lr_plan, make_baseline_lr_plan,
-                                  make_lr_plan)
+from ..training.partition import make_baseline_lr_plan, make_lr_plan
 from ..training.state import ScaleTrainState
 from ..training.steps import batch_former, train_iteration
+from ..training.trainer import make_optimizers
 from ..utils.noise import NoiseSource
 from ..utils.pyramid import scale_size_2d
 
@@ -126,7 +130,8 @@ def build_state(cfg, scale_idx: int, seed: int, device, ndim: int = 2,
     """`generator` grown to scale `scale_idx`'s stages and a D
     (`discriminator`, default WDiscriminator<ndim>D; 2D or 3D per `ndim`),
     both from `seed`, with the scale's optimizers (a baseline also gets a
-    Z_init from `seed`); the noise source is left to the caller."""
+    Z_init from `seed`) and convolutions in cfg.compute_dtype; the noise
+    source is left to the caller."""
     gen = torch.Generator().manual_seed(seed)
     G = get_generator(generator, ndim)(cfg)
     while len(G.body) < scale_idx + G.body_offset:
@@ -144,9 +149,10 @@ def build_state(cfg, scale_idx: int, seed: int, device, ndim: int = 2,
     else:
         plan, clip = make_lr_plan(cfg, scale_idx, scale_idx), cfg.grad_clip
     G, D = G.to(device), D.to(device)
-    return ScaleTrainState(
-        G, D, ClippedAdam(apply_lr_plan(G, plan), cfg.beta1, grad_clip=clip),
-        adam(D.parameters(), cfg.lr_d, cfg.beta1), None)
+    for m in (G, D):
+        set_compute_dtype(m, cfg_compute_dtype(cfg))
+    return ScaleTrainState(G, D, *make_optimizers(cfg, G, D, plan, clip),
+                           None)
 
 
 def run_iteration(cfg, scale_idx: int, seed: int, device,
@@ -187,8 +193,9 @@ def compare_devices(cfg, scale_idx: int, seed: int = 0, device="cuda",
                     discriminator: str = "") -> Dict[str, float]:
     """The iteration of `generator` and `discriminator` (2D or 3D per
     `ndim`) on `device` (TF32 off) and on the CPU from the same weights and
-    draws: the largest relative metric difference and the largest absolute
-    gradient and state differences."""
+    draws: the largest relative metric difference (also relative to
+    max(|metric|, 1)) and the largest absolute gradient and state
+    differences."""
     cudnn_tf32 = torch.backends.cudnn.allow_tf32
     mm_tf32 = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cudnn.allow_tf32 = False
@@ -207,7 +214,12 @@ def compare_devices(cfg, scale_idx: int, seed: int = 0, device="cuda",
         raise AssertionError("the two devices trained other parameters")
     errs = {"metrics_rel": max(
         abs(card["metrics"][k] - v) / max(abs(v), 1e-6)
-        for k, v in host["metrics"].items())}
+        for k, v in host["metrics"].items()),
+        # relative to the metric or 1, whichever is larger: d_loss is a
+        # small difference of larger terms
+        "metrics_scaled": max(
+            abs(card["metrics"][k] - v) / max(abs(v), 1.0)
+            for k, v in host["metrics"].items())}
     for part in ("grads", "state"):
         errs[part + "_abs"] = max(
             float(np.abs(card[part][k] - v).max())
@@ -217,6 +229,7 @@ def compare_devices(cfg, scale_idx: int, seed: int = 0, device="cuda",
     errs["finite"] = bool(finite and all(
         math.isfinite(v) for v in card["metrics"].values()))
     errs["metrics"] = card["metrics"]
+    errs["metrics_host"] = host["metrics"]
     return errs
 
 

@@ -17,10 +17,19 @@ N iterations:
     python -m hpvaegan_tpu_torch.train_image --image-path <image> \
         --netG <exp>/inflight_9.ckpt --intermediate <exp>/intermediate.json
 
-The flags are the JAX CLI's, with its defaults. Its XLA knobs are accepted,
-kept in args.txt and change nothing (they change no result there either);
-so is --netD, which the JAX trainer never reads either. Flags of parts not
-ported yet raise NotImplementedError.
+The flags are the JAX CLI's, with its defaults, and do what they do
+there: --compute-dtype bfloat16 (convolutions and activations in bfloat16,
+statistics, latents, losses, parameters and checkpoints in float32),
+--fused-dg, --paired-g, --flat-opt, --visualize (images in <exp>/img every
+--image-interval iterations) and --profile-dir (a profiler trace of the
+run); the JAX package's qualified configuration is
+
+    python -m hpvaegan_tpu_torch.train_image --image-path <image> \
+        --compute-dtype bfloat16 --fused-dg
+
+Its XLA knobs are accepted, kept in args.txt and change nothing (they
+change no result there either); so is --netD, which the JAX trainer never
+reads either. Multi-process and mesh training raise NotImplementedError.
 """
 
 import argparse
@@ -36,7 +45,6 @@ from .utils.saver import DataSaver
 
 _NO_EFFECT = "accepted and kept in args.txt; no effect in this port (XLA only)"
 _MULTI = "multi-process and mesh training"
-_VARIANTS = "--paired-g, --fused-dg, --flat-opt and bfloat16"
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -98,12 +106,14 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument('--print-interval', type=int, default=10, help='print interval')
     parser.add_argument('--image-interval', type=int, default=100, help='image interval')
     parser.add_argument('--batch-size', type=int, default=1, help='batch size')
-    parser.add_argument('--visualize', action='store_true', default=False, help='visualize the image (not ported yet)')
+    parser.add_argument('--visualize', action='store_true', default=False, help='write training images to <exp>/img every --image-interval iterations (2D only)')
 
     # Additions of the JAX package
     parser.add_argument('--compute-dtype', type=str, default='float32',
                         choices=['float32', 'bfloat16'],
-                        help='bfloat16 is not ported yet')
+                        help='dtype of the convolutions and activations; '
+                             'statistics, latents, losses, parameters and '
+                             'checkpoints stay float32')
     parser.add_argument('--steps-per-call', type=int, default=8, help=_NO_EFFECT)
     parser.add_argument('--scan-unroll', type=int, default=1, help=_NO_EFFECT)
     parser.add_argument('--compile-ahead', action=argparse.BooleanOptionalAction,
@@ -113,7 +123,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument('--xla-option', dest='xla_options', action='append',
                         default=None, metavar='KEY=VALUE', help=_NO_EFFECT)
     parser.add_argument('--profile-dir', type=str, default='',
-                        help='profiler trace directory (not ported yet)')
+                        help='write a torch.profiler trace of the run '
+                             '(trace.json) into this dir')
     parser.add_argument('--mesh-data', type=int, default=1,
                         help='data-parallel devices (> 1 not ported yet)')
     parser.add_argument('--mesh-sp', type=int, default=1,
@@ -125,11 +136,17 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument('--dist-procid', type=int, default=-1,
                         help="this process's id (not ported yet)")
     parser.add_argument('--paired-g', action='store_true', default=False,
-                        help='not ported yet')
+                        help='GAN-phase G step: reconstruction and fake as '
+                             'one width-2B forward with per-half BatchNorm '
+                             '(exact; 2D GeneratorHPVAEGAN only, no effect '
+                             'elsewhere)')
     parser.add_argument('--flat-opt', action='store_true', default=False,
-                        help='not ported yet')
+                        help='clip and Adam on one flat buffer (the same '
+                             'update)')
     parser.add_argument('--fused-dg', action='store_true', default=False,
-                        help='not ported yet')
+                        help='GAN scales: the D and G losses share one fake '
+                             'forward (its refinement noise); wins over '
+                             '--paired-g')
     parser.add_argument('--ckpt-interval', type=int, default=0,
                         help='write inflight_<k>.ckpt every N iterations '
                              '(0: never)')
@@ -142,10 +159,9 @@ def build_parser() -> argparse.ArgumentParser:
 
 def unported(args, ndim: int = 2) -> list:
     """(flag, ROADMAP.md queue 1 item) of every flag set to a value this
-    port does not run. `--visualize` counts only in 2D: the JAX trainer
-    ignores it for video (trainer.py:239 there)."""
+    port does not run: multi-process and mesh training, and the REFUSED
+    generators."""
     checks = [
-        ("--visualize", args.visualize and ndim == 2, "--visualize"),
         ("--generator " + args.generator,
          (args.generator, ndim) in models.REFUSED,
          models.REFUSED.get((args.generator, ndim))),
@@ -154,12 +170,6 @@ def unported(args, ndim: int = 2) -> list:
         ("--dist-coordinator", args.dist_coordinator, _MULTI),
         ("--dist-nprocs", args.dist_nprocs != 0, _MULTI),
         ("--dist-procid", args.dist_procid != -1, _MULTI),
-        ("--paired-g", args.paired_g, _VARIANTS),
-        ("--fused-dg", args.fused_dg, _VARIANTS),
-        ("--flat-opt", args.flat_opt, _VARIANTS),
-        ("--compute-dtype bfloat16", args.compute_dtype == "bfloat16",
-         _VARIANTS),
-        ("--profile-dir", args.profile_dir, "--profile-dir"),
     ]
     return [(flag, item) for flag, is_set, item in checks if is_set]
 
@@ -210,9 +220,10 @@ def launch(args: argparse.Namespace, ndim: int, summary,
     Experiment Summary (`summary(cfg)` gives its (name, value) lines) and
     the run of `trainer` (a module with run_training: training/trainer.py
     by default, training/baselines_trainer.py for the baselines). Returns
-    the dir."""
+    the dir. --profile-dir traces the run (utils/profiling.py)."""
     from .training import baselines_trainer
     from .training import trainer as hpvaegan_trainer
+    from .utils.profiling import trace
 
     trainer = trainer or hpvaegan_trainer
     cfg = cfg_from_args(args, ndim,
@@ -230,8 +241,9 @@ def launch(args: argparse.Namespace, ndim: int, summary,
         logging.info('Experiment dir: %s', saver.experiment_dir)
         for name, value in summary(cfg) + [('Device', device)]:
             logging.info('%-15s: %s', name, value)
-    trainer.run_training(cfg, saver, device=device, seed=cfg.manualSeed,
-                         mode="image" if ndim == 2 else "video")
+    with trace(args.profile_dir, device):
+        trainer.run_training(cfg, saver, device=device, seed=cfg.manualSeed,
+                             mode="image" if ndim == 2 else "video")
     return saver.experiment_dir
 
 

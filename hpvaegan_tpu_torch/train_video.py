@@ -12,11 +12,13 @@ of either package evaluates.
 
 The flags are train_image's with --image-path swapped for the video ones,
 and the JAX CLI's video defaults (WDiscriminator3D, 50000 iterations,
-checkname DEBUG). Resume works as in train_image. `--visualize` is accepted
-and changes nothing, as in the JAX package; the other unported flags
-(GeneratorVAE_nb among them: the JAX package's 3D one cannot run, so there
-is nothing to port it from) raise NotImplementedError. The CSG/SG
-baselines train with train_video_baselines.
+checkname DEBUG). Resume and the training flags work as in train_image;
+`--visualize` is accepted and writes nothing, and `--paired-g` changes
+nothing (the JAX package pairs only the 2D generator), as in the JAX
+package. GeneratorVAE_nb (the JAX package's 3D one cannot run, so there is
+nothing to port it from) and multi-process and mesh training raise
+NotImplementedError. The CSG/SG baselines train with
+train_video_baselines.
 """
 
 import argparse
@@ -35,6 +37,8 @@ def build_parser() -> argparse.ArgumentParser:
                 if action in group._group_actions:
                     group._group_actions.remove(action)
         elif action.dest == "visualize":
+            action.help = "accepted; no effect on video training"
+        elif action.dest == "paired_g":
             action.help = "accepted; no effect on video training"
     parser.add_argument('--video-path', required=True, help='video path')
     parser.add_argument('--start-frame', default=0, type=int,

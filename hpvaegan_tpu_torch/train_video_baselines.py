@@ -13,7 +13,9 @@ run/<clip>/<checkname>/experiment_<n>/ in the JAX package's format
 (args.txt, logbook.txt, netG_<k>.ckpt and netD_<k>.ckpt at every scale,
 Z_init.npy, intermediate.json), which the eval_video CLI of either package
 evaluates. --netG / --intermediate / --ckpt-interval resume as in
-train_image.
+train_image; --compute-dtype bfloat16, --fused-dg, --flat-opt and
+--profile-dir work as there (--paired-g and --visualize change nothing, as
+in the JAX baselines trainer).
 """
 
 from . import train_image, train_video

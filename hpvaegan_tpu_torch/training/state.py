@@ -8,7 +8,6 @@ from dataclasses import dataclass
 
 import torch
 
-from ..optim import ClippedAdam
 from ..utils.noise import NoiseSource
 
 
@@ -16,6 +15,6 @@ from ..utils.noise import NoiseSource
 class ScaleTrainState:
     G: torch.nn.Module
     D: torch.nn.Module
-    opt_g: ClippedAdam
-    opt_d: torch.optim.Adam
+    opt_g: torch.optim.Optimizer  # ClippedAdam, or FlatAdam (--flat-opt)
+    opt_d: torch.optim.Optimizer  # Adam, or FlatAdam
     noise: NoiseSource

@@ -16,6 +16,19 @@ What each forward keeps of its state, as in the JAX package:
               (u, v); in the GAN phase the fake folds on top (gs1 -> gs2,
               steps.py:109-127); D runs on the UPDATED D and keeps nothing
   calibration keeps nothing (steps.py:338)
+
+The flag variants of the JAX steps:
+  --paired-g  on GAN scales, the G step runs the reconstruction and the
+              fake as one forward of width 2B, where the generator has a
+              pair (2D GeneratorHPVAEGAN only; steps.py:98-108); no effect
+              elsewhere
+  --fused-dg  on GAN scales, one iteration is `fused_dg_iteration`
+              (steps.py:260-328): one fake forward with grad before the D
+              step serves both D (detached) and G's adversarial term, which
+              runs on the UPDATED D; G's BatchNorm folds the reconstruction
+              and then that fake. It wins over --paired-g (steps.py:214-222)
+  --compute-dtype bfloat16  is the modules' (models/blocks.py); the steps
+              are the same
 """
 
 from __future__ import annotations
@@ -28,7 +41,7 @@ import torch
 from ..data.image import make_image_batch
 from ..data.video import make_baseline_batch, make_video_batch
 from ..losses import d_loss_fn, g_gan_loss_fn, g_vae_loss_fn
-from ..models.blocks import assign_sn_state
+from ..models.blocks import DeferredFolds, assign_sn_state
 from .state import ScaleTrainState
 
 Metrics = Dict[str, torch.Tensor]
@@ -44,11 +57,15 @@ def _detached(loss: torch.Tensor, name: str, aux: Metrics) -> Metrics:
     return {name: loss.detach(), **{k: v.detach() for k, v in aux.items()}}
 
 
-def d_step(cfg, st: ScaleTrainState, real, noise_init, amps) -> Metrics:
+def d_step(cfg, st: ScaleTrainState, real, noise_init, amps,
+           fake=None) -> Metrics:
     """WGAN-GP discriminator update (reference losses.py:17-52,
-    train_image.py:157)."""
-    with torch.no_grad():
-        fake = st.G(noise_init, amps, st.noise, bn="batch", commit=False)[0]
+    train_image.py:157), on `fake` when given (the fused iteration's),
+    else on a fake drawn here under no_grad."""
+    if fake is None:
+        with torch.no_grad():
+            fake = st.G(noise_init, amps, st.noise, bn="batch",
+                        commit=False)[0]
     # one alpha per step; bug_compat freezes it (reference losses.py:26)
     alpha = 0.5 if cfg.bug_compat else st.noise.uniform()
     kept = []
@@ -59,17 +76,30 @@ def d_step(cfg, st: ScaleTrainState, real, noise_init, amps) -> Metrics:
             kept.append(sn_state)
         return y
 
-    loss, aux = d_loss_fn(cfg, d_fn, real, fake, alpha)
+    loss, aux = d_loss_fn(cfg, d_fn, real, fake.detach(), alpha)
     _set_grads(list(st.D.parameters()), loss)
     st.opt_d.step()
     assign_sn_state(st.D, kept[0])
     return _detached(loss, "d_loss", aux)
 
 
+def _g_update(st: ScaleTrainState, loss, aux) -> Metrics:
+    _set_grads([p for g in st.opt_g.param_groups for p in g["params"]], loss)
+    st.opt_g.step()
+    return _detached(loss, "g_loss", aux)
+
+
 def g_step(cfg, st: ScaleTrainState, real, real_zero, noise_init, amps,
            vae_phase: bool) -> Metrics:
     """VAE-phase or GAN-phase generator update (reference losses.py:59-107,
-    train_image.py:152-159)."""
+    train_image.py:152-159); the paired forward under cfg.paired_g where G
+    has one."""
+    pair = None if vae_phase or not cfg.paired_g \
+        else getattr(st.G, "reconstruct_pair", None)
+    if pair is not None:
+        gen, fake = pair(real_zero, noise_init, amps, st.noise)[:2]
+        return _g_update(st, *g_gan_loss_fn(
+            cfg, lambda x: st.D(x)[0], gen, real, fake))
     gen, gen_vae, mu, logvar = st.G.reconstruct(real_zero, amps, st.noise)
     if vae_phase:
         loss, aux = g_vae_loss_fn(cfg, gen, gen_vae, real, real_zero, mu,
@@ -77,9 +107,24 @@ def g_step(cfg, st: ScaleTrainState, real, real_zero, noise_init, amps,
     else:
         fake = st.G(noise_init, amps, st.noise, bn="batch")[0]
         loss, aux = g_gan_loss_fn(cfg, lambda x: st.D(x)[0], gen, real, fake)
-    _set_grads([p for g in st.opt_g.param_groups for p in g["params"]], loss)
-    st.opt_g.step()
-    return _detached(loss, "g_loss", aux)
+    return _g_update(st, loss, aux)
+
+
+def fused_dg_iteration(cfg, st: ScaleTrainState, real, real_zero,
+                       noise_init, amps) -> Metrics:
+    """A GAN-scale iteration under --fused-dg (JAX _fused_dg_step_core):
+    one fake forward with grad, its BatchNorm fold deferred; the D step on
+    it, detached; the reconstruction (folding BatchNorm, keeping the
+    encoder's (u, v)), then the fake's fold; G's adversarial term on the
+    updated D. Draws: the fake's noise, the GP alpha, then eps."""
+    folds = DeferredFolds()
+    fake = st.G(noise_init, amps, st.noise, bn="batch", commit=folds)[0]
+    metrics = d_step(cfg, st, real, noise_init, amps, fake=fake)
+    gen = st.G.reconstruct(real_zero, amps, st.noise)[0]
+    folds.apply()
+    metrics.update(_g_update(st, *g_gan_loss_fn(
+        cfg, lambda x: st.D(x)[0], gen, real, fake)))
+    return metrics
 
 
 @torch.no_grad()
@@ -106,10 +151,13 @@ def train_iteration(cfg, st: ScaleTrainState, data_scale, data_zero, amps,
                     vae_phase: bool, former: Callable = make_image_batch
                     ) -> Metrics:
     """Batch from `former` (see batch_former), then D (GAN scales only),
-    then G against the updated D (JAX steps.py:227-245). The D and G steps
-    are the same in 2D and 3D."""
+    then G against the updated D, or the fused iteration on GAN scales
+    under cfg.fused_dg (JAX steps.py:214-245). The D and G steps are the
+    same in 2D and 3D."""
     real, real_zero, noise_init = former(cfg, data_scale, data_zero,
                                          st.noise)
+    if cfg.fused_dg and not vae_phase:
+        return fused_dg_iteration(cfg, st, real, real_zero, noise_init, amps)
     metrics = {}
     if not vae_phase:
         metrics.update(d_step(cfg, st, real, noise_init, amps))

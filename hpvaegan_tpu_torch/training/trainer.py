@@ -46,8 +46,16 @@ trainer.py:448-534) reads the marker in --intermediate's directory:
 What the JAX trainer adds for XLA and the TPU has no counterpart here: the
 scan of `steps_per_call` iterations per dispatch, the compile-ahead
 pipeline (training/pipeline.py), the retry of a scale after a runtime
-error (`run_scale_with_retry`) and the device mesh. Visualization is not
-ported yet (ROADMAP.md).
+error (`run_scale_with_retry`) and the device mesh.
+
+The training flags of the JAX trainer: cfg.compute_dtype sets G's and D's
+convolutions' dtype for the scale (`scale_state`); cfg.flat_opt builds
+FlatAdam optimizers (`make_optimizers`, trainer.py:116-119 there), and an
+inflight checkpoint of the other layout is refused; cfg.paired_g and
+cfg.fused_dg are the steps' (training/steps.py); cfg.visualize (2D only,
+trainer.py:236-240, 277-281 there) writes `visualize`'s images every
+image_interval iterations, after the logbook line and before the inflight
+checkpoint, whose generator state then holds the images' draws.
 """
 
 from __future__ import annotations
@@ -66,8 +74,9 @@ import torch
 from .. import models
 from ..data.image import SingleImageDataset
 from ..data.video import SingleVideoDataset
-from ..models.blocks import init_weights_
-from ..optim import ClippedAdam, adam
+from ..models.blocks import (cfg_compute_dtype, init_weights_,
+                             set_compute_dtype)
+from ..optim import ClippedAdam, FlatAdam, adam, load_optimizer_state
 from ..tools.convert import (from_jax, from_jax_discriminator, to_jax,
                              to_jax_discriminator)
 from ..utils import pyramid
@@ -122,13 +131,26 @@ def set_rng_state(rng: Dict[str, Any], init_gen: torch.Generator,
     noise.set_state(rng["noise"])
 
 
+def make_optimizers(cfg, G, D, plan: Dict, grad_clip: float):
+    """G's clipped Adam over the plan's trainable subtrees and D's Adam;
+    both FlatAdam under cfg.flat_opt."""
+    groups = apply_lr_plan(G, plan)
+    if cfg.flat_opt:
+        return (FlatAdam(groups, cfg.beta1, grad_clip=grad_clip),
+                FlatAdam(D.parameters(), cfg.beta1, grad_clip=float("inf"),
+                         lr=cfg.lr_d))
+    return (ClippedAdam(groups, cfg.beta1, grad_clip=grad_clip),
+            adam(D.parameters(), cfg.lr_d, cfg.beta1))
+
+
 def scale_state(cfg, G, saver: DataSaver, noise: NoiseSource,
                 init_gen: torch.Generator, plan: Dict, grad_clip: float,
                 inflight: Optional[Dict], warm: bool,
                 warm_dir: Optional[str] = None) -> ScaleTrainState:
     """The scale's training state: a D (make_discriminator's, or the
     inflight payload's) and fresh optimizers over the plan's trainable
-    subtrees and D (or the payload's)."""
+    subtrees and D (or the payload's); G's and D's convolutions run in
+    cfg.compute_dtype."""
     device = next(G.parameters()).device
     if inflight is None:
         D = make_discriminator(cfg, saver, cfg.scale_idx, init_gen, device,
@@ -137,12 +159,13 @@ def scale_state(cfg, G, saver: DataSaver, noise: NoiseSource,
         D = models.get_discriminator(cfg.discriminator, G.ndim)(cfg)
         D.load_state_dict(inflight["D"])
         D = D.to(device)
-    opt_g = ClippedAdam(apply_lr_plan(G, plan), cfg.beta1,
-                        grad_clip=grad_clip)
-    opt_d = adam(D.parameters(), cfg.lr_d, cfg.beta1)
+    dtype = cfg_compute_dtype(cfg)
+    set_compute_dtype(G, dtype)
+    set_compute_dtype(D, dtype)
+    opt_g, opt_d = make_optimizers(cfg, G, D, plan, grad_clip)
     if inflight is not None:
-        opt_g.load_state_dict(inflight["opt_g"])
-        opt_d.load_state_dict(inflight["opt_d"])
+        load_optimizer_state(opt_g, inflight["opt_g"])
+        load_optimizer_state(opt_d, inflight["opt_d"])
     return ScaleTrainState(G, D, opt_g, opt_d, noise)
 
 
@@ -171,12 +194,39 @@ def calibrate_amp(cfg, G, former, data, noise_amps: List[float],
     return noise_amps
 
 
+def _denorm(x: torch.Tensor):
+    """NCHW in [-1, 1] (float32 or bfloat16) -> NHWC float32 numpy in
+    [0, 255], as the JAX trainer's numpy denorm computes it."""
+    y = torch.clamp((x.float() + 1) * 127.5, 0, 255)
+    return y.permute(0, 2, 3, 1).cpu().numpy()
+
+
+@torch.no_grad()
+def visualize(G, saver: DataSaver, real, real_zero, noise_init, amps,
+              noise: NoiseSource, done: int) -> None:
+    """The JAX trainer's `_visualize` (trainer.py:309-330 there) on a batch
+    the caller formed: real_<done+1>.jpg, a batch-statistics
+    reconstruction's generated_<done+1>.jpg and generated_vae_<done+1>.jpg,
+    then one batch-statistics sample from a fresh noise_init-shaped normal,
+    fake_var_<done>.jpg and fake_vae_var<done>.jpg of sample 0. Neither
+    forward keeps BatchNorm or spectral-norm state."""
+    saver.save_image(_denorm(real), f"real_{done + 1}.jpg")
+    gen, gen_vae = G.reconstruct(real_zero, amps, noise, commit=False)[:2]
+    saver.save_image(_denorm(gen), f"generated_{done + 1}.jpg")
+    saver.save_image(_denorm(gen_vae), f"generated_vae_{done + 1}.jpg")
+    z = noise.normal(noise_init.shape)
+    fake, fake_vae = G(z, amps, noise, bn="batch", commit=False)[:2]
+    saver.save_image(_denorm(fake[:1]), f"fake_var_{done}.jpg")
+    saver.save_image(_denorm(fake_vae[:1]), f"fake_vae_var{done}.jpg")
+
+
 def run_scale(cfg, st: ScaleTrainState, saver: DataSaver, data,
               noise_amps: List[float], vae_phase: bool, former,
               init_gen: torch.Generator, step_callback=None,
               inflight: Optional[Dict] = None) -> None:
-    """The scale's iterations (after the inflight payload's, when given)
-    and its checkpoints: netG, netD (GAN scales) and torch_rng_<k>.pt."""
+    """The scale's iterations (after the inflight payload's, when given),
+    the images of cfg.visualize (2D), and the scale's checkpoints: netG,
+    netD (GAN scales) and torch_rng_<k>.pt."""
     scale_idx = cfg.scale_idx
     G, D = st.G, st.D
     amps = amps_list(noise_amps, cfg.stop_scale)
@@ -197,6 +247,11 @@ def run_scale(cfg, st: ScaleTrainState, saver: DataSaver, data,
             logbook("[Scale {}/Iter {}] Noise amp: {:.5f}, {}".format(
                 scale_idx + 1, done, noise_amps[-1],
                 ", ".join(f"{k}: {v:.5f}" for k, v in sorted(vals.items()))))
+        if cfg.visualize and G.ndim == 2 and done % cfg.image_interval == 0:
+            real, real_zero, noise_init = former(cfg, data[0], data[1],
+                                                 st.noise)
+            visualize(G, saver, real, real_zero, noise_init, amps, st.noise,
+                      done)
         if cfg.ckpt_interval and done < cfg.niter \
                 and done % cfg.ckpt_interval == 0:
             saver.save_inflight(scale_idx, {

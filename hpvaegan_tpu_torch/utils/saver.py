@@ -17,6 +17,9 @@ The port's own resume state is written with `torch.save`, beside them:
                      both optimizers, the generator states and the
                      iteration; the marker then also holds "inflight" and
                      "inflight_iter", the fields the JAX package writes
+With cfg.visualize the experiment also has `img/`, where `save_image`
+writes the training images (JAX utils/saver.py:177-180, 246-259).
+
 The marker never holds a "key": the JAX package would read one as its PRNG
 key and continue at the next scale. Without it, a resume by the JAX package
 reads a port marker as a reference-style one and retrains the marker's
@@ -31,6 +34,7 @@ import os
 import pickle
 from typing import Any, Dict, Optional
 
+import numpy as np
 import torch
 
 # the first bytes of a torch.save archive (a zip file)
@@ -125,6 +129,10 @@ class DataSaver:
                     f"experiment dir {self.experiment_dir!r} does not exist")
         self.eval_dir = os.path.join(self.experiment_dir, "eval")
         os.makedirs(self.eval_dir, exist_ok=True)
+        self.image_dir = None
+        if getattr(cfg, "visualize", False):
+            self.image_dir = os.path.join(self.experiment_dir, "img")
+            os.makedirs(self.image_dir, exist_ok=True)
 
     def save_checkpoint(self, tree, filename: str) -> None:
         save_pytree(tree, os.path.join(self.experiment_dir, filename))
@@ -163,6 +171,21 @@ class DataSaver:
                                 f"inflight_{scale_idx}.ckpt")
         if os.path.exists(inflight):
             os.remove(inflight)
+
+    def save_image(self, img, filename: str) -> None:
+        """A (B, H, W, C) batch in [0, 255] (NHWC numpy, RGB) as img/<name>,
+        sample 0, upright, through cv2 (RGB to BGR), as the JAX saver writes
+        it; nothing without cfg.visualize."""
+        if self.image_dir is None:
+            return
+        import cv2
+
+        arr = np.asarray(img).squeeze().astype(np.uint8)
+        if arr.ndim == 4:
+            arr = arr[0]
+        elif arr.ndim != 3:
+            return
+        cv2.imwrite(os.path.join(self.image_dir, filename), arr[..., ::-1])
 
     def load_checkpoint(self, filename: str, path: Optional[str] = None):
         return load_pytree(os.path.join(path or self.experiment_dir, filename))

@@ -250,3 +250,54 @@ def _max_diff(a, b) -> float:
     if isinstance(a, (list, tuple)):
         return max(_max_diff(x, y) for x, y in zip(a, b))
     return float(np.abs(np.asarray(a) - np.asarray(b)).max())
+
+
+# the training flags, card against CPU (chip_smoke.py phase 16 (a)); the
+# bf16 bound is the card's cuDNN bf16 convolutions against oneDNN's, whose
+# one-ulp rounding differences the bf16 chain spreads (as between the port
+# and the JAX package on the CPU, tests/test_torch_flags.py): measured on
+# an H100 at these seeds, metrics 2.1e-5 of max(|metric|, 1) (d_loss, a
+# small difference of larger terms, moves 10% of itself), gradients
+# 3.9e-3 (one bf16 ulp at 0.5-1), state 9.5e-6
+BF16_CARD_TOL = {"metrics_scaled": 1e-3, "grads_abs": 2e-2,
+                 "state_abs": 1e-4}
+
+
+def _flag_cfg(ndim, generator="GeneratorHPVAEGAN", **flags):
+    kw = dict(nfc=8, num_layer=2, img_size=32, min_size=16, max_size=32,
+              generator=generator, **flags)
+    if generator != "GeneratorCSG":
+        kw.update(latent_dim=8, enc_blocks=1, vae_levels=2)
+    else:
+        kw["discriminator"] = "WDiscriminatorBaselines"
+    if ndim == 3:
+        kw.update(max_frames=5, sampling_rates=[2, 1], hflip=True,
+                  batch_size=2)
+    cfg = Config(**kw).finalize()
+    cfg.org_fps, cfg.ar, cfg.fps_lcm = 24.0, 0.75, 2  # synthetic.avi's
+    return cfg
+
+
+@pytest.mark.parametrize("ndim,generator,flags", [
+    (2, "GeneratorHPVAEGAN", dict(fused_dg=True)),
+    (3, "GeneratorHPVAEGAN", dict(fused_dg=True)),
+    (3, "GeneratorCSG", dict(fused_dg=True)),
+    (2, "GeneratorHPVAEGAN", dict(paired_g=True)),
+    (2, "GeneratorHPVAEGAN", dict(flat_opt=True)),
+    (2, "GeneratorHPVAEGAN", dict(compute_dtype="bfloat16")),
+    (3, "GeneratorHPVAEGAN", dict(compute_dtype="bfloat16"))])
+def test_training_flag_iteration_matches_cpu(cuda, ndim, generator, flags):
+    """One GAN-scale iteration under a training flag on the card (TF32 off)
+    equals the same iteration on the CPU from the same weights and draws:
+    float32 flags at atol 1e-4 as the plain iteration, bfloat16 within
+    BF16_CARD_TOL."""
+    cfg = _flag_cfg(ndim, generator, **flags)
+    errs = compare_devices(
+        cfg, 3, seed=0, device=cuda, ndim=ndim, generator=generator,
+        discriminator=cfg.discriminator if generator == "GeneratorCSG"
+        else "")
+    assert errs["finite"], errs
+    tol = BF16_CARD_TOL if "compute_dtype" in flags else {
+        "metrics_rel": 1e-4, "grads_abs": 1e-4, "state_abs": 1e-4}
+    for k, bound in tol.items():
+        assert errs[k] <= bound, (k, errs)

@@ -349,15 +349,53 @@ def test_train_cli_on_cpu_writes_a_jax_experiment(tmp_path, restore_logging):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--visualize"], ["--mesh-data", "2"],
-    ["--mesh-sp", "2"], ["--dist-coordinator", "localhost:1234"],
-    ["--dist-nprocs", "2"], ["--dist-procid", "0"], ["--paired-g"],
-    ["--fused-dg"], ["--flat-opt"], ["--compute-dtype", "bfloat16"],
-    ["--profile-dir", "prof"]])
+    ["--mesh-data", "2"], ["--mesh-sp", "2"],
+    ["--dist-coordinator", "localhost:1234"], ["--dist-nprocs", "2"],
+    ["--dist-procid", "0"]])
 def test_unported_flags_raise(flag, tmp_path):
     with pytest.raises(NotImplementedError, match=flag[0]):
         ttrain_cli.main(TINY + ["--run-dir", str(tmp_path)] + flag)
     assert not os.listdir(tmp_path)  # nothing written
+
+
+def launched_cfg(cli, args, monkeypatch, trainer=ttrainer):
+    """cli.main(args) with `trainer`'s run_training replaced by one that
+    writes args.txt and returns: (the cfg it was given, the experiment
+    dir)."""
+    seen = []
+
+    def run_training(cfg, saver, **kw):
+        seen.append(cfg)
+        cfg.write_args_txt(os.path.join(saver.experiment_dir, "args.txt"))
+
+    monkeypatch.setattr(trainer, "run_training", run_training)
+    exp = cli.main(args)
+    return seen[0], exp
+
+
+@pytest.mark.parametrize("flag,field,value", [
+    (["--visualize"], "visualize", True),
+    (["--paired-g"], "paired_g", True),
+    (["--fused-dg"], "fused_dg", True),
+    (["--flat-opt"], "flat_opt", True),
+    (["--compute-dtype", "bfloat16"], "compute_dtype", "bfloat16"),
+    (["--profile-dir", "prof"], None, None)])
+def test_training_flags_are_accepted_and_kept(flag, field, value, tmp_path,
+                                               monkeypatch, restore_logging):
+    """The training flags reach the trainer's cfg and args.txt (as the
+    JAX CLI writes them); --profile-dir, which is no Config field there
+    either, traces the run into its dir."""
+    if flag[0] == "--profile-dir":
+        flag = [flag[0], str(tmp_path / "prof")]
+    cfg, exp = launched_cfg(ttrain_cli,
+                            TINY + ["--run-dir", str(tmp_path)] + flag,
+                            monkeypatch)
+    if field is None:
+        assert os.listdir(tmp_path / "prof") == ["trace.json"]
+        return
+    assert getattr(cfg, field) == value
+    with open(os.path.join(exp, "args.txt")) as f:
+        assert f"{field}: {value}" in f.read().splitlines()
 
 
 def test_train_cli_refuses_a_missing_card(tmp_path):

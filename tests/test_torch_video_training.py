@@ -57,7 +57,7 @@ from hpvaegan_tpu_torch.training import trainer as ttrainer
 from hpvaegan_tpu_torch.training.state import ScaleTrainState
 from hpvaegan_tpu_torch.utils.saver import new_experiment_dir
 
-from test_torch_trainer import (LOSS_TOL, Recorder, _clipped,
+from test_torch_trainer import (LOSS_TOL, Recorder, _clipped, launched_cfg,
                                 restore_logging)  # noqa: F401 (a fixture)
 from test_torch_training import OP_TOL, assert_trees_close, port_grads
 from test_torch_video import (CFG, GEN_TOL, SYNTHETIC, _cfgs, _ncdhw, _ndhwc,
@@ -579,18 +579,38 @@ def test_train_video_cli_on_cpu_writes_a_jax_experiment(tmp_path, capsys,
 
 @pytest.mark.parametrize("flag", [
     ["--generator", "GeneratorVAE_nb"], ["--mesh-data", "2"],
-    ["--dist-nprocs", "2"], ["--paired-g"], ["--fused-dg"],
-    ["--compute-dtype", "bfloat16"], ["--profile-dir", "prof"]])
+    ["--dist-nprocs", "2"]])
 def test_unported_video_flags_raise(flag, tmp_path):
     with pytest.raises(NotImplementedError, match=flag[0]):
         tvideo_cli.main(TINY + ["--run-dir", str(tmp_path)] + flag)
     assert not os.listdir(tmp_path)  # nothing written
 
 
+@pytest.mark.parametrize("flag,field,value", [
+    (["--paired-g"], "paired_g", True),
+    (["--fused-dg"], "fused_dg", True),
+    (["--compute-dtype", "bfloat16"], "compute_dtype", "bfloat16"),
+    (["--profile-dir", "prof"], None, None)])
+def test_video_training_flags_are_accepted_and_kept(
+        flag, field, value, tmp_path, monkeypatch, restore_logging):
+    """test_training_flags_are_accepted_and_kept for train_video."""
+    if flag[0] == "--profile-dir":
+        flag = [flag[0], str(tmp_path / "prof")]
+    cfg, exp = launched_cfg(tvideo_cli,
+                            TINY + ["--run-dir", str(tmp_path)] + flag,
+                            monkeypatch)
+    if field is None:
+        assert os.listdir(tmp_path / "prof") == ["trace.json"]
+        return
+    assert getattr(cfg, field) == value
+    with open(os.path.join(exp, "args.txt")) as f:
+        assert f"{field}: {value}" in f.read().splitlines()
+
+
 def test_video_cli_flags_and_defaults():
     """--image-path is gone, the video flags and the JAX CLI's video
-    defaults are in, and --visualize is accepted (the JAX trainer ignores
-    it for video) while the image CLI still refuses it."""
+    defaults are in, and --visualize is accepted by both CLIs' configs (the
+    JAX trainer ignores it for video)."""
     parser = tvideo_cli.build_parser()
     args = parser.parse_args(["--video-path", SYNTHETIC, "--visualize"])
     assert not hasattr(args, "image_path")
@@ -598,8 +618,7 @@ def test_video_cli_flags_and_defaults():
             args.max_frames, args.sampling_rates) == (
         "WDiscriminator3D", 50000, "DEBUG", 0, 13, [4, 3, 2, 1])
     assert timage_cli.cfg_from_args(args, ndim=3).visualize
-    with pytest.raises(NotImplementedError, match="--visualize"):
-        timage_cli.cfg_from_args(args, ndim=2)
+    assert timage_cli.cfg_from_args(args, ndim=2).visualize
     with pytest.raises(SystemExit):
         parser.parse_args(["--image-path", "x.png"])
 
