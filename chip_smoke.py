@@ -112,6 +112,22 @@ Phases, each of which exits non-zero on a failed check:
              K1 launches 0), and train_image --paired-g --flat-opt
              --visualize --image-interval 2 --profile-dir, 10 x 4 (the
              img/ files, one trace with CUDA kernel events)
+ 17. on-device FID and interop  (a) per-sample (mu, sigma) of tiny
+             features on the card (TF32 off) against the CPU (rtol 1e-5);
+             eval_image and eval_video --on-device-fid, 64 samples, on
+             JAX-format experiments of the full-width image and video
+             models (numpy-seed netG_9): finite score, metrics.json with
+             on_device_fid true and num_samples 64, random_samples.npy of
+             max_samples (4), K1 launches 0, three copies to the host;
+             seconds split into sampling, features + statistics and
+             Frechet, peak GB, bytes to the host beside the host path's
+             samples, and the same CLI's seconds on the host path (whose
+             SVFID, from the same 64 clips, must agree to rtol 1e-3); (b) a .pth and a MindSpore netG_9 of the full-width
+             image model (the port's own t2m_HPVAEGAN): load_generator from
+             each gives 8 samples equal bit for bit to the pickled pytree's
+             (deterministic cuDNN), then train_image --netG <MindSpore
+             netG_9> with a MindSpore netD_8 beside it retrains scale 9
+             for 2 iterations
 Then it prints the kernels' JSON line, the card's name and power limit as
 nvidia-smi gives them, and last {"ok": true, "device": {...}}.
 
@@ -435,12 +451,7 @@ def phase_cli(torch, k1, ckpt):
     check(os.path.isfile(image), f"missing {image}")
     cfg = full_width_config(image_path=image)
     with tempfile.TemporaryDirectory(prefix="hpv_smoke_") as exp:
-        cfg.write_args_txt(os.path.join(exp, "args.txt"))
-        with open(os.path.join(exp, "intermediate.json"), "w") as f:
-            json.dump({"noise_amps": cfg.Noise_Amps,
-                       "scale_idx": cfg.stop_scale}, f)
-        with open(os.path.join(exp, f"netG_{cfg.stop_scale}.ckpt"), "wb") as f:
-            pickle.dump(ckpt, f)
+        write_experiment(exp, cfg, ckpt)
         k1.fused_upscale_noise_2d.launches = 0
         buf = io.StringIO()
         t0 = time.perf_counter()
@@ -966,12 +977,7 @@ def _run_video_cli(k1, cfg, ckpt, eval_video):
     import numpy as np
 
     with tempfile.TemporaryDirectory(prefix="hpv_video_") as exp:
-        cfg.write_args_txt(os.path.join(exp, "args.txt"))
-        with open(os.path.join(exp, "intermediate.json"), "w") as f:
-            json.dump({"noise_amps": cfg.Noise_Amps,
-                       "scale_idx": cfg.stop_scale}, f)
-        with open(os.path.join(exp, f"netG_{cfg.stop_scale}.ckpt"), "wb") as f:
-            pickle.dump(ckpt, f)
+        write_experiment(exp, cfg, ckpt)
         k1.fused_upscale_noise_2d.launches = 0
         buf = io.StringIO()
         t0 = time.perf_counter()
@@ -1886,6 +1892,279 @@ def phase_flags(torch, k1, run):
             "main": flags_main_path(torch, k1, run)}
 
 
+def image_size(cfg):
+    """(H, W) of the image pyramid's last scale."""
+    from hpvaegan_tpu_torch.utils import pyramid
+
+    return tuple(pyramid.scale_size_2d(cfg.stop_scale, cfg.scale_factor,
+                                       cfg.stop_scale, cfg.img_size, cfg.ar))
+
+
+def write_experiment(exp, cfg, ckpt):
+    """A JAX-format experiment dir at cfg.stop_scale: args.txt,
+    intermediate.json and netG_<k>.ckpt (the pickled pytree)."""
+    cfg.write_args_txt(os.path.join(exp, "args.txt"))
+    with open(os.path.join(exp, "intermediate.json"), "w") as f:
+        json.dump({"noise_amps": cfg.Noise_Amps,
+                   "scale_idx": cfg.stop_scale}, f)
+    with open(os.path.join(exp, f"netG_{cfg.stop_scale}.ckpt"), "wb") as f:
+        pickle.dump(ckpt, f)
+
+
+def ondevice_eval(torch, k1, main, exp, metric, sample_shape):
+    """`main` (eval_image or eval_video's) with --on-device-fid, 64
+    samples, on `exp`, timed by wrappers around parallel/sampling.py's
+    steps: the features and statistics (synchronised before and after),
+    the copies to the host (bytes counted) and the Frechet distances; the
+    rest of the run's time in `sampled_*fid` is sampling."""
+    import numpy as np
+
+    from hpvaegan_tpu_torch.parallel import sampling
+
+    parts = {"features_stats_s": 0.0, "frechet_s": 0.0, "host_copy_s": 0.0,
+             "host_bytes": 0, "host_copies": 0}
+    run_name = "sampled_sifid" if metric == "SIFID" else "sampled_svfid"
+    originals = {n: getattr(sampling, n) for n in (
+        "_feature_stats", "_host_copy", "_frechet", run_name)}
+
+    def feature_stats(*args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = originals["_feature_stats"](*args)
+        torch.cuda.synchronize()
+        parts["features_stats_s"] += time.perf_counter() - t0
+        return out
+
+    def host_copy(t):
+        t0 = time.perf_counter()
+        out = originals["_host_copy"](t)
+        parts["host_copy_s"] += time.perf_counter() - t0
+        parts["host_bytes"] += out.nbytes
+        parts["host_copies"] += 1
+        return out
+
+    def frechet(*args):
+        t0 = time.perf_counter()
+        out = originals["_frechet"](*args)
+        parts["frechet_s"] += time.perf_counter() - t0
+        return out
+
+    def run(*args, **kw):
+        t0 = time.perf_counter()
+        out = originals[run_name](*args, **kw)
+        parts["sampled_fid_s"] = time.perf_counter() - t0
+        return out
+
+    for name, fn in (("_feature_stats", feature_stats),
+                     ("_host_copy", host_copy), ("_frechet", frechet),
+                     (run_name, run)):
+        setattr(sampling, name, fn)
+    k1.fused_upscale_noise_2d.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            main(["--exp-dir", exp, "--num-samples", str(BATCH),
+                  "--on-device-fid"])
+    finally:
+        for name, fn in originals.items():
+            setattr(sampling, name, fn)
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    lines = [ln for ln in buf.getvalue().splitlines()
+             if ln.startswith(f"{metric}: ")]
+    check(len(lines) == 1, f"CLI printed {buf.getvalue()!r}")
+    value = float(lines[0].split()[1])
+    check(math.isfinite(value) and value >= 0, f"{metric} {value}")
+    with open(os.path.join(exp, "eval", "metrics.json")) as f:
+        rec = json.load(f)
+    check(rec["metric"] == metric and rec["value"] == value
+          and rec["on_device_fid"] is True and rec["num_samples"] == BATCH,
+          f"metrics.json {rec}")
+    samples = np.load(os.path.join(exp, "eval", "random_samples.npy"))
+    check(samples.shape == (4,) + sample_shape
+          and bool(np.isfinite(samples).all()),
+          f"random_samples.npy {samples.shape}")
+    launches = k1.fused_upscale_noise_2d.launches
+    check(launches == 0, f"on-device eval launched K1 {launches} times")
+    check(parts["host_copies"] == 3, f"{parts['host_copies']} host copies "
+          "(want the real side's stats, the fakes' stats, the 4 samples)")
+    parts = {k: round(v, 4) if isinstance(v, float) else v
+             for k, v in parts.items()}
+    parts["sampling_s"] = round(parts["sampled_fid_s"]
+                                - parts["features_stats_s"]
+                                - parts["frechet_s"] - parts["host_copy_s"],
+                                4)
+    # the same CLI on the host path: all samples to the host, then the
+    # files (SIFID: the max_samples PNGs) or the arrays (SVFID) scored
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        main(["--exp-dir", exp, "--num-samples", str(BATCH)])
+    host_s = time.perf_counter() - t0
+    host_value = float([ln for ln in buf.getvalue().splitlines()
+                        if ln.startswith(f"{metric}: ")][0].split()[1])
+    check(math.isfinite(host_value), f"host path {metric} {host_value}")
+    if metric == "SVFID":
+        # the same draws give the same 64 clips and the same real window
+        # on both paths; only the statistics' precision differs
+        check(abs(value - host_value) <= 1e-3 * abs(host_value),
+              f"on-device SVFID {value} vs host path {host_value}")
+    host_path_bytes = BATCH * int(np.prod(sample_shape)) * 4
+    out = {"metric": metric, "value": value, "cli_s": round(secs, 3),
+           **parts, "peak_gb": round(peak, 2),
+           "host_path_sample_bytes": host_path_bytes,
+           "host_path_cli_s": round(host_s, 3),
+           "host_path_value": host_value, "k1_launches": 0}
+    print(f"  (a) {metric} --on-device-fid, {BATCH} samples: "
+          + json.dumps(out), flush=True)
+    return out
+
+
+def stats_card_vs_cpu(torch):
+    """_per_sample_stats on the card (TF32 off) against the CPU on the same
+    tiny C3D-like features; largest differences relative to the largest
+    value."""
+    import numpy as np
+
+    from hpvaegan_tpu_torch.parallel.sampling import _per_sample_stats
+
+    rng = np.random.RandomState(SEED)
+    feats = torch.from_numpy((rng.randn(4, 64, 3, 12, 16) + 0.5)
+                             .astype(np.float32))
+    with exact_math(torch):
+        card = [t.cpu() for t in _per_sample_stats(feats.cuda())]
+    host = _per_sample_stats(feats)
+    errs = {name: float((c - h).abs().max() / h.abs().max())
+            for name, c, h in zip(("mu", "sigma"), card, host)}
+    check(all(e <= 1e-5 for e in errs.values()),
+          f"per-sample stats card vs CPU {errs} (rtol 1e-5)")
+    print("  (a) per-sample (mu, sigma), card vs CPU (TF32 off), max |diff| "
+          "/ max: " + json.dumps(errs), flush=True)
+    return errs
+
+
+def ms_netd_names(sd):
+    """The reference's p2m_WDiscriminator_2d names (pt2ms.py:8-27) of a
+    WDiscriminator state_dict: what a MindSpore netD file holds."""
+    out = {}
+    for key, value in sd.items():
+        value = value.cpu().numpy()
+        if key.startswith("body.block"):
+            i, rest = key[len("body.block"):].split(".", 1)
+            key = f"body.0.{i}.{rest}" if i != "0" else f"body.0.{rest}"
+        key = key.replace("conv.", "0.", 1).replace("weight_orig", "weight")
+        if key.endswith(("weight_u", "weight_v")):
+            value = value.reshape(-1, 1)
+        out[key] = value
+    return out
+
+
+def phase_interop(torch, k1, ckpt, run):
+    """Phase 17 (b): a .pth and a MindSpore copy of the full-width image
+    generator, loaded for eval and resumed for training."""
+    import numpy as np
+
+    from hpvaegan_tpu_torch import evaluation, models, train_image
+    from hpvaegan_tpu_torch.models.blocks import init_weights_
+    from hpvaegan_tpu_torch.tools.convert import from_jax, t2m_HPVAEGAN
+    from hpvaegan_tpu_torch.tools.ms_ckpt import save_ms_checkpoint
+
+    image = os.path.join(HERE, "data", "imgs", "air_balloons.jpg")
+    cfg = full_width_config(image_path=image)
+    exp = os.path.join(run, "interop")
+    os.makedirs(exp)
+    write_experiment(exp, cfg, ckpt)
+    sd = from_jax(ckpt["params"], ckpt["state"])
+    pth = os.path.join(exp, "netG.pth")
+    torch.save({"scale": cfg.stop_scale, "state_dict": sd,
+                "noise_amps": cfg.Noise_Amps}, pth)
+    ms = os.path.join(exp, "netG_ms.ckpt")
+    t0 = time.perf_counter()
+    save_ms_checkpoint(t2m_HPVAEGAN(sd, 2), ms)
+    ms_write_s = time.perf_counter() - t0
+    D = models.get_discriminator(cfg.discriminator, 2)(cfg)
+    init_weights_(D, torch.Generator().manual_seed(SEED))
+    save_ms_checkpoint(ms_netd_names(D.state_dict()),
+                       os.path.join(exp, f"netD_{cfg.stop_scale - 1}.ckpt"))
+
+    def samples(netG):
+        c = evaluation.hydrate_config(exp, dict(
+            niter=1, num_samples=8, scale_idx=-1, netG=netG))
+        t0 = time.perf_counter()
+        gen, _ = evaluation.load_generator(c, exp, netG=netG, device="cuda")
+        load_s = time.perf_counter() - t0
+        with exact_math(torch):
+            out = evaluation.generate_samples(c, gen, seed=SEED)
+        return out, load_s
+
+    want, pickle_s = samples("")
+    loads = {"pickle_load_s": round(pickle_s, 3),
+             "ms_write_s": round(ms_write_s, 3)}
+    for name, path in (("pth", pth), ("ms", ms)):
+        got, load_s = samples(path)
+        check(got.shape == want.shape == (8,) + image_size(cfg) + (3,),
+              f"{name} samples {got.shape}")
+        diff = float(np.abs(got - want).max())
+        check(diff == 0.0, f"{name} route differs from the pickle's by "
+              f"{diff}")
+        loads[f"{name}_load_s"] = round(load_s, 3)
+    print("  (b) load_generator from netG.pth and a MindSpore netG: 8 "
+          "samples each equal to the pickled pytree's bit for bit "
+          "(deterministic cuDNN); " + json.dumps(loads), flush=True)
+
+    k1.fused_upscale_noise_2d.launches = 0
+    t0 = time.perf_counter()
+    new = train_image.main(image_train_args(
+        os.path.join(run, "resumed"), "--niter", "2", "--netG", ms,
+        "--intermediate", os.path.join(exp, "intermediate.json")))
+    resume_s = time.perf_counter() - t0
+    k = cfg.stop_scale
+    files = set(os.listdir(new))
+    check({f"netG_{k}.ckpt", f"netD_{k}.ckpt"} <= files
+          and not any(f.startswith(f"netG_{k - 1}") for f in files),
+          f"resumed experiment {sorted(files)}")
+    with open(os.path.join(new, "intermediate.json")) as f:
+        inter = json.load(f)
+    check(inter["scale_idx"] == k and inter["noise_amps"][:k]
+          == cfg.Noise_Amps[:k] and math.isfinite(inter["noise_amps"][k]),
+          f"intermediate.json {inter}")
+    launches = k1.fused_upscale_noise_2d.launches
+    check(launches == 0, f"the resume launched K1 {launches} times")
+    print(f"  (b) train_image --netG <MindSpore netG_{k}> (D from a "
+          f"MindSpore netD_{k - 1}): scale {k} retrained, 2 iterations, "
+          f"{resume_s:.1f} s, amp {inter['noise_amps'][k]:.5f}, K1 launches "
+          "0", flush=True)
+    return {"loads": loads, "resume_s": resume_s}
+
+
+def phase_ondevice(torch, k1, ckpt):
+    """Phase 17 (module doc)."""
+    from hpvaegan_tpu_torch import eval_image, eval_video
+
+    out = {"stats": stats_card_vs_cpu(torch)}
+    with tempfile.TemporaryDirectory(prefix="hpv_od_") as run:
+        image = os.path.join(HERE, "data", "imgs", "air_balloons.jpg")
+        cfg = full_width_config(image_path=image)
+        exp = os.path.join(run, "image")
+        os.makedirs(exp)
+        write_experiment(exp, cfg, ckpt)
+        out["image"] = ondevice_eval(torch, k1, eval_image.main, exp,
+                                     "SIFID", (3,) + image_size(cfg))
+        vcfg, _ = video_config()
+        exp = os.path.join(run, "video")
+        os.makedirs(exp)
+        write_experiment(exp, vcfg, random_jax_checkpoint(vcfg, SEED,
+                                                          ndim=3))
+        t, h, w = video_sizes(vcfg)[-1]
+        out["video"] = ondevice_eval(torch, k1, eval_video.main, exp,
+                                     "SVFID", (3, t, h, w))
+        out["interop"] = phase_interop(torch, k1, ckpt, run)
+    return out
+
+
 def main():
     try:
         import torch
@@ -1997,6 +2276,12 @@ def main():
         phase_flags(torch, k1, run)
     print(f"  phase 16 took {time.perf_counter() - t0:.1f} s", flush=True)
 
+    print("phase 17: on-device SIFID/SVFID and checkpoint interop",
+          flush=True)
+    t0 = time.perf_counter()
+    phase_ondevice(torch, k1, ckpt)
+    print(f"  phase 17 took {time.perf_counter() - t0:.1f} s", flush=True)
+
     kernels = [{
         "name": "fused_upscale_noise_2d",
         "route": "cuda",
@@ -2015,7 +2300,8 @@ def main():
     print("  times are sums over the 9 stage shapes of one 64-sample forward;"
           f" launches: phase 3's GeneratorHPVAEGAN forward ({launches}), "
           f"phase 14's GeneratorVAE_nb forward ({nb['launches']}), phase "
-          "15's baselines (0), phase 16's training-flag runs (0)",
+          "15's baselines (0), phase 16's training-flag runs (0), phase "
+          "17's on-device eval and interop (0)",
           flush=True)
     print(f"  total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -6,8 +6,9 @@ compute SIFID.
         --num-samples 10
 
 Runs on the card (cuda:<device-id>) unless `--device cpu` is given.
-`--on-device-fid`, `--mesh-data` and the multi-process flags of the JAX
-package's CLI are not ported yet.
+`--on-device-fid` keeps the samples and their features on the device. The
+JAX package's `--mesh-data` and multi-process flags have no counterpart
+here.
 """
 
 import argparse
@@ -40,6 +41,10 @@ def run(argv, evaluate, metric: str) -> None:
     parser.add_argument('--scale-idx', type=int, default=-1,
                         help='scale to evaluate (-1: last trained)')
     parser.add_argument('--max-samples', type=int, default=4)
+    parser.add_argument('--on-device-fid', action='store_true', default=False,
+                        help='device-resident sampling + sinFID: only '
+                             'per-sample (mu, sigma) stats leave the device '
+                             '(BASELINE config 5)')
     args = parser.parse_args(argv)
 
     logging.basicConfig(level=logging.INFO,
@@ -54,6 +59,7 @@ def run(argv, evaluate, metric: str) -> None:
                          num_samples=args.num_samples,
                          max_samples=args.max_samples,
                          save_path=args.save_path, scale_idx=args.scale_idx,
+                         on_device_fid=args.on_device_fid,
                          netG=(os.path.join(exp_dir, args.netG)
                                if args.netG else ''))
         cfg = hydrate_config(exp_dir, overrides)

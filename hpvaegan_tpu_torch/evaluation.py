@@ -6,8 +6,11 @@ saved scale, generate niter x num_samples random samples in batched
 forwards, write random_samples.npy and PNGs (images) or GIFs and unfold
 grids (videos), compute SIFID or SVFID. Experiments are read in the JAX
 package's format, so an experiment trained by either package evaluates
-here. The on-device SIFID/SVFID paths, mesh-sharded and multi-process
-evaluation, and .pth/MindSpore checkpoints are not ported yet.
+here; --netG may also name the original hp-vae-gan's .pth or a MindSpore
+checkpoint. With cfg.on_device_fid the samples and their features stay on
+the device and only per-sample statistics reach the host
+(parallel/sampling.py). The JAX package's mesh-sharded and multi-process
+evaluation have no counterpart here.
 """
 
 from __future__ import annotations
@@ -15,7 +18,6 @@ from __future__ import annotations
 import datetime
 import logging
 import os
-import pickle
 from typing import Optional
 
 import numpy as np
@@ -23,11 +25,11 @@ import torch
 
 from . import models
 from .config import Config
-from .tools.convert import from_jax
+from .tools.convert import load_generator_checkpoint
 from .utils import pyramid
 from .utils.device import resolve_device
 from .utils.noise import NoiseSource
-from .utils.saver import DataSaver, load_pytree, resolve_finalized_scale
+from .utils.saver import DataSaver, resolve_finalized_scale
 
 
 def hydrate_config(exp_dir: str, overrides: dict,
@@ -58,36 +60,34 @@ def load_generator(cfg, exp_dir: str, ndim: int = 2, netG: str = "",
     path = netG or os.path.join(exp_dir, f"netG_{cfg.scale_idx}.ckpt")
     if not os.path.isfile(path):
         raise RuntimeError(f"=> no <G> checkpoint found at '{path}'")
-    if path.endswith(".pth"):
-        raise NotImplementedError(
-            f"{path}: PyTorch .pth checkpoints of the original hp-vae-gan are "
-            "not ported yet")
-    try:
-        ckpt = load_pytree(path)
-    except pickle.UnpicklingError as e:
-        raise NotImplementedError(
-            f"{path} is not a pickled (params, state) checkpoint; MindSpore "
-            "checkpoints are not ported yet") from e
-    _check_body(ckpt["params"], cfg, path)
+    state_dict, pth_inter = load_generator_checkpoint(path, ndim)
+    if pth_inter is not None:
+        # an original .pth carries its scale and amps (reference
+        # eval_image.py:157-162)
+        cfg.scale_idx = pth_inter["scale_idx"]
+        cfg.Noise_Amps = pth_inter["noise_amps"][:cfg.scale_idx + 1]
+    _check_body(state_dict, cfg, path)
     generator = models.get_generator(cfg.generator, ndim)(cfg)
     # k growths: the k stages of netG_<k>, or a baseline's k + 1 (it is
     # built with one)
     for _ in range(cfg.scale_idx):
         generator.init_next_stage()
-    generator.load_state_dict(from_jax(ckpt["params"], ckpt["state"], ndim))
+    generator.load_state_dict(state_dict)
     return generator.to(device).eval(), saver
 
 
-def _check_body(params, cfg, path: str) -> None:
+def _check_body(state_dict, cfg, path: str) -> None:
     """A stage-count/scale mismatch must fail loudly (the reference fails
     at load_param_into_net). The HPVAEGAN family only, as in the JAX
     package (evaluation.py:86 there); a baseline's stage count is held by
     load_state_dict."""
     if cfg.generator in models.BASELINES:
         return
-    if len(params["body"]) != cfg.scale_idx:
+    stages = len({k.split(".")[1] for k in state_dict
+                  if k.startswith("body.")})
+    if stages != cfg.scale_idx:
         raise RuntimeError(
-            f"checkpoint {path!r} has {len(params['body'])} refinement "
+            f"checkpoint {path!r} has {stages} refinement "
             f"stages but intermediate.json says scale_idx={cfg.scale_idx} "
             f"(expected {cfg.scale_idx} stages — netG_<k>.ckpt carries k)")
 
@@ -141,21 +141,45 @@ def _persist_eval_metrics(saver, cfg, metric: str, value: float) -> None:
         "num_samples": cfg.niter * cfg.num_samples,
         "scale_idx": cfg.scale_idx,
         "netG": getattr(cfg, "netG", "") or "",
-        "on_device_fid": False,
+        "on_device_fid": bool(getattr(cfg, "on_device_fid", False)),
         "date": datetime.datetime.now().isoformat(timespec="seconds"),
     }, os.path.join("eval", "metrics.json"))
 
 
-def eval_image_experiment(cfg, exp_dir: str, seed: int = 0, device="cuda"):
+def eval_image_experiment(cfg, exp_dir: str, seed: int = 0, device="cuda",
+                          noise: Optional[NoiseSource] = None):
     """One experiment dir: samples -> npy -> PNGs -> SIFID
-    (reference eval_image.py:179-190). Returns (sifid, saver)."""
+    (reference eval_image.py:179-190). Returns (sifid, saver).
+
+    With cfg.on_device_fid, niter x num_samples samples are drawn in one
+    sampler call and scored on the device (parallel/sampling.py); only the
+    first max_samples reach random_samples.npy and the PNGs (JAX
+    evaluation.py:198-222). Every draw comes from `noise` (default: a
+    NoiseSource seeded `seed` on `device`)."""
     from .metrics import calculate_SIFID
     from .utils.media import generate_images
 
     device = resolve_device(device)
     generator, saver = load_generator(cfg, exp_dir, ndim=2, netG=cfg.netG,
                                       device=device)
-    samples = generate_samples(cfg, generator, ndim=2, seed=seed)
+    noise = noise or NoiseSource(seed, device)
+    if getattr(cfg, "on_device_fid", False):
+        from .data.image import load_image01
+        from .parallel.sampling import sampled_sifid
+
+        total = cfg.niter * cfg.num_samples
+        vals, firstk = sampled_sifid(
+            cfg, generator, load_image01(cfg.image_path), total, noise,
+            z_tail=eval_z_tail(cfg, 2),
+            return_samples=min(cfg.max_samples, total))
+        np.save(os.path.join(saver.eval_dir, "random_samples.npy"),
+                firstk.transpose(0, 3, 1, 2))  # (N, C, H, W)
+        generate_images(cfg, saver)
+        sifid = float(np.mean(vals))
+        _persist_eval_metrics(saver, cfg, "SIFID", sifid)
+        logging.info("SIFID (on-device): %s", sifid)
+        return sifid, saver
+    samples = generate_samples(cfg, generator, ndim=2, noise=noise)
     # reference artifact layout: (N, C, H, W)
     np.save(os.path.join(saver.eval_dir, "random_samples.npy"),
             samples.transpose(0, 3, 1, 2))
@@ -170,9 +194,13 @@ def eval_image_experiment(cfg, exp_dir: str, seed: int = 0, device="cuda"):
     return sifid, saver
 
 
-def eval_video_experiment(cfg, exp_dir: str, seed: int = 0, device="cuda"):
+def eval_video_experiment(cfg, exp_dir: str, seed: int = 0, device="cuda",
+                          noise: Optional[NoiseSource] = None):
     """One experiment dir: samples -> npy -> GIFs -> SVFID (reference
-    eval_video.py:23-85, 185-193). Returns (svfid, saver)."""
+    eval_video.py:23-85, 185-193). Returns (svfid, saver).
+
+    cfg.on_device_fid and `noise` as in eval_image_experiment (JAX
+    evaluation.py:271-296); the real side is the same strided window."""
     from .data.video import SingleVideoDataset
     from .metrics.fid import svfid_arrays
     from .utils.media import generate_gifs
@@ -192,15 +220,31 @@ def eval_video_experiment(cfg, exp_dir: str, seed: int = 0, device="cuda"):
     np.save(os.path.join(saver.eval_dir, "real_full_scale.npy"),
             (frames * 255).astype(np.uint8))
 
-    samples = generate_samples(cfg, generator, ndim=3, seed=seed)
+    # the real side is the window the model trained on at this scale's
+    # sampling rate, not the first td full-rate frames
+    window = frames[:cfg.fps_lcm + 1:cfg.sampling_rates[cfg.fps_index]]
+    noise = noise or NoiseSource(seed, device)
+    if getattr(cfg, "on_device_fid", False):
+        from .parallel.sampling import sampled_svfid
+
+        total = cfg.niter * cfg.num_samples
+        vals, firstk = sampled_svfid(
+            cfg, generator, window, total, noise, z_tail=eval_z_tail(cfg, 3),
+            return_samples=min(cfg.max_samples, total))
+        np.save(os.path.join(saver.eval_dir, "random_samples.npy"),
+                firstk.transpose(0, 4, 1, 2, 3))  # (N, C, T, H, W)
+        generate_gifs(cfg, saver)
+        svfid = float(np.mean(vals))
+        _persist_eval_metrics(saver, cfg, "SVFID", svfid)
+        logging.info("SVFID (on-device): %s", svfid)
+        return svfid, saver
+
+    samples = generate_samples(cfg, generator, ndim=3, noise=noise)
     # reference artifact layout: (N, C, T, H, W)
     np.save(os.path.join(saver.eval_dir, "random_samples.npy"),
             samples.transpose(0, 4, 1, 2, 3))
     generate_gifs(cfg, saver)
 
-    # the real side is the window the model trained on at this scale's
-    # sampling rate, not the first td full-rate frames
-    window = frames[:cfg.fps_lcm + 1:cfg.sampling_rates[cfg.fps_index]]
     reals = window[None]
     fakes = (samples + 1) / 2
     t, h, w = (min(a, b) for a, b in zip(reals.shape[1:4], fakes.shape[1:4]))

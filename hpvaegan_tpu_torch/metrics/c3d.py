@@ -9,13 +9,11 @@ the same .npz the JAX package reads (keys "<conv>.w" in DHWIO, "<conv>.b"),
 named by `weights=` or HPVAEGAN_C3D_WEIGHTS; with them the input is scaled
 to [0, 255], as the pretrained weights expect, else to [-1, 1].
 
-Without a weights file both packages use a seeded random init. At seed 0,
-the only seed the CLIs use, conv1a (block 0, the SVFID default) holds the
-JAX package's own seed-0 arrays (`jax.random`, metrics/c3d.py:50-62 there)
-from default_init.npz, loaded as the default init: the input stays in
-[-1, 1], and the two packages' default SVFIDs agree. Blocks 1-3, and every
-block at other seeds, draw from a torch.Generator and differ from the JAX
-package's.
+Without a weights file both packages use the same seeded random init (the
+input then stays in [-1, 1]): conv i in block order draws
+jax.random.normal(fold_in(PRNGKey(seed), i)) / sqrt(fan_in) (metrics/
+c3d.py:50-62 there), which utils/jax_prng.py reproduces bit for bit, so
+the two packages' default features agree at every block and seed.
 """
 
 from __future__ import annotations
@@ -28,7 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from ..utils.device import resolve_device
-from .inception import default_init
+from ..utils.jax_prng import folded_normal
 
 BLOCK_INDEX_BY_DIM = {64: 0, 128: 1, 256: 2, 512: 3}
 
@@ -43,16 +41,17 @@ _BLOCKS = [
 _POOLS = [(1, 2, 2), (2, 2, 2), (2, 2, 2), (2, 2, 2)]
 
 
-def _init_params(seed: int) -> Dict[str, np.ndarray]:
-    gen = torch.Generator().manual_seed(int(seed))
+def _init_params(last_block: int, seed: int) -> Dict[str, np.ndarray]:
+    """The JAX package's random init of blocks 0..last_block, float32 (it
+    draws every block; conv i's draw does not depend on the others)."""
     params: Dict[str, np.ndarray] = {}
-    for block in _BLOCKS:
-        for name, cin, cout in block:
-            w = torch.randn((3, 3, 3, cin, cout), generator=gen)
-            params[f"{name}.w"] = (w / np.sqrt(cin * 27)).numpy()
-            params[f"{name}.b"] = np.zeros((cout,), np.float32)
-    if seed == 0:
-        params.update(default_init("c3d"))
+    convs = [conv for block in _BLOCKS[:last_block + 1] for conv in block]
+    for i, (name, cin, cout) in enumerate(convs):
+        w = folded_normal(seed, i, (3, 3, 3, cin, cout))
+        # divided in float64 as the JAX package's numpy 2 promotion does
+        params[f"{name}.w"] = (w.astype(np.float64)
+                               / np.sqrt(cin * 27)).astype(np.float32)
+        params[f"{name}.b"] = np.zeros((cout,), np.float32)
     return params
 
 
@@ -75,7 +74,7 @@ class C3D:
             with np.load(weights) as npz:
                 self.params = {k: np.asarray(npz[k]) for k in npz.files}
         else:
-            self.params = _init_params(seed)
+            self.params = _init_params(max(self.output_blocks), seed)
         self.pretrained = bool(weights)
         self.device = resolve_device(device)
         self._blocks = []
@@ -98,7 +97,7 @@ class C3D:
         with torch.no_grad():
             for bi, convs in enumerate(self._blocks):
                 for w, b in convs:
-                    x = F.relu(F.conv3d(x, w, b, padding=1))
+                    x = torch.relu_(F.conv3d(x, w, b, padding=1))
                 x = F.max_pool3d(x, _POOLS[bi], stride=_POOLS[bi])
                 if bi in self.output_blocks:
                     outs.append(x)

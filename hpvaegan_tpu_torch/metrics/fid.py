@@ -76,13 +76,20 @@ def _pairwise(model, block: int, reals: np.ndarray, fakes: np.ndarray
     return vals
 
 
+def _block(model, dims: int) -> int:
+    """The position of the `dims` block in `model`'s outputs: a model
+    built with more output blocks puts it elsewhere than last (JAX
+    fid.py::_block_out)."""
+    return model.output_blocks.index(model.BLOCK_INDEX_BY_DIM[dims])
+
+
 def sifid_arrays(reals: np.ndarray, fakes: np.ndarray, dims: int = 64,
                  model: Optional[InceptionV3] = None,
                  weights: Optional[str] = None, device="cuda") -> List[float]:
     """Per-pair SIFID. reals/fakes: (N, H, W, 3) float in [0, 1]."""
     model = model or InceptionV3([InceptionV3.BLOCK_INDEX_BY_DIM[dims]],
                                  weights=weights, device=device)
-    return _pairwise(model, 0, reals, fakes)
+    return _pairwise(model, _block(model, dims), reals, fakes)
 
 
 def svfid_arrays(reals: np.ndarray, fakes: np.ndarray, dims: int = 64,
@@ -91,8 +98,7 @@ def svfid_arrays(reals: np.ndarray, fakes: np.ndarray, dims: int = 64,
     """Per-pair SVFID. reals/fakes: (N, T, H, W, 3) float in [0, 1]."""
     model = model or C3D([C3D.BLOCK_INDEX_BY_DIM[dims]], weights=weights,
                          device=device)
-    block = model.output_blocks.index(C3D.BLOCK_INDEX_BY_DIM[dims])
-    return _pairwise(model, block, reals, fakes)
+    return _pairwise(model, _block(model, dims), reals, fakes)
 
 
 def _load_images(files) -> np.ndarray:

@@ -1,9 +1,12 @@
-"""Batched sample generation on one device.
+"""Batched sample generation on one device, and SIFID / SVFID computed
+beside it on the device.
 
-The port of the JAX package's `parallel/sampling.py::sharded_sampler` for one
-device (the mesh-sharded and multi-process forms come later). BASELINE
-config 5 is batched diverse-sample generation at 64 samples a batch; the
-reference generates one sample per generator call (eval_image.py:54-61).
+The port of the JAX package's `parallel/sampling.py` for one device (the
+mesh-sharded and multi-process forms come later): `sharded_sampler` and
+the on-device metrics `make_sampled_sifid` / `make_sampled_svfid`. BASELINE
+config 5 is batched diverse-sample generation at 64 samples a batch with
+on-device SIFID; the reference generates one sample per generator call
+(eval_image.py:54-61) and scores PNG files.
 
 A batch whose widest activation would hold 2^31 elements (8.6 GB of
 float32) or more runs as equal sub-batches, one forward each, to bound the
@@ -21,6 +24,7 @@ of the refinement noise draws.
 from __future__ import annotations
 
 import math
+from typing import List, Tuple
 
 import numpy as np
 import torch
@@ -102,11 +106,140 @@ def sharded_sampler(cfg, generator, ndim: int = 2, train: bool = True,
     amps[:len(cfg.Noise_Amps)] = cfg.Noise_Amps
     bn = "sample" if train else "moving"
 
-    def sample(num_samples: int, noise: NoiseSource) -> torch.Tensor:
+    def batches(num_samples: int, noise: NoiseSource):
+        """The samples of sample(num_samples, noise), one tensor per
+        sub-batch, each made when the caller asks for it."""
         z = noise.normal((num_samples, z_tail[-1]) + z_tail[:-1])
-        with torch.no_grad():
-            outs = [generator(z[a:b], amps, noise, bn=bn)[0]
-                    for a, b in sub_batches(num_samples, per_sample)]
+        for a, b in sub_batches(num_samples, per_sample):
+            with torch.no_grad():
+                out = generator(z[a:b], amps, noise, bn=bn)[0]
+            yield out
+
+    def sample(num_samples: int, noise: NoiseSource) -> torch.Tensor:
+        outs = list(batches(num_samples, noise))
         return outs[0] if len(outs) == 1 else torch.cat(outs)
 
+    sample.batches = batches
     return sample
+
+
+def _per_sample_stats(feats: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(B, C, *positions) features -> per-sample mu (B, C) and sigma
+    (B, C, C), float32, sigma = centered^T centered / (n - 1) over the
+    positions (JAX parallel/sampling.py:103-112)."""
+    b, c = feats.shape[:2]
+    flat = feats.reshape(b, c, -1).float()
+    mu = flat.mean(dim=2)
+    centered = flat - mu[:, :, None]
+    sigma = torch.bmm(centered, centered.transpose(1, 2)) \
+        / (flat.shape[2] - 1)
+    return mu, sigma
+
+
+def _feature_stats(model, block: int, x01: torch.Tensor) -> torch.Tensor:
+    """Per-sample (mu, sigma) of `model`'s output `block` for inputs in
+    [0, 1], packed as one (B, C, C + 1) tensor on the device: mu in column
+    0, sigma after it."""
+    mu, sigma = _per_sample_stats(model(x01)[block])
+    return torch.cat([mu[:, :, None], sigma], dim=2)
+
+
+def _host_copy(t: torch.Tensor) -> np.ndarray:
+    """The one copy of a run's result to the host."""
+    return t.cpu().numpy()
+
+
+def _frechet(stats: np.ndarray, real: np.ndarray) -> List[float]:
+    """Frechet distance of each packed per-sample (mu, sigma) to the real
+    one's, on the host (scipy sqrtm)."""
+    from ..metrics.fid import calculate_frechet_distance
+
+    return [float(calculate_frechet_distance(s[:, 0], s[:, 1:],
+                                             real[:, 0], real[:, 1:]))
+            for s in stats]
+
+
+def _sampled_fid(cfg, generator, real01: np.ndarray, ndim: int, model,
+                 dims: int, z_tail):
+    """run(num_samples, noise, return_samples=0) for the 2D or 3D sampler
+    of `generator` (per-sample BatchNorm, as the CLIs sample) and `model`
+    (InceptionV3 or C3D with the block of `dims`). real01: (H, W, 3), in
+    3D (T, H, W, 3), float in [0, 1]."""
+    from ..metrics.fid import _block
+    from ..ops.resize import resize_bilinear, resize_trilinear
+
+    sample = sharded_sampler(cfg, generator, ndim=ndim, z_tail=z_tail)
+    block = _block(model, dims)
+    device = next(generator.parameters()).device
+    real = torch.from_numpy(np.ascontiguousarray(real01, np.float32))
+    real = real.movedim(-1, 0)[None].to(device)
+    real_stats: List[np.ndarray] = []  # computed once, at the fakes' size
+
+    def run(num_samples: int, noise: NoiseSource, return_samples: int = 0):
+        stats, kept = [], []
+        k = min(return_samples, num_samples)
+        for fakes in sample.batches(num_samples, noise):
+            stats.append(_feature_stats(model, block, (fakes + 1.0) * 0.5))
+            if not real_stats:
+                resize = resize_bilinear if ndim == 2 else resize_trilinear
+                size = fakes.shape[2:]
+                real_stats.append(_host_copy(_feature_stats(
+                    model, block, resize(real, size, align_corners=False)))[0])
+            left = k - sum(len(f) for f in kept)
+            if left > 0:  # a copy, so that the sub-batch can go
+                kept.append(fakes[:left].clone())
+        vals = _frechet(_host_copy(torch.cat(stats)), real_stats[0])
+        if return_samples:
+            return vals, _host_copy(torch.cat(kept).movedim(1, -1))
+        return vals
+
+    return run
+
+
+def make_sampled_sifid(cfg, generator, real_image: np.ndarray,
+                       dims: int = 64, z_tail=None):
+    """Batched diverse-sample generation with on-device SIFID (BASELINE
+    config 5; JAX parallel/sampling.py:115-167). Returns run(num_samples,
+    noise, return_samples=0) -> per-sample SIFIDs.
+
+    Samples and Inception block features stay on the generator's device,
+    one sampler sub-batch at a time (the statistics are per sample, so the
+    split is exact); only the per-sample (mu, sigma) go to the host, in one
+    copy, for the Frechet sqrtm. The real image's statistics are computed
+    once, at the fakes' size (bilinear, half-pixel). With return_samples=k,
+    run also copies the first k samples to the host and returns (vals,
+    samples (k, H, W, 3) in [-1, 1])."""
+    from ..metrics.inception import InceptionV3
+
+    model = InceptionV3([InceptionV3.BLOCK_INDEX_BY_DIM[dims]],
+                        device=next(generator.parameters()).device)
+    return _sampled_fid(cfg, generator, real_image, 2, model, dims, z_tail)
+
+
+def sampled_sifid(cfg, generator, real_image: np.ndarray, num_samples: int,
+                  noise: NoiseSource, dims: int = 64, z_tail=None,
+                  return_samples: int = 0):
+    """One-shot make_sampled_sifid."""
+    return make_sampled_sifid(cfg, generator, real_image, dims, z_tail)(
+        num_samples, noise, return_samples)
+
+
+def make_sampled_svfid(cfg, generator, real_video: np.ndarray,
+                       dims: int = 64, z_tail=None):
+    """make_sampled_sifid for videos (JAX parallel/sampling.py:170-214):
+    C3D block features, the real clip (T, H, W, 3) resized trilinearly to
+    the fakes' size; return_samples gives (k, T, H, W, 3)."""
+    from ..metrics.c3d import C3D
+
+    model = C3D([C3D.BLOCK_INDEX_BY_DIM[dims]],
+                device=next(generator.parameters()).device)
+    return _sampled_fid(cfg, generator, real_video, 3, model, dims, z_tail)
+
+
+def sampled_svfid(cfg, generator, real_video: np.ndarray, num_samples: int,
+                  noise: NoiseSource, dims: int = 64, z_tail=None,
+                  return_samples: int = 0):
+    """One-shot make_sampled_svfid."""
+    return make_sampled_svfid(cfg, generator, real_video, dims, z_tail)(
+        num_samples, noise, return_samples)

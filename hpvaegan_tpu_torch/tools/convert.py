@@ -23,12 +23,22 @@ port of `p2j_WDiscriminator` (`ndim` 2 or 3) and `from_jax_discriminator`
 its inverse. Each checks the rank of the conv weights against `ndim`.
 Spectral-norm v vectors are re-permuted between torch's (I, [KD,] KH, KW)
 flattening and the JAX package's ([KD,] KH, KW, I).
+
+The reference's formats (JAX convert.py:147-512), for GeneratorHPVAEGAN /
+GeneratorVAE_nb and WDiscriminator2D / 3D. The original hp-vae-gan's .pth
+state_dicts already use the port's names and layouts, so these are name
+mappings, with no transposes and no v re-permutation:
+  p2t_HPVAEGAN / p2t_WDiscriminator   .pth -> the port (p2j_* there)
+  m2t_HPVAEGAN / m2t_WDiscriminator   MindSpore names -> the port (m2j_*)
+  t2m_HPVAEGAN                        the port -> MindSpore names (t2m_*)
+  j2m_HPVAEGAN                        the JAX pytree -> MindSpore (j2m_*)
+`load_generator_checkpoint` reads any of the three generator files.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -287,3 +297,272 @@ def to_jax_discriminator(state_dict: Dict[str, torch.Tensor], ndim: int = 2
     return ({"head": hp, "body": [p for p, _ in blocks],
              "tail": _conv_to_jax(tail)},
             {"head": hs, "body": [s for _, s in blocks]})
+
+
+# ---- the reference's formats: .pth and MindSpore ---------------------------
+
+# the spectral-norm convs of GeneratorHPVAEGAN's encoder and WDiscriminator
+_SN_CONV = re.compile(r"(encode\.features\.conv_block_\d+\.conv|head\.conv|"
+                      r"body\.block\d+\.conv)\.(weight|weight_orig)$")
+
+
+def _port_state_dict(sd: Dict) -> Dict[str, torch.Tensor]:
+    """A reference-named state_dict -> the port's: num_batches_tracked
+    dropped, an SN conv's `weight` named `weight_orig`, u and v flat, and
+    missing u / v synthesised as the JAX package does (convert.py:113-125
+    there: unit vectors from RandomState(0), u then v, v drawn in its
+    ([KD,] KH, KW, I) order), all float32 tensors."""
+    out: Dict[str, np.ndarray] = {}
+    for key, value in sd.items():
+        if "num_batches_tracked" in key:
+            continue
+        if torch.is_tensor(value):
+            value = value.detach().cpu().numpy()
+        value = _f32(value)
+        m = _SN_CONV.match(key)
+        if m:
+            key = f"{m.group(1)}.weight_orig"
+        elif key.endswith(("weight_u", "weight_v")):
+            value = value.reshape(-1)  # MindSpore keeps columns
+        out[key] = value
+    for key in [k for k in out if k.endswith(".weight_orig")]:
+        prefix = key[:-len(".weight_orig")]
+        if f"{prefix}.weight_u" in out and f"{prefix}.weight_v" in out:
+            continue
+        w = out[key]
+        rng = np.random.RandomState(0)
+        if f"{prefix}.weight_u" not in out:
+            u = rng.standard_normal(w.shape[0]).astype(np.float32)
+            out[f"{prefix}.weight_u"] = u / max(np.linalg.norm(u), 1e-12)
+        if f"{prefix}.weight_v" not in out:
+            v = rng.standard_normal(w[0].size).astype(np.float32)
+            v_t = np.empty_like(v)
+            v_t[_v_perm(w.shape)] = v / max(np.linalg.norm(v), 1e-12)
+            out[f"{prefix}.weight_v"] = v_t
+    return {k: torch.tensor(v) for k, v in out.items()}
+
+
+def p2t_HPVAEGAN(netG_pth) -> Dict[str, torch.Tensor]:
+    """The original hp-vae-gan's GeneratorHPVAEGAN (or GeneratorVAE_nb)
+    checkpoint, a state_dict or {"state_dict": ...}, 2D or 3D -> the
+    port's state_dict (JAX convert.py::p2j_HPVAEGAN)."""
+    return _port_state_dict(netG_pth.get("state_dict", netG_pth))
+
+
+def p2t_WDiscriminator(netD_pth) -> Dict[str, torch.Tensor]:
+    """The original WDiscriminator checkpoint, 2D or 3D -> the port's
+    state_dict (JAX convert.py::p2j_WDiscriminator)."""
+    return _port_state_dict(netD_pth.get("state_dict", netD_pth))
+
+
+_MS_BN_NAMES = {"gamma": "weight", "beta": "bias",
+                "moving_mean": "running_mean",
+                "moving_variance": "running_var"}
+
+
+def _ms_stack_key(segs) -> str:
+    """MindSpore conv-stack segments -> the reference name within a stage
+    or the decoder (JAX convert.py:207-226). The reference's p2m renames
+    head. -> 0., block<i>. -> <i+1>., tail. -> <num_layer+1>., conv. ->
+    0., norm. -> 1. (3D: 1.bn2d.) and the BatchNorm names; a plain
+    '<n>.weight|bias' is the tail whatever <n> is."""
+    if len(segs) == 2 and segs[1] in ("weight", "bias"):
+        return f"tail.{segs[1]}"
+    if len(segs) == 4 and segs[1] == "1" and segs[2] == "bn2d":
+        segs = [segs[0], "1", segs[3]]
+    if len(segs) == 3 and segs[1] in ("0", "1") and segs[0].isdigit():
+        n = int(segs[0])
+        blk = "head" if n == 0 else f"block{n - 1}"
+        mod = "conv" if segs[1] == "0" else "norm"
+        return f"{blk}.{mod}.{_MS_BN_NAMES.get(segs[2], segs[2])}"
+    return ""
+
+
+def _m2t_generator(ms: Dict) -> Dict:
+    """MindSpore GeneratorHPVAEGAN names -> the reference's (JAX
+    convert.py:229-290): the inverse of p2m_HPVAEGAN_2d/3d (reference
+    pt2ms.py:30-89, 129-188), with the reference's m2m body renumbering
+    (pt2ms.py:92-104) for a cell saved without the 'body.' prefix."""
+    out: Dict = {}
+    for key, value in ms.items():
+        k = key
+        if not k.startswith(("encode.", "decoder.", "body.")):
+            m = re.match(r"^(\d+)\.", k)
+            if not m:
+                continue
+            num = int(m.group(1))
+            if num != 0:
+                k = k.replace(f"{num}.", f"0.0.{num}.", 1)
+            k = "body." + k
+        if k.startswith("encode."):
+            rest = k[len("encode."):]
+            m = re.match(r"_features\.(\d+)\.0\.(.*)", rest)
+            if m:
+                out[f"encode.features.conv_block_{m.group(1)}"
+                    f".conv.{m.group(2)}"] = value
+                continue
+            m = re.match(r"_(mu|logvar|bern)\.0\.(.*)", rest)
+            if m:
+                out[f"encode.{m.group(1)}.conv.{m.group(2)}"] = value
+            continue
+        if k.startswith("decoder."):
+            name = _ms_stack_key(k[len("decoder."):].split("."))
+            if name:
+                out["decoder." + name] = value
+            continue
+        # stage 0 is 'body.0.<n>...', stage k >= 1 'body.0.0.<k>.<n>...';
+        # the stage-k reading wins where it gives a stack key (a stage-0
+        # 3D head BatchNorm key 'body.0.0.1.bn2d.gamma' has 5 segments too)
+        segs = k[len("body."):].split(".")
+        if segs[0] != "0":
+            continue
+        name, stage = "", 0
+        if len(segs) >= 5 and segs[1] == "0" and segs[2].isdigit():
+            name, stage = _ms_stack_key(segs[3:]), int(segs[2])
+        if not name:
+            name, stage = _ms_stack_key(segs[1:]), 0
+        if name:
+            out[f"body.{stage}." + name] = value
+    return out
+
+
+def _m2t_discriminator(ms: Dict) -> Dict:
+    """MindSpore WDiscriminator names -> the reference's (JAX
+    convert.py:293-313, the inverse of p2m_WDiscriminator_2d/3d)."""
+    out: Dict = {}
+    for k, value in ms.items():
+        if k.startswith("head.0."):
+            out["head.conv." + k[len("head.0."):]] = value
+        elif k.startswith("tail."):
+            out[k] = value
+        elif k.startswith("body."):
+            segs = k[len("body."):].split(".")
+            if len(segs) == 3 and segs[0] == "0" and segs[1] == "0":
+                blk, name = 0, segs[2]
+            elif len(segs) == 4 and segs[0] == "0" and segs[2] == "0":
+                blk, name = int(segs[1]), segs[3]
+            else:
+                continue
+            out[f"body.block{blk}.conv.{name}"] = value
+    return out
+
+
+def _check_mapped(ms: Dict, mapped: Dict, kind: str) -> None:
+    """A checkpoint of which at most half the names map is the wrong kind
+    (a netD file read as a generator), and fails here."""
+    if len(mapped) < max(1, len(ms) // 2):
+        sample = ", ".join(sorted(ms)[:5])
+        raise ValueError(
+            f"only {len(mapped)}/{len(ms)} checkpoint entries map to "
+            f"{kind} parameter names — wrong checkpoint type? "
+            f"(sample keys: {sample})")
+
+
+def m2t_HPVAEGAN(ms_ckpt: Dict) -> Dict[str, torch.Tensor]:
+    """A MindSpore generator checkpoint ({name: array}, tools/ms_ckpt.py)
+    -> the port's state_dict (JAX convert.py::m2j_HPVAEGAN)."""
+    t = _m2t_generator(ms_ckpt)
+    _check_mapped(ms_ckpt, t, "generator")
+    return _port_state_dict(t)
+
+
+def m2t_WDiscriminator(ms_ckpt: Dict) -> Dict[str, torch.Tensor]:
+    """A MindSpore WDiscriminator checkpoint, 2D or 3D -> the port's
+    state_dict (JAX convert.py::m2j_WDiscriminator)."""
+    t = _m2t_discriminator(ms_ckpt)
+    _check_mapped(ms_ckpt, t, "discriminator")
+    return _port_state_dict(t)
+
+
+def t2m_HPVAEGAN(state_dict: Dict, ndim: int = 2) -> Dict[str, np.ndarray]:
+    """The port's generator state_dict -> MindSpore parameter names (JAX
+    convert.py::t2m_HPVAEGAN, the reference's p2m_HPVAEGAN_2d/3d with the
+    tail at the stack's own num_layer + 1 instead of a hardcoded 6, and
+    GeneratorVAE_nb's head as _bern)."""
+    bn = "1.bn2d." if ndim == 3 else "1."
+    sd = _numpy_sd(state_dict)
+    n_blocks: Dict[str, int] = {}  # middle blocks per stack
+    for key in sd:
+        m = re.match(r"(decoder|body\.\d+)\.block(\d+)\.", key)
+        if m:
+            n_blocks[m.group(1)] = max(n_blocks.get(m.group(1), 0),
+                                       int(m.group(2)) + 1)
+    new: Dict[str, np.ndarray] = {}
+    for key, value in sd.items():
+        if "num_batches_tracked" in key:
+            continue
+        if key.startswith("encode."):
+            m = re.search(r"features\.conv_block_(\d+)\.", key)
+            if m:
+                key = key.replace(m.group(0), f"_features.{m.group(1)}.")
+            else:
+                key = re.sub(r"^encode\.(mu|logvar|bern)\.", r"encode._\1.",
+                             key)
+            key = key.replace("conv.", "0.", 1).replace("weight_orig",
+                                                        "weight", 1)
+        else:
+            stack = re.match(r"(decoder|body\.\d+)\.", key).group(1)
+            m = re.match(r"body\.(\d+)\.", key)
+            if m and int(m.group(1)) != 0:
+                key = key.replace("body.", "body.0.0.", 1)
+            m = re.search(r"\.(head|block(\d+)|tail)\.", key)
+            if m.group(1) == "head":
+                idx = 0
+            elif m.group(1) == "tail":
+                idx = n_blocks.get(stack, 0) + 1
+            else:
+                idx = int(m.group(2)) + 1
+            key = key.replace(m.group(0), f".{idx}.", 1)
+            if ".conv." in key:
+                key = key.replace("conv.", "0.", 1)
+            elif ".norm." in key:
+                key = key.replace("norm.", bn, 1)
+                for a, b in _MS_BN_NAMES.items():
+                    if key.endswith("." + b):
+                        key = key[:-len(b)] + a
+                        break
+        if key.endswith(("weight_u", "weight_v")):
+            value = value.reshape(-1, 1)  # MindSpore keeps columns
+        new[key] = value
+    return new
+
+
+def j2m_HPVAEGAN(params: Dict, state: Dict, ndim: int = 2
+                 ) -> Dict[str, np.ndarray]:
+    """The JAX package's generator pytree -> MindSpore parameter names
+    (JAX convert.py::j2m_HPVAEGAN): t2m_HPVAEGAN of from_jax."""
+    return t2m_HPVAEGAN(from_jax(params, state, ndim), ndim)
+
+
+def load_intermediate(netG_pth) -> Dict:
+    """{noise_amps, scale_idx} of an original .pth checkpoint (reference
+    pt2ms.py:195-197)."""
+    return {"noise_amps": [float(a) for a in netG_pth["noise_amps"]],
+            "scale_idx": int(netG_pth["scale"])}
+
+
+def load_torch_checkpoint(path: str):
+    """torch.load of an original .pth on the CPU. weights_only: the
+    original layout (dicts of tensors, lists of floats, ints) needs no
+    other class, and nothing in the file runs."""
+    return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def load_generator_checkpoint(path: str, ndim: int
+                              ) -> Tuple[Dict[str, torch.Tensor],
+                                         Optional[Dict]]:
+    """A generator file of any format -> (the port's state_dict, the .pth's
+    {noise_amps, scale_idx} or None): the original .pth (by suffix, as the
+    JAX package dispatches), a MindSpore .ckpt (by content: the pickled
+    pytrees share the suffix) or a pickled (params, state) pytree of
+    either package."""
+    from ..utils.saver import load_pytree
+    from .ms_ckpt import is_ms_checkpoint, load_ms_checkpoint
+
+    if path.endswith(".pth"):
+        raw = load_torch_checkpoint(path)
+        return p2t_HPVAEGAN(raw), load_intermediate(raw)
+    if is_ms_checkpoint(path):
+        return m2t_HPVAEGAN(load_ms_checkpoint(path)), None
+    ckpt = load_pytree(path)
+    return from_jax(ckpt["params"], ckpt["state"], ndim), None

@@ -8,7 +8,9 @@ or "video" (3D). Per scale:
   * in video mode, cfg.fps, cfg.td and cfg.fps_index of the scale's
     sampling rate (trainer.py:548-555 there);
   * a fresh discriminator, warm-started from netD_<k-1>.ckpt when
-    vae_levels < k (train_image.py:29-39);
+    vae_levels < k (train_image.py:29-39), a pickled pytree of either
+    package or, found by content, a MindSpore checkpoint (JAX
+    trainer.py:52-64);
   * fresh optimizers over the plan's trainable subtrees;
   * the noise amp: 1.0 at scale 0 and under const_amp, else
     noise_amp_init * RMSE of a reconstruction (divided by batch_size again
@@ -42,6 +44,9 @@ trainer.py:448-534) reads the marker in --intermediate's directory:
       its trained stages, the amps their first k, D warm-starts from
       netD_<k-1> of --netG's directory, and scale k is recalibrated and
       trained again, from --manualSeed.
+In (b) and (c) --netG may also be the original hp-vae-gan's .pth or a
+MindSpore checkpoint (JAX trainer.py:459-479), though not for the CSG/SG
+baselines, whose JAX trainer resumes from pickled pytrees only.
 
 What the JAX trainer adds for XLA and the TPU has no counterpart here: the
 scan of `steps_per_call` iterations per dispatch, the compile-ahead
@@ -64,7 +69,6 @@ import json
 import logging
 import math
 import os
-import pickle
 import shutil
 import time
 from typing import Any, Dict, List, Optional, Tuple
@@ -77,8 +81,10 @@ from ..data.video import SingleVideoDataset
 from ..models.blocks import (cfg_compute_dtype, init_weights_,
                              set_compute_dtype)
 from ..optim import ClippedAdam, FlatAdam, adam, load_optimizer_state
-from ..tools.convert import (from_jax, from_jax_discriminator, to_jax,
-                             to_jax_discriminator)
+from ..tools.convert import (from_jax_discriminator,
+                             load_generator_checkpoint, m2t_WDiscriminator,
+                             to_jax, to_jax_discriminator)
+from ..tools.ms_ckpt import is_ms_checkpoint, load_ms_checkpoint
 from ..utils import pyramid
 from ..utils.device import resolve_device
 from ..utils.logger import logbook
@@ -103,18 +109,24 @@ def make_discriminator(cfg, saver: DataSaver, scale_idx: int,
                        ) -> torch.nn.Module:
     """A fresh D, warm-started (when `warm`) from netD_<k-1>.ckpt of
     warm_dir (a reference-style resume's --netG directory), or of the run's
-    own experiment dir when warm_dir is None."""
+    own experiment dir when warm_dir is None: a pickled pytree, or a
+    MindSpore checkpoint, which a reference-trained experiment holds."""
     D = models.get_discriminator(cfg.discriminator, ndim)(cfg)
     init_weights_(D, init_gen)
-    if warm:
-        try:
-            ckpt = saver.load_checkpoint(f"netD_{scale_idx - 1}.ckpt",
-                                         path=warm_dir)
-        except FileNotFoundError:
-            logging.warning("no previous netD checkpoint to warm-start from")
-        else:
-            D.load_state_dict(from_jax_discriminator(ckpt["params"],
-                                                     ckpt["state"], ndim))
+    if not warm:
+        return D.to(device)
+    name = f"netD_{scale_idx - 1}.ckpt"
+    path = os.path.join(warm_dir or saver.experiment_dir, name)
+    if os.path.isfile(path) and is_ms_checkpoint(path):
+        D.load_state_dict(m2t_WDiscriminator(load_ms_checkpoint(path)))
+        return D.to(device)
+    try:
+        ckpt = saver.load_checkpoint(name, path=warm_dir)
+    except FileNotFoundError:
+        logging.warning("no previous netD checkpoint to warm-start from")
+    else:
+        D.load_state_dict(from_jax_discriminator(ckpt["params"],
+                                                 ckpt["state"], ndim))
     return D.to(device)
 
 
@@ -300,21 +312,16 @@ def train_scale(cfg, G, dataset, saver: DataSaver, noise_amps: List[float],
     return noise_amps
 
 
-def _load_netg(path: str) -> Dict:
-    """A finalized netG_<k>.ckpt (a pickled numpy pytree of either
-    package)."""
-    if path.endswith(".pth"):
-        raise NotImplementedError(
-            f"{path}: resuming from the original hp-vae-gan's .pth "
-            "checkpoints is not ported yet (ROADMAP.md queue 1: .pth and "
-            "MindSpore interop)")
-    try:
-        return load_pytree(path)
-    except pickle.UnpicklingError as e:
-        raise NotImplementedError(
-            f"{path} is not a pickled (params, state) checkpoint; resuming "
-            "from MindSpore checkpoints is not ported yet (ROADMAP.md queue "
-            "1: .pth and MindSpore interop)") from e
+def _load_netg(cfg, path: str, ndim: int) -> Dict[str, torch.Tensor]:
+    """A finalized generator as the port's state_dict: a pickled pytree of
+    either package, the original .pth or a MindSpore checkpoint; a
+    baseline's a pickled pytree only (JAX baselines_trainer.py:313-314)."""
+    if cfg.generator in models.BASELINES and (
+            path.endswith(".pth") or is_ms_checkpoint(path)):
+        raise ValueError(f"{path}: {cfg.generator} resumes from pickled "
+                         "(params, state) checkpoints only, as the JAX "
+                         "package's baselines trainer does")
+    return load_generator_checkpoint(path, ndim)[0]
 
 
 def resume(cfg, saver: DataSaver, G, init_gen: torch.Generator,
@@ -338,8 +345,7 @@ def resume(cfg, saver: DataSaver, G, init_gen: torch.Generator,
         inflight = load_inflight(cfg.netG)
         state_dict = inflight["G"]
     else:
-        ckpt = _load_netg(cfg.netG)
-        state_dict = from_jax(ckpt["params"], ckpt["state"], G.ndim)
+        state_dict = _load_netg(cfg, cfg.netG, G.ndim)
     n_body = len({key.split(".")[1] for key in state_dict
                   if key.startswith("body.")})
     if n_body != k + G.body_offset:

@@ -301,3 +301,48 @@ def test_training_flag_iteration_matches_cpu(cuda, ndim, generator, flags):
         "metrics_rel": 1e-4, "grads_abs": 1e-4, "state_abs": 1e-4}
     for k, bound in tol.items():
         assert errs[k] <= bound, (k, errs)
+
+
+@pytest.mark.parametrize("ndim", [2, 3])
+def test_sampled_fid_matches_cpu(cuda, ndim):
+    """The on-device SIFID / SVFID path (parallel/sampling.py) on the card
+    with TF32 off equals the same run on the CPU from the same weights and
+    draws: the kept samples within 1e-5, the per-sample distances within
+    rtol 1e-3 (sqrtm amplifies the statistics' float32 differences)."""
+    import copy
+
+    from hpvaegan_tpu_torch.evaluation import eval_z_tail
+    from hpvaegan_tpu_torch.parallel import sampling
+    from hpvaegan_tpu_torch.tools.step_parity import (RecordingNoise,
+                                                      ReplayedNoise)
+
+    cfg = Config(nfc=8, latent_dim=8, num_layer=2, enc_blocks=1, img_size=32,
+                 min_size=16, max_size=32, vae_levels=2,
+                 sampling_rates=[2, 1]).finalize()
+    cfg.org_fps, cfg.ar, cfg.fps_lcm, cfg.td = 24.0, 0.75, 2, 3
+    cfg.Noise_Amps = [1.0] + [0.3] * cfg.stop_scale
+    cfg.scale_idx = cfg.stop_scale
+    gen = (GeneratorHPVAEGAN if ndim == 2 else GeneratorHPVAEGAN3D)(cfg)
+    for _ in range(cfg.stop_scale):
+        gen.init_next_stage(torch.Generator().manual_seed(0))
+    rng = np.random.RandomState(1)
+    real = rng.rand(*((20, 26, 3) if ndim == 2 else (5, 20, 26, 3))).astype(
+        np.float32)
+    make = (sampling.make_sampled_sifid if ndim == 2
+            else sampling.make_sampled_svfid)
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        rec = RecordingNoise(0, cuda)
+        card = make(cfg, gen.to(cuda), real, z_tail=eval_z_tail(cfg, ndim))(
+            4, rec, return_samples=2)
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved
+    host = make(cfg, copy.deepcopy(gen).cpu(), real,
+                z_tail=eval_z_tail(cfg, ndim))(
+        4, ReplayedNoise(rec.drawn, "cpu"), return_samples=2)
+    assert np.abs(card[1] - host[1]).max() <= 1e-5
+    np.testing.assert_allclose(card[0], host[0], rtol=1e-3)

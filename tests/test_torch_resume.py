@@ -321,11 +321,18 @@ def test_a_lone_resume_flag_is_refused(tmp_path, flag):
 
 
 def test_foreign_netg_formats_raise(tmp_path, restore_logging, finished):
+    """.pth and MindSpore generators resume (tests/test_torch_interop.py);
+    malformed ones fail loudly with the loader's or the codec's error: a
+    .pth that is no torch archive, a protobuf cut inside a field."""
+    import pickle
+
     inter = os.path.join(finished["image"], "intermediate.json")
-    for name, data in (("g.pth", b"x"), ("g.ckpt", b"\x0a\x05proto")):
+    for name, data, error, match in (
+            ("g.pth", b"x", pickle.UnpicklingError, "Weights only load"),
+            ("g.ckpt", b"\x0a\x05proto", ValueError, "wire type")):
         path = tmp_path / name
         path.write_bytes(data)
-        with pytest.raises(NotImplementedError, match="interop"):
+        with pytest.raises(error, match=match):
             timage_cli.main(TINY + ["--run-dir", str(tmp_path / "run"),
                                     "--netG", str(path),
                                     "--intermediate", inter])

@@ -285,8 +285,10 @@ def test_load_generator_rejects_mismatched_checkpoints(tmp_path):
     os.rename(exp / "netG_4.ckpt", exp / "netG_3.ckpt")
     with pytest.raises(RuntimeError, match="4 refinement stages"):
         teval.load_generator(ct, str(exp), device="cpu")
+    # a .pth loads now (tests/test_torch_interop.py); an empty one fails
+    # in torch.load
     (exp / "netG.pth").write_bytes(b"")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(EOFError):
         teval.load_generator(ct, str(exp), netG=str(exp / "netG.pth"),
                              device="cpu")
 
@@ -390,6 +392,12 @@ def test_port_imports_no_jax(tmp_path):
         "assert os.path.isfile(os.path.join(exp, 'Z_init.npy'))\n"
         "hpvaegan_tpu_torch.eval_video.main(['--exp-dir', exp, '--device',\n"
         "    'cpu', '--num-samples', '2'])\n"
+        "hpvaegan_tpu_torch.eval_video.main(['--exp-dir', exp, '--device',\n"
+        "    'cpu', '--num-samples', '2', '--on-device-fid'])\n"
+        "import hpvaegan_tpu_torch.tools.export_ms\n"
+        "import hpvaegan_tpu_torch.tools.metric_weights\n"
+        "from hpvaegan_tpu_torch.metrics.inception import InceptionV3\n"
+        "assert len(InceptionV3([3], device='cpu')(torch.rand(1, 3, 75, 75))) == 1\n"
         "bad = [m for m in sys.modules\n"
         "       if m == 'jax' or m.startswith(('jax.', 'jaxlib'))\n"
         "       or m == 'hpvaegan_tpu' or m.startswith('hpvaegan_tpu.')]\n"
