@@ -128,6 +128,24 @@ Phases, each of which exits non-zero on a failed check:
              (deterministic cuDNN), then train_image --netG <MindSpore
              netG_9> with a MindSpore netD_8 beside it retrains scale 9
              for 2 iterations
+ 18. export and serving  (a) a tiny ServingModule (2D at batch 2, 3D at
+             batch 1) on the card (TF32 off) against the CPU, same seed
+             (atol 1e-4); (b) `python -m hpvaegan_tpu_torch.export`, 8
+             noise bins each, on JAX-format experiments of the full-width
+             image (air_balloons.jpg's aspect) and video models
+             (numpy-seed netG_9) and of a tiny image model, the three
+             processes side by side: export and AOTInductor compile
+             seconds, peak GB, artifact MB. The native runner
+             (native/runner.cc, built with g++ beside phase 1) on the tiny
+             model's bins against its ExportedProgram (TF32 off, atol
+             1e-4); at full width, the ExportedProgram against the eager
+             ServingModule (atol 1e-4), the runner against the same
+             package run in this process (atol 1e-4) and against the
+             ExportedProgram (FULL_WIDTH_COMPILED_TOL, beside the
+             model's own response to a one-ulp change of its input), its
+             warm latency in float32 and with TF32 beside the eager
+             module's (h2d + forward + d2h); postprocess (finite SIFID /
+             SVFID); K1 launches 0 in this process's serving path
 Then it prints the kernels' JSON line, the card's name and power limit as
 nvidia-smi gives them, and last {"ok": true, "device": {...}}.
 
@@ -145,6 +163,7 @@ import pickle
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -152,6 +171,16 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 K1_REPLACES = "hpvaegan_tpu/ops/pallas/upsample_noise.py:111"
 SEED = 0
 BATCH = 64
+SERVE_BINS = 8  # phase 18's noise bins per experiment
+# phase 18: the compiled program (AOTInductor's fused kernels) against the
+# eager ExportedProgram at full width. Both are float32 but round in
+# another order, and the random full-width models amplify one rounding a
+# thousandfold: moving each element of noise_init by one ulp moves the
+# output by 2.0e-3 (2D) and 1.9e-3 (3D) on an H100, and the compiled
+# program differs from the eager one by 3.5e-3 and 1.9e-3. The runner is
+# held to the package run in this process (the same compiled code) and,
+# on the tiny model, to the ExportedProgram, both at 1e-4.
+FULL_WIDTH_COMPILED_TOL = 1e-2
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_F32_FLOPS = 67e12  # float32 outside the tensor cores, same source
 H100_TF32_FLOPS = 495e12  # TF32 on the tensor cores, dense, same source
@@ -2165,6 +2194,314 @@ def phase_ondevice(torch, k1, ckpt):
     return out
 
 
+def serving_card_vs_cpu(torch):
+    """Phase 18 (a): a tiny ServingModule on the card (TF32 off) against
+    the CPU from the same weights, noise and seed."""
+    import numpy as np
+
+    from hpvaegan_tpu_torch.data.video import SingleVideoDataset
+    from hpvaegan_tpu_torch.export.serving import (ServingModule,
+                                                   serving_input_specs)
+    from hpvaegan_tpu_torch.models import get_generator
+    from hpvaegan_tpu_torch.models.blocks import init_weights_
+
+    out = {}
+    for ndim, batch in ((2, 2), (3, 1)):
+        kw = {}
+        if ndim == 3:
+            kw = dict(video_path=os.path.join(HERE, "data", "vids",
+                                              "synthetic.avi"),
+                      max_frames=5, sampling_rates=[2, 1])
+        cfg = tiny_config(**kw)
+        if ndim == 3:
+            SingleVideoDataset(cfg, "cpu")  # sets org_fps, ar, fps_lcm
+        gen = get_generator(cfg.generator, ndim)(cfg)
+        for _ in range(cfg.stop_scale):
+            gen.init_next_stage()
+        init_weights_(gen, torch.Generator().manual_seed(SEED))
+        rng = np.random.RandomState(SEED)
+        specs = serving_input_specs(cfg, ndim, batch)
+        z = torch.from_numpy(rng.standard_normal(specs[0].shape)
+                             .astype(np.float32))
+        amps = torch.from_numpy(rng.uniform(0.1, 1.0, specs[1].shape)
+                                .astype(np.float32))
+        seed = torch.tensor(7, dtype=torch.int32)
+        with torch.no_grad():
+            want = ServingModule(gen)(z, amps, seed)
+            with exact_math(torch):
+                got = ServingModule(gen.to("cuda"))(
+                    z.cuda(), amps.cuda(), seed.cuda()).cpu()
+        diff = float((got - want).abs().max())
+        check(diff <= 1e-4, f"{ndim}D serving: card vs CPU {diff} > 1e-4")
+        out[f"{ndim}d_b{batch}"] = diff
+    print("  (a) tiny ServingModule, card vs CPU (TF32 off): max |diff| "
+          + json.dumps(out), flush=True)
+    return out
+
+
+def runner_latency(stdout):
+    """The runner's `NN inference cost average time: X ms of infer_count
+    N` line -> (X, N)."""
+    lines = [ln for ln in stdout.splitlines()
+             if ln.startswith("NN inference cost average time: ")]
+    check(len(lines) == 1, f"runner printed {stdout!r}")
+    words = lines[0].split()
+    return float(words[5]), int(words[-1])
+
+
+def export_experiments(exps):
+    """Phase 18 (b): `python -m hpvaegan_tpu_torch.export` on each
+    experiment, 8 noise bins each, the processes side by side (their
+    AOTInductor compiles are builds, run together as the kernels' are).
+    Returns each one's {export_s, aoti_compile_s, export_peak_gb} as the
+    CLI prints them."""
+    import re
+
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "hpvaegan_tpu_torch.export", "--exp-dir",
+         exp, "--num-samples", str(SERVE_BINS)], cwd=HERE,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for exp in exps]
+    out = []
+    try:
+        for proc in procs:
+            stdout, stderr = proc.communicate(timeout=1000)
+            check(proc.returncode == 0, f"export CLI exit {proc.returncode}:"
+                  f" {stderr[-3000:]}")
+            got = {}
+            for ln in stdout.splitlines():
+                m = re.match(r"(exported|compiled) \S+ in ([0-9.]+) s, peak "
+                             r"([0-9.]+) GB", ln)
+                if m:
+                    got[m.group(1)] = (float(m.group(2)), float(m.group(3)))
+            check(set(got) == {"exported", "compiled"},
+                  f"export CLI printed {stdout!r}")
+            out.append({"export_s": got["exported"][0],
+                        "aoti_compile_s": got["compiled"][0],
+                        "export_peak_gb": got["compiled"][1]})
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return out
+
+
+def serve_tiny(torch, exp, runner_build):
+    """Phase 18 (b): the runner on the tiny model's package against its
+    ExportedProgram on the same bins (TF32 off), atol 1e-4."""
+    import glob
+
+    import numpy as np
+
+    from hpvaegan_tpu_torch.export.serving import (load_serialized,
+                                                   run_serialized)
+    from hpvaegan_tpu_torch.tools.run_infer import run_runner
+
+    infer = os.path.join(exp, "infer")
+    runner_build.join()
+    check(runner_build.error is None, f"runner build: {runner_build.error}")
+    run_runner(exp)
+    program = load_serialized(glob.glob(os.path.join(infer, "*[0-9].pt2"))[0])
+    with open(os.path.join(infer, "io_spec.txt")) as f:
+        z_shape = tuple(int(d) for d in f.readline().split()[1].split(","))
+    amps = np.fromfile(os.path.join(infer, "noise_amps", "noise_amps.bin"),
+                       np.float32)
+    seed = np.fromfile(os.path.join(infer, "seed", "seed.bin"), np.int32)[0]
+    bins = sorted(glob.glob(os.path.join(infer, "noise_init", "*.bin")))
+    diff = 0.0
+    with exact_math(torch):
+        for b in bins:
+            want = run_serialized(program, np.fromfile(b, np.float32).reshape(
+                z_shape), amps, seed).cpu().numpy()
+            got = np.fromfile(os.path.join(infer, "result", os.path.basename(
+                b)[:-4] + "_output_0.bin"), np.float32).reshape(want.shape)
+            diff = max(diff, float(np.abs(got - want).max()))
+    check(len(bins) == SERVE_BINS and diff <= 1e-4,
+          f"tiny model: runner vs ExportedProgram {diff} over {len(bins)}")
+    print(f"  (b) tiny model, {len(bins)} bins: runner vs ExportedProgram "
+          f"max |diff| {diff} (TF32 off)", flush=True)
+    return diff
+
+
+def serve_experiment(torch, k1, exp, ndim, runner_build, exported_info):
+    """Phase 18 (b) on one exported experiment dir (module doc)."""
+    import glob
+
+    import numpy as np
+    from torch._inductor import aoti_load_package
+
+    from hpvaegan_tpu_torch import evaluation, postprocess
+    from hpvaegan_tpu_torch.export.serving import (ServingModule,
+                                                   load_serialized,
+                                                   run_serialized)
+    from hpvaegan_tpu_torch.tools.run_infer import run_runner
+
+    n = SERVE_BINS
+    k1.fused_upscale_noise_2d.launches = 0
+    infer = os.path.join(exp, "infer")
+    pt2, aoti = (os.path.join(infer, "netG_9" + ext)
+                 for ext in (".pt2", ".aoti.pt2"))
+    with open(os.path.join(infer, "io_spec.txt")) as f:
+        spec = f.read().splitlines()
+    z_shape = tuple(int(d) for d in spec[0].split()[1].split(","))
+    bins = sorted(glob.glob(os.path.join(infer, "noise_init", "*.bin")))
+    check(len(bins) == n and spec[1:] == ["f32 11", "s32"],
+          f"bins {len(bins)}, io_spec {spec}")
+    noises = [np.fromfile(b, np.float32).reshape(z_shape) for b in bins]
+    amps = np.fromfile(os.path.join(infer, "noise_amps", "noise_amps.bin"),
+                       np.float32)
+    seed = np.fromfile(os.path.join(infer, "seed", "seed.bin"), np.int32)[0]
+    amps_t = torch.from_numpy(amps).cuda()
+    seed_t = torch.tensor(seed).cuda()
+
+    # the eager module, the ExportedProgram and the AOTInductor package in
+    # this process, float32 convolutions (TF32 off)
+    cfg = evaluation.hydrate_config(exp, dict(scale_idx=-1))
+    gen, _ = evaluation.load_generator(cfg, exp, ndim=ndim, device="cuda")
+    module = ServingModule(gen)
+    program = load_serialized(pt2)
+    package = aoti_load_package(aoti)
+
+    def maxdiff(a, b):
+        return max(float(np.abs(x - y).max()) for x, y in zip(a, b))
+
+    with exact_math(torch), torch.no_grad():
+        eager = module(torch.from_numpy(noises[0]).cuda(), amps_t,
+                       seed_t).cpu().numpy()
+        exported = [run_serialized(program, z, amps, seed).cpu().numpy()
+                    for z in noises]
+        compiled = [package(torch.from_numpy(z).cuda(), amps_t,
+                            seed_t).cpu().numpy() for z in noises]
+        # the model's own float32 sensitivity: each element of noise_init
+        # moved by about one ulp (a relative 2^-23 of either sign)
+        rng = np.random.RandomState(SEED)
+        nudged = noises[0] * (1 + np.where(rng.rand(*z_shape) < 0.5, 1, -1)
+                              * 2.0 ** -23).astype(np.float32)
+        eager_nudged = module(torch.from_numpy(nudged).cuda(), amps_t,
+                              seed_t).cpu().numpy()
+    check(bool(np.isfinite(exported[0]).all())
+          and float(np.abs(exported[0]).max()) <= 1.0, "bad samples")
+
+    def eager_ms(tf32):
+        """Warm per-inference ms of the eager module over the n bins: h2d
+        + forward + d2h, synchronised."""
+        times = []
+        flags = contextlib.nullcontext() if tf32 else exact_math(torch)
+        with flags, torch.no_grad():
+            for z in noises[:1] + noises:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                module(torch.from_numpy(z).cuda(), amps_t, seed_t).cpu()
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+        return sum(times[1:]) / n
+
+    torch.cuda.reset_peak_memory_stats()
+    eager_f32 = eager_ms(False)
+    eager_peak = torch.cuda.max_memory_allocated() / 1e9
+    eager_tf32 = eager_ms(True)
+
+    runner_build.join()
+    check(runner_build.error is None, f"runner build: {runner_build.error}")
+    runner_f32 = runner_latency(run_runner(exp))
+    check(runner_f32[1] == n, f"runner ran {runner_f32[1]} of {n}")
+    outs = sorted(glob.glob(os.path.join(infer, "result", "*.bin")))
+    check(len(outs) == n, f"{len(outs)} runner outputs")
+    runner = [np.fromfile(o, np.float32).reshape(e.shape)
+              for o, e in zip(outs, exported)]
+    runner_tf32 = runner_latency(run_runner(exp, allow_tf32=True))
+    diffs = {"program_vs_eager": maxdiff([eager], exported[:1]),
+             "eager_input_one_ulp": maxdiff([eager], [eager_nudged]),
+             "package_vs_program": maxdiff(compiled, exported),
+             "runner_vs_package": maxdiff(runner, compiled),
+             "runner_vs_program": maxdiff(runner, exported)}
+    print("  (b) max |diff| over the bins (TF32 off): " + json.dumps(diffs),
+          flush=True)
+
+    metric = "SIFID" if ndim == 2 else "SVFID"
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        postprocess.main(["--exp-dir", exp])
+    post_s = time.perf_counter() - t0
+    lines = [ln for ln in buf.getvalue().splitlines()
+             if ln.startswith(f"{metric}: ")]
+    check(len(lines) == 1, f"postprocess printed {buf.getvalue()!r}")
+    value = float(lines[0].split()[1])
+    check(math.isfinite(value) and value >= 0, f"{metric} {value}")
+    launches = k1.fused_upscale_noise_2d.launches
+    check(launches == 0, f"the serving path launched K1 {launches} times")
+    for name, tol in (("program_vs_eager", 1e-4), ("runner_vs_package", 1e-4),
+                      ("runner_vs_program", FULL_WIDTH_COMPILED_TOL)):
+        check(diffs[name] <= tol, f"{name} {diffs[name]} > {tol}")
+    out = {"z": list(z_shape), "out": list(exported[0].shape),
+           **exported_info,
+           "pt2_mb": round(os.path.getsize(pt2) / 1e6, 2),
+           "aoti_pt2_mb": round(os.path.getsize(aoti) / 1e6, 2),
+           "runner_ms_f32": runner_f32[0], "runner_ms_tf32": runner_tf32[0],
+           "eager_ms_f32": round(eager_f32, 3),
+           "eager_ms_tf32": round(eager_tf32, 3),
+           "eager_peak_gb": round(eager_peak, 3),
+           "postprocess_s": round(post_s, 2), metric: value,
+           "k1_launches": launches}
+    print(f"  (b) {ndim}D export and serving, {n} bins: " + json.dumps(out),
+          flush=True)
+    return out
+
+
+class RunnerBuild(threading.Thread):
+    """The native runner's g++ build, started beside the kernels' nvcc."""
+
+    def __init__(self):
+        super().__init__(daemon=True)
+        self.error = None
+        self.seconds = None
+
+    def run(self):
+        from hpvaegan_tpu_torch.native import build
+
+        t0 = time.perf_counter()
+        try:
+            build.build()
+        except Exception as e:  # reported by the phase that joins
+            self.error = e
+        self.seconds = time.perf_counter() - t0
+
+
+def phase_serving(torch, k1, ckpt, runner_build):
+    """Phase 18 (module doc)."""
+    from PIL import Image
+
+    out = {"card_vs_cpu": serving_card_vs_cpu(torch)}
+    with tempfile.TemporaryDirectory(prefix="hpv_serve_") as run:
+        image = os.path.join(HERE, "data", "imgs", "air_balloons.jpg")
+        cfg = full_width_config(image_path=image)
+        with Image.open(image) as im:
+            cfg.ar = im.height / im.width  # as training sets it
+        vcfg, _ = video_config()
+        tiny = tiny_config(image_path=image)
+        tiny.scale_idx = tiny.stop_scale
+        tiny.Noise_Amps = [1.0] + [0.3] * tiny.stop_scale
+        exps = [os.path.join(run, name) for name in ("image", "video",
+                                                     "tiny")]
+        for exp, c, ndim in zip(exps, (cfg, vcfg, tiny), (2, 3, 2)):
+            os.makedirs(exp)
+            write_experiment(exp, c, ckpt if c is cfg else
+                             random_jax_checkpoint(c, SEED, ndim=ndim))
+        t0 = time.perf_counter()
+        info = export_experiments(exps)
+        print(f"  (b) export CLI on the three experiments side by side: "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        out["tiny"] = serve_tiny(torch, exps[2], runner_build)
+        out["image"] = serve_experiment(torch, k1, exps[0], 2, runner_build,
+                                        info[0])
+        print(f"  runner build (g++, beside phase 1): "
+              f"{runner_build.seconds:.1f} s", flush=True)
+        out["video"] = serve_experiment(torch, k1, exps[1], 3, runner_build,
+                                        info[1])
+    return out
+
 def main():
     try:
         import torch
@@ -2183,6 +2520,8 @@ def main():
     pkg = os.path.dirname(os.path.abspath(hpvaegan_tpu_torch.__file__))
     check(pkg.startswith(HERE + os.sep), f"imported {pkg}, not this checkout")
     t_start = time.perf_counter()
+    runner_build = RunnerBuild()
+    runner_build.start()
 
     print("phase 1: build", flush=True)
     t0 = time.perf_counter()
@@ -2282,6 +2621,11 @@ def main():
     phase_ondevice(torch, k1, ckpt)
     print(f"  phase 17 took {time.perf_counter() - t0:.1f} s", flush=True)
 
+    print("phase 18: export and native serving", flush=True)
+    t0 = time.perf_counter()
+    phase_serving(torch, k1, ckpt, runner_build)
+    print(f"  phase 18 took {time.perf_counter() - t0:.1f} s", flush=True)
+
     kernels = [{
         "name": "fused_upscale_noise_2d",
         "route": "cuda",
@@ -2301,7 +2645,8 @@ def main():
           f" launches: phase 3's GeneratorHPVAEGAN forward ({launches}), "
           f"phase 14's GeneratorVAE_nb forward ({nb['launches']}), phase "
           "15's baselines (0), phase 16's training-flag runs (0), phase "
-          "17's on-device eval and interop (0)",
+          "17's on-device eval and interop (0), phase 18's export and "
+          "serving (0)",
           flush=True)
     print(f"  total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -134,6 +134,13 @@ class WDiscriminator2D(nn.Module):
         return self.tail(y), state
 
 
+def stage_amp(amps, index: int):
+    """amps[index]: a 0-d tensor where amps is a tensor (the exported
+    sampler's input, which float() would freeze into the graph), else a
+    float."""
+    return amps[index] if torch.is_tensor(amps) else float(amps[index])
+
+
 def refinement_layers(cfg, body: Sequence[nn.Module], x: torch.Tensor, amps,
                       noise: NoiseSource, *, is_random: bool, bn: str,
                       commit: Commit = True,
@@ -159,14 +166,14 @@ def refinement_layers(cfg, body: Sequence[nn.Module], x: torch.Tensor, amps,
         if cfg.vae_levels == idx + 1 \
                 and not (cfg.train_all and train_all_escape):
             x = x.detach()  # the VAE boundary (networks_2d.py:202-204)
-        amp = float(amps[idx + 1])
+        amp = stage_amp(amps, idx + 1)
         if use_fused:
             seed = noise.seed()
             hw = scale_size_2d(idx + 1, cfg.scale_factor, cfg.stop_scale,
                                cfg.img_size, cfg.ar)
             bits = noise.kernel_bits((x.shape[0], x.shape[1], hw[0], hw[1]))
             x_up, x_in = fused_upscale_noise_2d(
-                x.contiguous(), hw, amp, seed, bits=bits)
+                x.contiguous(), hw, float(amp), seed, bits=bits)
         else:
             x_up = upscale_2d(x, idx + 1, cfg.scale_factor, cfg.stop_scale,
                               cfg.img_size, cfg.ar)

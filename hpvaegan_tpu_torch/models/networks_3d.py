@@ -58,7 +58,7 @@ def refinement_layers_3d(cfg, body: Sequence[nn.Module], x: torch.Tensor,
                           cfg.img_size, cfg.stop_scale_time,
                           cfg.sampling_rates, cfg.org_fps, cfg.fps_lcm, cfg.ar)
         if is_random and cfg.vae_levels <= idx + 1:
-            z = noise.normal(x_up.shape) * float(amps[idx + 1])
+            z = noise.normal(x_up.shape) * networks_2d.stage_amp(amps, idx + 1)
             x_in = x_up + z.to(x_up.dtype)  # float32 noise, cast (JAX :232)
         else:
             x_in = x_up

@@ -1,5 +1,5 @@
-"""The draws of `jax.random.normal(jax.random.fold_in(PRNGKey(seed), i),
-shape)` in numpy, without JAX.
+"""The JAX seed stream without JAX: in numpy for the metric networks' init,
+and as traceable tensor arithmetic for the exported sampler.
 
 The JAX package initialises its metric networks (metrics/inception.py:
 175-188, metrics/c3d.py:50-62 there) with these draws, float32, under
@@ -16,6 +16,18 @@ every block and seed:
   * `normal`: sqrt(2) * erfinv(u), erfinv as XLA computes it in float32
     (M. Giles' single-precision polynomial, the one `lax.erf_inv` lowers
     to).
+
+The tensor path (`prng_key`, `split`, `normal` and `bernoulli` on tensors)
+draws what the JAX package's serving function draws (export/stablehlo.py
+there: PRNGKey(seed), split, jax.random.normal / bernoulli), as tensor
+arithmetic that `torch.export` traces with the seed as a graph input. A key
+is an int64 tensor (..., 2) holding two 32-bit words; words stay in int64
+masked to 32 bits, so no unsigned type or bitcast is needed. Each function
+maps over the key's leading axes, as `jax.vmap` over a batch of keys does.
+The uniform is `(bits >> 9) * 2**-23` (exact), and the normal is
+`sqrt(2) * torch.erfinv(u)`: PyTorch's erfinv, not XLA's polynomial, so a
+draw may differ from JAX's by an ulp or so (the numpy path above is the bit
+exact one).
 """
 
 from __future__ import annotations
@@ -23,8 +35,10 @@ from __future__ import annotations
 from typing import Sequence, Tuple
 
 import numpy as np
+import torch
 
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+_MASK = 0xFFFFFFFF  # the tensor path's 32-bit words, held in int64
 # erfinv's polynomial coefficients for w < 5 and w >= 5, highest first
 _ERFINV_SMALL = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
                  -4.39150654e-06, 0.00021858087, -0.00125372503,
@@ -68,8 +82,13 @@ def threefry2x32(key: Tuple[int, int], x0: np.ndarray, x1: np.ndarray
     return x0, x1
 
 
-def prng_key(seed: int) -> Tuple[int, int]:
-    """jax.random.PRNGKey(seed) for a seed in [0, 2^32)."""
+def prng_key(seed):
+    """jax.random.PRNGKey(seed) for a seed in [0, 2^32); for a tensor seed
+    (an int32 0-d tensor, negative ones taken modulo 2^32 as JAX does), the
+    key tensor (..., 2)."""
+    if torch.is_tensor(seed):
+        low = seed.to(torch.int64) & _MASK
+        return torch.stack([torch.zeros_like(low), low], dim=-1)
     if not 0 <= int(seed) < 2 ** 32:
         raise ValueError(f"seed {seed} outside [0, 2^32)")
     return 0, int(seed)
@@ -182,8 +201,11 @@ def erfinv(x: np.ndarray) -> np.ndarray:
     return p * x
 
 
-def normal(key: Tuple[int, int], shape: Sequence[int]) -> np.ndarray:
-    """jax.random.normal(key, shape) in float32."""
+def normal(key, shape: Sequence[int]):
+    """jax.random.normal(key, shape) in float32; for a key tensor (*K, 2),
+    a tensor (*K, *shape) on the key's device."""
+    if torch.is_tensor(key):
+        return _normal_tensor(key, shape)
     lo = np.nextafter(np.float32(-1), np.float32(0))
     u = uniform(key, shape, lo, 1.0)
     return np.float32(np.sqrt(2)) * erfinv(u)
@@ -193,3 +215,63 @@ def folded_normal(seed: int, i: int, shape: Sequence[int]) -> np.ndarray:
     """jax.random.normal(jax.random.fold_in(PRNGKey(seed), i), shape), the
     metric networks' draw for their i-th conv."""
     return normal(fold_in(prng_key(seed), i), shape)
+
+
+# ---------------------------------------------------------------- tensors --
+
+
+def _threefry_tensor(key: torch.Tensor, x0: torch.Tensor, x1: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """threefry2x32 on int64 tensors of 32-bit words: key (*K, 2), the
+    counter words (N,) -> two (*K, N) words."""
+    k0, k1 = key[..., 0:1], key[..., 1:2]
+    ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
+    x0 = (x0 + k0) & _MASK
+    x1 = (x1 + k1) & _MASK
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x0 = (x0 + x1) & _MASK
+            x1 = (((x1 << r) | (x1 >> (32 - r))) & _MASK) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & _MASK
+        x1 = (x1 + ks[(i + 2) % 3] + (i + 1)) & _MASK
+    return x0, x1
+
+
+def split(key: torch.Tensor, n: int = 2) -> torch.Tensor:
+    """jax.random.split(key, n) of a key tensor (*K, 2): (*K, n, 2), key i
+    the hash of the counter (0, i)."""
+    i = torch.arange(n, dtype=torch.int64, device=key.device)
+    y0, y1 = _threefry_tensor(key, torch.zeros_like(i), i)
+    return torch.stack([y0, y1], dim=-1)
+
+
+def _bits_tensor(key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
+    """jax.random.bits(key, shape) of 32-bit words (partitionable layout):
+    element j (row-major) is the XOR of the hash of the counter (j >> 32,
+    j & 0xFFFFFFFF). Returns (*K, *shape) int64."""
+    shape = tuple(int(s) for s in shape)
+    j = torch.arange(int(np.prod(shape, dtype=np.int64)), dtype=torch.int64,
+                     device=key.device)
+    y0, y1 = _threefry_tensor(key, j >> 32, j & _MASK)
+    return (y0 ^ y1).reshape(tuple(key.shape[:-1]) + shape)
+
+
+def _uniform_tensor(key: torch.Tensor, shape: Sequence[int], minval: float,
+                    maxval: float) -> torch.Tensor:
+    """jax.random.uniform(key, shape, float32, minval, maxval): the top 23
+    bits as a float in [0, 1), exactly, then scaled in float32."""
+    floats = (_bits_tensor(key, shape) >> 9).to(torch.float32) * 2.0 ** -23
+    lo, hi = np.float32(minval), np.float32(maxval)
+    return torch.clamp_min(floats * float(hi - lo) + float(lo), float(lo))
+
+
+def _normal_tensor(key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
+    lo = np.nextafter(np.float32(-1), np.float32(0))
+    u = _uniform_tensor(key, shape, lo, 1.0)
+    return torch.erfinv(u) * float(np.float32(np.sqrt(2)))
+
+
+def bernoulli(key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
+    """jax.random.bernoulli(key, 0.5, shape) of a key tensor (*K, 2): bool
+    (*K, *shape), a float32 uniform below 0.5."""
+    return _uniform_tensor(key, shape, 0.0, 1.0) < 0.5

@@ -9,7 +9,8 @@ hflip flags, the video windows' starts and GeneratorVAE_nb's gate — so that
 a test can replace it with one that hands out another framework's draws, in
 call order. `get_state` / `set_state` carry both of its generators through
 a checkpoint (utils/saver.py), so that a resumed run draws what the
-uninterrupted one would have.
+uninterrupted one would have. `KeyedNoise` draws from the JAX seed stream
+instead (utils/jax_prng.py), for the exported sampler.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
+from . import jax_prng
 from .device import resolve_device
 
 
@@ -91,3 +93,46 @@ class NoiseSource:
         kernel (and its plain version) then draw them from the seed by
         Philox. A test overrides this to feed another framework's words."""
         return None
+
+
+class KeyedNoise(NoiseSource):
+    """The JAX package's draws from per-sample PRNG keys, as tensor
+    arithmetic that `torch.export` traces (the seed is a graph input).
+
+    `keys` (B, 2) holds sample b's key chain. Each `normal(shape)` splits
+    every key into (key, sub), as `key, sub = jax.random.split(key)` before
+    each refinement draw (networks_2d.py:214-216, networks_3d.py:224-230
+    there), and draws sample b's noise from its sub in JAX's channels-last
+    order, (1, H, W, C) or (1, T, H, W, C), then moves the channels to the
+    port's axis 1. `bernoulli(shape)` draws GeneratorVAE_nb's gate from
+    `gate_keys` (its `kb`, unsplit), also channels-last.
+    """
+
+    def __init__(self, keys: torch.Tensor,
+                 gate_keys: Optional[torch.Tensor] = None):
+        self.device = keys.device
+        self.keys = keys
+        self.gate_keys = gate_keys
+
+    @staticmethod
+    def _channels_last(shape: Sequence[int]) -> Tuple[int, ...]:
+        """One sample's shape in JAX's layout: (1, *spatial, C)."""
+        return (1,) + tuple(int(s) for s in shape[2:]) + (int(shape[1]),)
+
+    @staticmethod
+    def _to_port(draw: torch.Tensor) -> torch.Tensor:
+        """(B, 1, *spatial, C) -> (B, C, *spatial)."""
+        return draw.squeeze(1).movedim(-1, 1)
+
+    def normal(self, shape: Sequence[int]) -> torch.Tensor:
+        pairs = jax_prng.split(self.keys)
+        self.keys = pairs[:, 0]
+        return self._to_port(jax_prng.normal(pairs[:, 1],
+                                             self._channels_last(shape)))
+
+    def bernoulli(self, shape: Sequence[int]) -> torch.Tensor:
+        if self.gate_keys is None:
+            raise ValueError("KeyedNoise has no gate keys for a Bernoulli "
+                             "draw")
+        return self._to_port(jax_prng.bernoulli(self.gate_keys,
+                                                self._channels_last(shape)))

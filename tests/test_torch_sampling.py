@@ -395,6 +395,11 @@ def test_port_imports_no_jax(tmp_path):
         "hpvaegan_tpu_torch.eval_video.main(['--exp-dir', exp, '--device',\n"
         "    'cpu', '--num-samples', '2', '--on-device-fid'])\n"
         "import hpvaegan_tpu_torch.tools.export_ms\n"
+        "import hpvaegan_tpu_torch.export.serving\n"
+        "import hpvaegan_tpu_torch.export.__main__\n"
+        "import hpvaegan_tpu_torch.preprocess, hpvaegan_tpu_torch.postprocess\n"
+        "import hpvaegan_tpu_torch.tools.run_infer\n"
+        "import hpvaegan_tpu_torch.native.build\n"
         "import hpvaegan_tpu_torch.tools.metric_weights\n"
         "from hpvaegan_tpu_torch.metrics.inception import InceptionV3\n"
         "assert len(InceptionV3([3], device='cpu')(torch.rand(1, 3, 75, 75))) == 1\n"
