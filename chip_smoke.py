@@ -145,7 +145,47 @@ Phases, each of which exits non-zero on a failed check:
              model's own response to a one-ulp change of its input), its
              warm latency in float32 and with TF32 beside the eager
              module's (h2d + forward + d2h); postprocess (finite SIFID /
-             SVFID); K1 launches 0 in this process's serving path
+             SVFID); K1 launches 0 in this process's serving path; (c)
+             beside the export CLIs, a process that exports the serving
+             module's draw chain (its key splits and KeyedNoise's normals
+             at every refinement stage of the full-width image and video
+             models, drawn up front as the traced serving forward draws
+             them), compiles it with AOTInductor for the card and holds
+             its draws at three seeds to utils/jax_prng.py's numpy path
+             (XLA:CPU's arithmetic) bit for bit (that process starts
+             with the export CLIs and is joined before anything is
+             timed after them; no phase before 18 runs beside it)
+ 19. data parallel  (a) the multi-process helpers and the data group's
+             collectives under NCCL as one rank on the card: agree_*,
+             broadcast_str (raising for a long string), to_host, sync,
+             batch-statistics BatchNorm's double backward through the
+             all-reduce, and one full-width scale-9 iteration over the
+             one-rank group against no group (TF32 off; the first
+             iteration's metrics and gradients within DP_TRAIN_REL, the
+             parameters and running statistics after 4 reported: Adam's
+             first update turns a gradient that is zero up to rounding
+             into +-lr, and the random full-width model amplifies
+             rounding);
+             (b) two ranks on the card over gloo (NCCL takes one card per
+             rank), each a `chip_smoke.py --dp-worker` process, against
+             this process at the same global batch, TF32 off: 4
+             full-width scale-9 iterations at batch 2 (the ranks'
+             parameters and metrics bit-equal; against one process as in
+             (a); steps/s of both over iterations 2-3, and the share of
+             iteration 4 spent in the collectives), eval_image --on-device-fid of 64 samples of
+             the full-width image model sharded over the ranks (the
+             same SIFID on both, rtol 1e-3 of one process's), the
+             moving-stat sampler with pallas_fused_sampling, 2 x 32
+             against 1 x 64 (K1 launching 9 times on each rank, seeds
+             offset by the rank's first row; max abs err 1e-4), and the
+             full-width video model's per-sample-BN sampler, 2 x 32
+             against 1 x 64, which one process splits into two
+             sub-batches of 32 (each rank runs both, one on none of its
+             rows, for the draws; max abs err 1e-4);
+             (c) planted faults: (b)'s first iteration on two ranks with
+             the gradients not averaged, BatchNorm's statistics not
+             reduced, or every rank drawing the first rows (another
+             rank's draws), each of which DP_TRAIN_REL must catch
 Then it prints the kernels' JSON line, the card's name and power limit as
 nvidia-smi gives them, and last {"ok": true, "device": {...}}.
 
@@ -153,6 +193,7 @@ Weights are random (numpy seed), He-normal convs so activations keep unit
 scale through the stacks. Nothing here imports JAX or the JAX package.
 """
 
+import atexit
 import contextlib
 import dataclasses
 import io
@@ -160,6 +201,7 @@ import json
 import math
 import os
 import pickle
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -2450,6 +2492,39 @@ def serve_experiment(torch, k1, exp, ndim, runner_build, exported_info):
     return out
 
 
+CHILDREN = []  # the processes this script starts, ended at its exit
+
+
+@atexit.register
+def end_children():
+    for proc in CHILDREN:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+class DrawsCheck:
+    """Phase 18 (c) in a process of its own (`--serving-draws`), started
+    with phase 18's export CLIs, so that its AOTInductor compile runs
+    beside theirs and beside no timed phase."""
+
+    def __init__(self):
+        self.dir = tempfile.mkdtemp(prefix="hpv_draws_")
+        self.proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--serving-draws",
+             self.dir], cwd=HERE, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+        CHILDREN.append(self.proc)
+
+    def result(self):
+        log, _ = self.proc.communicate(timeout=900)
+        check(self.proc.returncode == 0, f"serving draws: {log[-3000:]}")
+        with open(os.path.join(self.dir, "draws.json")) as f:
+            out = json.load(f)
+        shutil.rmtree(self.dir)
+        return out
+
+
 class RunnerBuild(threading.Thread):
     """The native runner's g++ build, started beside the kernels' nvcc."""
 
@@ -2467,6 +2542,84 @@ class RunnerBuild(threading.Thread):
         except Exception as e:  # reported by the phase that joins
             self.error = e
         self.seconds = time.perf_counter() - t0
+
+
+def stage_draw_shapes(cfg, ndim):
+    """The refinement draws of one serving sample (port layout, batch 1,
+    nc_im channels), one per stage 1..stop_scale."""
+    from hpvaegan_tpu_torch.utils import pyramid
+
+    out = []
+    for k in range(1, cfg.stop_scale + 1):
+        h, w = pyramid.scale_size_2d(k, cfg.scale_factor, cfg.stop_scale,
+                                     cfg.img_size, cfg.ar)
+        if ndim == 2:
+            out.append((1, cfg.nc_im, h, w))
+        else:
+            td = pyramid.get_fps_td_by_index(
+                k, cfg.stop_scale_time, cfg.sampling_rates, cfg.org_fps,
+                cfg.fps_lcm)[1]
+            out.append((1, cfg.nc_im, td, h, w))
+    return out
+
+
+def serving_draws_worker(out_dir):
+    """Phase 18 (c), run as `chip_smoke.py --serving-draws <dir>` from the
+    start of the script: the serving module's draw chain (ServingModule's
+    key splits, then utils/noise.py::KeyedNoise drawing up front, as the
+    traced serving forward does: one draw at each stage of the full-width
+    image and video models), exported and
+    compiled by AOTInductor for the card, run at three seeds and held bit
+    for bit to utils/jax_prng.py's numpy path (XLA:CPU's arithmetic).
+    Writes draws.json into out_dir."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from hpvaegan_tpu_torch.export.serving import compile_native
+    from hpvaegan_tpu_torch.utils import jax_prng
+    from hpvaegan_tpu_torch.utils.noise import KeyedNoise
+
+    image = os.path.join(HERE, "data", "imgs", "air_balloons.jpg")
+    cfg = full_width_config(image_path=image)
+    with Image.open(image) as im:
+        cfg.ar = im.height / im.width
+    vcfg, _ = video_config()
+    shapes = stage_draw_shapes(cfg, 2) + stage_draw_shapes(vcfg, 3)
+
+    class Draws(torch.nn.Module):
+        """ServingModule's key chain and its traced forward's draws: all
+        of them up front, through one erfinv."""
+
+        def forward(self, seed):
+            keys = jax_prng.split(jax_prng.prng_key(seed)[None], 2)
+            noise = KeyedNoise(keys[:, -1], shapes=shapes)
+            return tuple(noise.normal(s) for s in shapes)
+
+    seed0 = torch.tensor(0, dtype=torch.int32, device="cuda")
+    t0 = time.perf_counter()
+    exported = torch.export.export(Draws(), (seed0,))
+    package = torch._inductor.aoti_load_package(compile_native(
+        exported, os.path.join(out_dir, "draws.aoti.pt2")))
+    compile_s = time.perf_counter() - t0
+    out = {"draws": len(shapes), "compile_s": round(compile_s, 1),
+           "elements": 0, "bits_differ": 0}
+    for seed in (0, 11, 2 ** 31 - 1):
+        got = package(torch.tensor(seed, dtype=torch.int32, device="cuda"))
+        keys = jax_prng.split(jax_prng.prng_key(torch.tensor(
+            seed, dtype=torch.int32))[None], 2)[:, -1]
+        for shape, g in zip(shapes, got):
+            pairs = jax_prng.split(keys)
+            keys, sub = pairs[:, 0], pairs[0, 1]
+            want = jax_prng.normal((int(sub[0]), int(sub[1])),
+                                   KeyedNoise._channels_last(shape))
+            want = np.moveaxis(want, -1, 1)
+            g = g.cpu().numpy()
+            out["elements"] += int(want.size)
+            out["bits_differ"] += int((g.view(np.int32)
+                                       != want.view(np.int32)).sum())
+    with open(os.path.join(out_dir, "draws.json"), "w") as f:
+        json.dump(out, f)
 
 
 def phase_serving(torch, k1, ckpt, runner_build):
@@ -2490,9 +2643,19 @@ def phase_serving(torch, k1, ckpt, runner_build):
             write_experiment(exp, c, ckpt if c is cfg else
                              random_jax_checkpoint(c, SEED, ndim=ndim))
         t0 = time.perf_counter()
+        draws_check = DrawsCheck()
         info = export_experiments(exps)
-        print(f"  (b) export CLI on the three experiments side by side: "
-              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        print(f"  (b) export CLI on the three experiments side by side "
+              f"(beside (c)'s compile): {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        out["draws"] = draws_check.result()
+        print("  (c) the AOTInductor package's normals against the numpy "
+              "path (compiled beside the export CLIs; joined "
+              f"{time.perf_counter() - t0:.1f} s after they started): "
+              + json.dumps(out["draws"]), flush=True)
+        check(out["draws"]["bits_differ"] == 0,
+              f"the compiled draws differ in {out['draws']['bits_differ']} "
+              "elements")
         out["tiny"] = serve_tiny(torch, exps[2], runner_build)
         out["image"] = serve_experiment(torch, k1, exps[0], 2, runner_build,
                                         info[0])
@@ -2502,7 +2665,493 @@ def phase_serving(torch, k1, ckpt, runner_build):
                                         info[1])
     return out
 
+# phase 19: the data-parallel ranks of one card (gloo: NCCL takes one card
+# per rank) and the run they are held to
+DP_RANKS = 2
+DP_ITERS = 4  # at scale 9: 1 compared, 2 timed, 1 with collectives timed
+DP_SAMPLES = 64
+DP_SCALE = 9
+DP_DEVICE = "cuda"
+# phase 19's bar for training against one process: the random full-width
+# model amplifies a rounding about a thousandfold (phase 18: one ulp of its
+# input moves its output by ~2e-3), and the first iteration over NCCL as
+# one rank, the same arithmetic but for the order of BatchNorm's sums,
+# already moves G's gradients by 1.7e-3 and the metrics by 9.6e-4 on an
+# H100 (two gloo ranks: 1.85e-3). Each fault planted in (c) moves G's
+# gradients by 0.149 (not averaged), 0.173 (BatchNorm not reduced) or
+# 0.210 (another rank's draws) there, so the bar sits 5x above the sound
+# runs and 15x below the faults; (c) fails if a fault reads under it.
+DP_TRAIN_REL = 1e-2
+
+
+def param_diffs(a, b):
+    """(max |diff| over the parameters, max relative |diff| over the
+    BatchNorm running statistics) of two state dicts."""
+    par = [float((a[k] - b[k]).abs().max()) for k in a
+           if "running_" not in k]
+    run = [float(((a[k] - b[k]).abs() / b[k].abs().clamp_min(1e-3)).max())
+           for k in a if "running_" in k]
+    return max(par), max(run, default=0.0)
+
+
+def grads_rel(a, b):
+    """||a - b|| / ||b|| over all the gradients of a module at once."""
+    num = sum(float(((a[k] - b[k]) ** 2).sum()) for k in b)
+    return math.sqrt(num / sum(float((v ** 2).sum()) for v in b.values()))
+
+
+def metrics_rel(a, b):
+    """The largest |a - b| / max(|b|, 1e-2) over the logged metrics."""
+    return max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-2) for k in b)
+
+
+def first_iteration_rel(got, want):
+    """The first iteration's metrics and gradients of `got` against
+    `want`: what DP_TRAIN_REL bounds."""
+    return {"metrics_rel_iter1": metrics_rel(got["metrics"], want["metrics"]),
+            "G_grads_rel_iter1": grads_rel(got["G_grads"], want["G_grads"]),
+            "D_grads_rel_iter1": grads_rel(got["D_grads"], want["D_grads"])}
+
+
+# phase 19 (c): the faults planted in a rank, each undoing one of the
+# three things that make N ranks one process (parallel/mesh.py)
+DP_FAULTS = ("grads_not_averaged", "bn_not_reduced", "draws_not_sliced")
+
+
+def plant_fault(fault):
+    """Undo one part of the data axis in this process: the gradients'
+    mean (training/steps.py::_set_grads without it), BatchNorm's sum
+    over the ranks (ops/norm.py never handed one), or the slicing of the
+    global draws (every rank draws rows [0, b), the first rank's)."""
+    from hpvaegan_tpu_torch.ops import norm
+    from hpvaegan_tpu_torch.training import steps
+    from hpvaegan_tpu_torch.utils.noise import NoiseSource
+
+    if fault == "grads_not_averaged":
+        def set_grads(params, loss):
+            import torch
+
+            grads = torch.autograd.grad(loss, params, materialize_grads=True)
+            for p, g in zip(params, grads):
+                p.grad = g
+        steps._set_grads = set_grads
+    elif fault == "bn_not_reduced":
+        norm.set_group_sum = lambda group_sum: None
+    elif fault == "draws_not_sliced":
+        NoiseSource._rows = lambda self, b: (b, 0)
+    else:
+        raise ValueError(f"unknown fault {fault!r}")
+
+
+def dp_train_leg(torch, group, first_only=False):
+    """DP_ITERS full-width training iterations at scale 9 (GAN) of a global
+    batch of 2, under `group` (a rank's share of it, or the whole in one
+    process). Returns the first iteration's metrics and gradients (the
+    step is then the same arithmetic in both, up to the order of float32
+    sums; after it Adam's first update, lr * sign(g), turns a gradient
+    that is zero up to rounding into +-lr, so later parameters differ by
+    ~2 lr per step in a few elements and are only reported), G's and
+    D's state after all the iterations, the steps/s of iterations 2 and 3,
+    and the share of iteration 4 spent in the group's collectives (the
+    device synchronised before each, so queued work is not counted)."""
+    from hpvaegan_tpu_torch.data.image import SingleImageDataset
+    from hpvaegan_tpu_torch.parallel import mesh
+    from hpvaegan_tpu_torch.tools.step_parity import build_state
+    from hpvaegan_tpu_torch.training.steps import (batch_former,
+                                                   train_iteration)
+    from hpvaegan_tpu_torch.utils.noise import NoiseSource
+
+    image = os.path.join(HERE, "data", "imgs", "air_balloons.jpg")
+    cfg = full_width_config(image_path=image, batch_size=2)
+    dataset = SingleImageDataset(cfg, DP_DEVICE)
+    amps = [1.0] + [0.05] * (cfg.stop_scale + 1)
+    st = build_state(cfg, DP_SCALE, SEED, DP_DEVICE)
+    data = dataset.scale_image(DP_SCALE), dataset.scale_image(0)
+    former = batch_former(2, DP_SCALE)
+
+    def iteration():
+        return {k: float(v) for k, v in train_iteration(
+            cfg, st, data[0], data[1], amps, False, former).items()}
+
+    def grads(module):
+        return {k: p.grad.detach().cpu().clone()
+                for k, p in module.named_parameters() if p.grad is not None}
+
+    with mesh.data_parallel(group):
+        st.noise = NoiseSource(SEED, DP_DEVICE)
+        first = iteration()
+        out = {"metrics": first, "G_grads": grads(st.G),
+               "D_grads": grads(st.D)}
+        if first_only:
+            return out
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(2):
+            metrics = iteration()
+        torch.cuda.synchronize()
+        out["steps_per_s"] = 2 / (time.perf_counter() - t0)
+        mesh.timing, mesh.COLLECTIVE_SECONDS[0] = True, 0.0
+        t0 = time.perf_counter()
+        metrics = iteration()
+        torch.cuda.synchronize()
+        out["collective_share"] = (mesh.COLLECTIVE_SECONDS[0]
+                                   / (time.perf_counter() - t0))
+        mesh.timing = False
+    check(all(math.isfinite(v) for v in metrics.values()),
+          f"data-parallel metrics {metrics}")
+    out["G"] = {k: v.cpu() for k, v in st.G.state_dict().items()}
+    out["D"] = {k: v.cpu() for k, v in st.D.state_dict().items()}
+    return out
+
+
+def train_parity(got, want, what):
+    """The first iteration's metrics and gradients of `got` against `want`,
+    each within DP_TRAIN_REL; the parameters (max |diff|) and BatchNorm
+    running statistics (max relative diff) after DP_ITERS iterations,
+    reported."""
+    g_par, g_run = param_diffs(got["G"], want["G"])
+    d_par, d_run = param_diffs(got["D"], want["D"])
+    out = {**first_iteration_rel(got, want),
+           f"G_param_max_diff_after_{DP_ITERS}": g_par,
+           f"G_running_stats_max_rel_after_{DP_ITERS}": g_run,
+           f"D_param_max_diff_after_{DP_ITERS}": d_par,
+           f"D_running_stats_max_rel_after_{DP_ITERS}": d_run}
+    check(max(out["metrics_rel_iter1"], out["G_grads_rel_iter1"],
+              out["D_grads_rel_iter1"]) <= DP_TRAIN_REL, f"{what}: {out}")
+    return out
+
+
+def dp_eval_leg(torch, exp, mesh_data):
+    """The eval CLI's --on-device-fid SIFID of DP_SAMPLES samples on `exp`
+    (evaluation.eval_image_experiment, which shards over the ranks)."""
+    from hpvaegan_tpu_torch.evaluation import (eval_image_experiment,
+                                               hydrate_config)
+
+    cfg = hydrate_config(exp, dict(
+        niter=1, data_rep=1, batch_size=1, num_samples=DP_SAMPLES,
+        max_samples=4, save_path="images", scale_idx=-1,
+        mesh_data=mesh_data, on_device_fid=True, netG=""))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    value = eval_image_experiment(cfg, exp, seed=SEED, device=DP_DEVICE)[0]
+    return {"SIFID": value, "s": time.perf_counter() - t0}
+
+
+def dp_sampler_leg(torch, k1, exp, group):
+    """The moving-stat sampler with pallas_fused_sampling on `exp`'s
+    generator: DP_SAMPLES samples over `group`, gathered; K1's launches on
+    this rank."""
+    from hpvaegan_tpu_torch.evaluation import hydrate_config, load_generator
+    from hpvaegan_tpu_torch.parallel import mesh, multihost
+    from hpvaegan_tpu_torch.parallel.sampling import sharded_sampler
+    from hpvaegan_tpu_torch.utils.noise import NoiseSource
+
+    cfg = hydrate_config(exp, dict(scale_idx=-1, netG=""))
+    gen = load_generator(cfg, exp, device=DP_DEVICE)[0]
+    cfg.pallas_fused_sampling = True
+    with mesh.data_parallel(group), torch.no_grad():
+        sample = sharded_sampler(cfg, gen, train=False)
+        sample(DP_SAMPLES, NoiseSource(SEED + 1, DP_DEVICE))  # warm
+        k1.fused_upscale_noise_2d.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        local = sample(DP_SAMPLES, NoiseSource(SEED, DP_DEVICE))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = k1.fused_upscale_noise_2d.launches
+        full = multihost.to_host(local) if group.group is not None \
+            else local.cpu().numpy()
+    return {"samples": full, "rows": int(local.shape[0]),
+            "launches": launches, "s": secs}
+
+
+def dp_video_leg(torch, exp):
+    """The full-width video model's per-sample-BN sampler (eval_video's
+    default) on DP_SAMPLES clips, which one process runs as two
+    sub-batches of 32 (parallel/sampling.py): this rank's clips, under
+    the data group in force."""
+    from hpvaegan_tpu_torch.evaluation import (eval_z_tail, hydrate_config,
+                                               load_generator)
+    from hpvaegan_tpu_torch.parallel import sampling
+    from hpvaegan_tpu_torch.utils.noise import NoiseSource
+
+    cfg = hydrate_config(exp, dict(scale_idx=-1, netG=""))
+    gen = load_generator(cfg, exp, ndim=3, device=DP_DEVICE)[0]
+    z_tail = eval_z_tail(cfg, 3)
+    sample = sampling.sharded_sampler(cfg, gen, ndim=3, z_tail=z_tail)
+    per = sampling.generator_elements(cfg, gen, 3, z_tail)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        rows = sample(DP_SAMPLES, NoiseSource(SEED, DP_DEVICE))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    out = {"rows": rows.cpu().numpy(), "s": secs,
+           "sub_batches": sampling.sub_batches(DP_SAMPLES, per)}
+    del rows, gen
+    torch.cuda.empty_cache()
+    return out
+
+
+def dp_worker(rank, port, work, fault=None):
+    """One rank of phase 19 (b), run as `chip_smoke.py --dp-worker <rank>
+    <port> <dir>`: the three legs over two gloo ranks on the card; with a
+    fault (one of DP_FAULTS) after <dir>, (c): that fault planted, the
+    training leg's first iteration only."""
+    import torch
+
+    from hpvaegan_tpu_torch.ops import fused_upscale_noise as k1
+    from hpvaegan_tpu_torch.parallel import mesh, multihost
+
+    device = mesh.select_device(DP_DEVICE, 0)
+    multihost.init_distributed(f"127.0.0.1:{port}", DP_RANKS, rank,
+                               backend="gloo", device=device)
+    group = mesh.make_data_group(DP_RANKS)
+    exp = os.path.join(work, "image")
+    out = {"backend": torch.distributed.get_backend()}
+    with exact_math(torch):
+        if fault:
+            plant_fault(fault)
+            out["train"] = dp_train_leg(torch, group, first_only=True)
+        else:
+            out["train"] = dp_train_leg(torch, group)
+            out["eval"] = dp_eval_leg(torch, exp, DP_RANKS)
+            out["sampler"] = dp_sampler_leg(torch, k1, exp, group)
+            with mesh.data_parallel(group):
+                out["video"] = dp_video_leg(
+                    torch, os.path.join(work, "video"))
+    torch.save(out, os.path.join(work, f"dp_{fault or 'sound'}_{rank}.pt"))
+    multihost.sync()
+    torch.distributed.destroy_process_group()
+
+
+def nccl_one_rank(torch):
+    """Phase 19 (a): the helpers and the data group's collectives under
+    NCCL as one rank on the card: the helpers' results, BatchNorm with its
+    double backward, and one full-width scale-9 iteration over the
+    one-rank group against the same iteration with no group."""
+    import torch.distributed as dist
+
+    from hpvaegan_tpu_torch.ops import norm
+    from hpvaegan_tpu_torch.parallel import mesh, multihost
+
+    multihost.init_distributed(f"127.0.0.1:{free_port()}", 1, 0,
+                               device=mesh.select_device(DP_DEVICE, 0))
+    try:
+        check(dist.get_backend() == "nccl", dist.get_backend())
+        x = torch.arange(6.0, device=DP_DEVICE).reshape(2, 3)
+        gathered = multihost.to_host((x, x[:, :1].long()))
+        long_raised = False
+        try:
+            multihost.broadcast_str("x" * 5000, max_len=4096)
+        except ValueError:
+            long_raised = True
+        helpers = (multihost.agree_float(2.5) == 2.5
+                   and multihost.agree_seed(7) == 7
+                   and multihost.agree_minmax(1.5) == (1.5, 1.5)
+                   and multihost.broadcast_str("abc") == "abc"
+                   and long_raised
+                   and (gathered[0] == x.cpu().numpy()).all()
+                   and gathered[1].dtype.name == "int64")
+        multihost.sync()
+        check(helpers, "NCCL one-rank helpers")
+        group = mesh.DataGroup(0, 1, dist.group.WORLD)
+        gen = torch.Generator(device=DP_DEVICE).manual_seed(SEED)
+        xs = torch.randn(4, 64, 24, 33, device=DP_DEVICE, generator=gen)
+
+        def bn_grads():
+            xg = xs.clone().requires_grad_(True)
+            gamma = torch.ones(64, device=DP_DEVICE, requires_grad=True)
+            y = norm.batchnorm(xg, gamma, torch.zeros(64, device=DP_DEVICE),
+                               torch.zeros(64, device=DP_DEVICE),
+                               torch.ones(64, device=DP_DEVICE), "batch")[0]
+            g, = torch.autograd.grad((y * xs).sum(), xg, create_graph=True)
+            return torch.autograd.grad((g ** 2).mean(), (xg, gamma))
+
+        with exact_math(torch):
+            want = bn_grads()
+            with mesh.data_parallel(group):
+                got = bn_grads()
+            bn_diff = max(float((a - b).abs().max())
+                          for a, b in zip(got, want))
+            one = dp_train_leg(torch, mesh.DataGroup())
+            nccl = dp_train_leg(torch, group)
+        check(bn_diff <= 1e-4, f"NCCL BatchNorm double backward {bn_diff}")
+        out = {"helpers": True, "bn_double_backward_max_diff": bn_diff,
+               **train_parity(nccl, one, "NCCL one-rank training"),
+               "train_steps_per_s_nccl": round(nccl["steps_per_s"], 3),
+               "train_steps_per_s_no_group": round(one["steps_per_s"], 3),
+               "collective_share_nccl": round(nccl["collective_share"], 4)}
+    finally:
+        dist.destroy_process_group()
+    print("  (a) NCCL, one rank (TF32 off): " + json.dumps(out), flush=True)
+    return out
+
+
+def free_port():
+    import socket
+
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    return port
+
+
+def start_dp_ranks(work, fault=None):
+    """Phase 19's two rank processes (`--dp-worker`), with `fault` planted
+    in both when given."""
+    port = free_port()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--dp-worker", str(r),
+         str(port), work] + ([fault] if fault else []), cwd=HERE,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(DP_RANKS)]
+    CHILDREN.extend(procs)
+    return procs
+
+
+def join_dp_ranks(torch, procs, work, fault=None):
+    """The results of start_dp_ranks' processes, one per rank."""
+    logs = []
+    try:
+        for proc in procs:
+            logs.append(proc.communicate(timeout=600)[0])
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for r, (proc, log) in enumerate(zip(procs, logs)):
+        check(proc.returncode == 0, f"rank {r} ({fault or 'sound'}) exit "
+              f"{proc.returncode}: {log[-3000:]}")
+    return [torch.load(os.path.join(work, f"dp_{fault or 'sound'}_{r}.pt"),
+                       weights_only=False) for r in range(DP_RANKS)]
+
+
+def phase_data_parallel(torch, k1, ckpt):
+    """Phase 19 (module doc)."""
+    import numpy as np
+
+    out = {"nccl": nccl_one_rank(torch)}
+    with tempfile.TemporaryDirectory(prefix="hpv_dp_") as work:
+        image = os.path.join(HERE, "data", "imgs", "air_balloons.jpg")
+        cfg = full_width_config(image_path=image)
+        exp = os.path.join(work, "image")
+        os.makedirs(exp)
+        write_experiment(exp, cfg, ckpt)
+        vcfg, _ = video_config()
+        os.makedirs(os.path.join(work, "video"))
+        write_experiment(os.path.join(work, "video"), vcfg,
+                         random_jax_checkpoint(vcfg, SEED, ndim=3))
+        from hpvaegan_tpu_torch.parallel import mesh
+
+        with exact_math(torch):
+            one = {"train": dp_train_leg(torch, mesh.DataGroup()),
+                   "eval": dp_eval_leg(torch, exp, 1),
+                   "sampler": dp_sampler_leg(torch, k1, exp,
+                                             mesh.DataGroup()),
+                   "video": dp_video_leg(torch,
+                                         os.path.join(work, "video"))}
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ranks = join_dp_ranks(torch, start_dp_ranks(work), work)
+        ranks_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        started = [(f, start_dp_ranks(work, f)) for f in DP_FAULTS]
+        faults = {f: join_dp_ranks(torch, procs, work, f)
+                  for f, procs in started}
+        faults_s = time.perf_counter() - t0
+    r0, r1 = ranks
+    for part in ("G", "D"):
+        same = all(torch.equal(v, r1["train"][part][k])
+                   for k, v in r0["train"][part].items())
+        check(same, f"the ranks' {part} differ")
+    check(r0["train"]["metrics"] == r1["train"]["metrics"],
+          "the ranks' metrics differ")
+    train = {"ranks": DP_RANKS, "backend": r0["backend"], "batch": 2,
+             "scale": DP_SCALE, "iterations": DP_ITERS,
+             **train_parity(r0["train"], one["train"],
+                            f"{DP_RANKS} ranks vs 1 process"),
+             "steps_per_s_2_ranks": round(r0["train"]["steps_per_s"], 3),
+             "steps_per_s_1_process": round(one["train"]["steps_per_s"], 3),
+             "collective_share_rank0": round(
+                 r0["train"]["collective_share"], 4),
+             "collective_share_rank1": round(
+                 r1["train"]["collective_share"], 4)}
+    print(f"  (b) full-width scale {DP_SCALE}, global batch 2, {DP_RANKS} "
+          "gloo ranks vs 1 process (TF32 off): " + json.dumps(train),
+          flush=True)
+    sifids = [r["eval"]["SIFID"] for r in ranks]
+    check(sifids[0] == sifids[1] and math.isfinite(sifids[0]),
+          f"the ranks' SIFIDs {sifids}")
+    rel = abs(sifids[0] - one["eval"]["SIFID"]) / abs(one["eval"]["SIFID"])
+    check(rel <= 1e-3, f"SIFID 2 ranks {sifids[0]} vs 1 process "
+          f"{one['eval']['SIFID']}")
+    evals = {"samples": DP_SAMPLES, "SIFID_rank0": sifids[0],
+             "SIFID_rank1": sifids[1], "SIFID_1_process": one["eval"]["SIFID"],
+             "rel_diff": rel, "s_2_ranks": round(r0["eval"]["s"], 3),
+             "s_1_process": round(one["eval"]["s"], 3)}
+    print("  (b) eval_image --on-device-fid over 2 ranks: "
+          + json.dumps(evals), flush=True)
+    samp = [r["sampler"] for r in ranks]
+    check(all(s["rows"] == DP_SAMPLES // DP_RANKS for s in samp)
+          and np.array_equal(samp[0]["samples"], samp[1]["samples"]),
+          "the ranks' gathered samples")
+    err = float(np.abs(samp[0]["samples"]
+                       - one["sampler"]["samples"]).max())
+    launches = [s["launches"] for s in samp]
+    check(err <= 1e-4, f"sharded moving-stat sampler vs 1 process: {err}")
+    check(launches == [9, 9] and one["sampler"]["launches"] == 9,
+          f"K1 launches per rank {launches}, one process "
+          f"{one['sampler']['launches']}")
+    sampler = {"ranks_x_samples": [DP_RANKS, DP_SAMPLES // DP_RANKS],
+               "max_abs_err": err, "k1_launches_per_rank": launches,
+               "k1_launches_1_process": one["sampler"]["launches"],
+               "s_per_rank": [round(s["s"], 4) for s in samp],
+               "s_1_process": round(one["sampler"]["s"], 4)}
+    print(f"  (b) moving-stat sampler, pallas_fused_sampling, {DP_RANKS} x "
+          f"{DP_SAMPLES // DP_RANKS} vs 1 x {DP_SAMPLES}: "
+          + json.dumps(sampler), flush=True)
+    vids = [r["video"] for r in ranks]
+    check(len(one["video"]["sub_batches"]) > 1,
+          f"the video sampler did not split: {one['video']['sub_batches']}")
+    verr = float(np.abs(np.concatenate([v["rows"] for v in vids])
+                        - one["video"]["rows"]).max())
+    check(verr <= 1e-4, f"sharded split video sampler vs 1 process: {verr}")
+    video = {"ranks_x_clips": [DP_RANKS, DP_SAMPLES // DP_RANKS],
+             "sub_batches_1_process": one["video"]["sub_batches"],
+             "max_abs_err": verr,
+             "s_per_rank": [round(v["s"], 4) for v in vids],
+             "s_1_process": round(one["video"]["s"], 4)}
+    print(f"  (b) full-width video sampler, per-sample BN, {DP_RANKS} x "
+          f"{DP_SAMPLES // DP_RANKS} vs 1 x {DP_SAMPLES} in sub-batches: "
+          + json.dumps(video), flush=True)
+    print(f"  (b) the two ranks' processes took {ranks_s:.1f} s", flush=True)
+    planted = {}
+    for fault, outs in faults.items():
+        rels = [first_iteration_rel(o["train"], one["train"]) for o in outs]
+        planted[fault] = {k: max(r[k] for r in rels) for k in rels[0]}
+        check(max(planted[fault].values()) > DP_TRAIN_REL,
+              f"planted fault {fault} reads {planted[fault]}, within "
+              f"DP_TRAIN_REL {DP_TRAIN_REL}")
+    print(f"  (c) planted faults, first iteration on {DP_RANKS} ranks vs 1 "
+          f"process (the larger rank's reading; bar {DP_TRAIN_REL}; the "
+          f"three pairs side by side, {faults_s:.1f} s): "
+          + json.dumps(planted), flush=True)
+    out.update(train=train, eval=evals, sampler=sampler, video=video,
+               faults=planted)
+    return out
+
+
 def main():
+    if len(sys.argv) > 1 and sys.argv[1] == "--dp-worker":
+        dp_worker(int(sys.argv[2]), sys.argv[3], sys.argv[4],
+                  sys.argv[5] if len(sys.argv) > 5 else None)
+        return
+    if len(sys.argv) > 1 and sys.argv[1] == "--serving-draws":
+        serving_draws_worker(sys.argv[2])
+        return
     try:
         import torch
         import torch.nn.functional as F
@@ -2626,6 +3275,12 @@ def main():
     phase_serving(torch, k1, ckpt, runner_build)
     print(f"  phase 18 took {time.perf_counter() - t0:.1f} s", flush=True)
 
+    print("phase 19: multi-process and data-parallel training and eval",
+          flush=True)
+    t0 = time.perf_counter()
+    dp = phase_data_parallel(torch, k1, ckpt)
+    print(f"  phase 19 took {time.perf_counter() - t0:.1f} s", flush=True)
+
     kernels = [{
         "name": "fused_upscale_noise_2d",
         "route": "cuda",
@@ -2640,13 +3295,15 @@ def main():
         "bound_by": ("bytes" if all(r["bound_by"] == "bytes" for r in rows)
                      else "operations"),
         "library_ms": sum(r["library_ms"] for r in rows),
+        "launches_per_rank_sharded": dp["sampler"]["k1_launches_per_rank"],
     }]
     print("  times are sums over the 9 stage shapes of one 64-sample forward;"
           f" launches: phase 3's GeneratorHPVAEGAN forward ({launches}), "
           f"phase 14's GeneratorVAE_nb forward ({nb['launches']}), phase "
           "15's baselines (0), phase 16's training-flag runs (0), phase "
           "17's on-device eval and interop (0), phase 18's export and "
-          "serving (0)",
+          "serving (0), phase 19's training (0) and sharded sampler "
+          f"({dp['sampler']['k1_launches_per_rank']} per rank)",
           flush=True)
     print(f"  total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

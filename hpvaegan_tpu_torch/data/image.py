@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from ..ops.resize import resize_bilinear
+from ..parallel import mesh
 from ..utils import pyramid
 from ..utils.noise import NoiseSource
 
@@ -70,8 +71,10 @@ class SingleImageDataset:
 def make_image_batch(cfg, scale_img: torch.Tensor, zero_img: torch.Tensor,
                      noise: NoiseSource):
     """(real, real_zero, noise_init), the first two in [-1, 1]: draws the
-    hflip flags (under cfg.hflip), then noise_init (B, latent, h0, w0)."""
-    batch = cfg.batch_size
+    hflip flags (under cfg.hflip), then noise_init (B, latent, h0, w0). B
+    is this rank's share of cfg.batch_size: a data-parallel rank forms its
+    rows of the global batch, from the global batch's draws."""
+    batch = mesh.local_rows(cfg.batch_size)
     real = scale_img.expand(batch, -1, -1, -1)
     real_zero = zero_img.expand(batch, -1, -1, -1)
     if cfg.hflip:

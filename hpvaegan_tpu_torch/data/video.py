@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from ..ops.resize import resize_bilinear
+from ..parallel import mesh
 from ..utils import pyramid
 from ..utils.noise import NoiseSource
 from .frames import video_metadata, video_to_frames
@@ -83,9 +84,11 @@ def make_video_batch(cfg, scale_frames: torch.Tensor,
     frames[s : s + fps_lcm + 1 : every], `every` = the scale's sampling rate
     for `real` and sampling_rates[0] for `real_zero`, from the same starts
     (reference video.py:50-63). The frames are gathered with device index
-    arithmetic, so forming a batch never waits on the device.
+    arithmetic, so forming a batch never waits on the device. B is this
+    rank's share of cfg.batch_size: a data-parallel rank forms its rows of
+    the global batch, from the global batch's draws.
     """
-    batch = cfg.batch_size
+    batch = mesh.local_rows(cfg.batch_size)
     _, _, fps_index = pyramid.get_fps_td_by_index(
         scale_idx, cfg.stop_scale_time, cfg.sampling_rates, cfg.org_fps,
         cfg.fps_lcm)

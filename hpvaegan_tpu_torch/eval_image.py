@@ -6,9 +6,11 @@ compute SIFID.
         --num-samples 10
 
 Runs on the card (cuda:<device-id>) unless `--device cpu` is given.
-`--on-device-fid` keeps the samples and their features on the device. The
-JAX package's `--mesh-data` and multi-process flags have no counterpart
-here.
+`--on-device-fid` keeps the samples and their features on the device.
+With the --dist-* flags (train_image's; parallel/multihost.py) the samples
+shard over the ranks, every rank gets the same score and the primary
+writes the artifacts and prints it; `--mesh-data N` must then equal the
+number of ranks.
 """
 
 import argparse
@@ -17,6 +19,7 @@ import logging
 import os
 
 from .evaluation import eval_image_experiment, hydrate_config
+from .parallel import mesh, multihost
 
 
 def run(argv, evaluate, metric: str) -> None:
@@ -41,15 +44,22 @@ def run(argv, evaluate, metric: str) -> None:
     parser.add_argument('--scale-idx', type=int, default=-1,
                         help='scale to evaluate (-1: last trained)')
     parser.add_argument('--max-samples', type=int, default=4)
+    parser.add_argument('--mesh-data', type=int, default=1,
+                        help='data-parallel ranks (the sample batch shards '
+                             'over them; a multi-process run shards over '
+                             'every rank without it)')
     parser.add_argument('--on-device-fid', action='store_true', default=False,
                         help='device-resident sampling + sinFID: only '
                              'per-sample (mu, sigma) stats leave the device '
                              '(BASELINE config 5)')
+    multihost.add_dist_flags(parser)
     args = parser.parse_args(argv)
 
     logging.basicConfig(level=logging.INFO,
                         format='%(asctime)s %(levelname)s %(message)s')
-    device = (f'cuda:{args.device_id}' if args.device == 'cuda' else 'cpu')
+    device = mesh.select_device(args.device, args.device_id)
+    multihost.init_from_cfg(args, device)
+    mesh.eval_group(args.mesh_data)  # refuse a data axis it cannot run
     for exp_dir in sorted(glob.glob(args.exp_dir)):
         if not os.path.exists(os.path.join(exp_dir, 'args.txt')):
             logging.info('Skipping %s (no args.txt)', exp_dir)
@@ -59,12 +69,14 @@ def run(argv, evaluate, metric: str) -> None:
                          num_samples=args.num_samples,
                          max_samples=args.max_samples,
                          save_path=args.save_path, scale_idx=args.scale_idx,
+                         mesh_data=args.mesh_data,
                          on_device_fid=args.on_device_fid,
                          netG=(os.path.join(exp_dir, args.netG)
                                if args.netG else ''))
         cfg = hydrate_config(exp_dir, overrides)
         value, _ = evaluate(cfg, exp_dir, device=device)
-        print(f'{metric}: {value}')
+        if multihost.is_primary():
+            print(f'{metric}: {value}')
 
 
 def main(argv=None):

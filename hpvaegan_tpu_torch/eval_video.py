@@ -6,7 +6,8 @@ SVFID over C3D block 0.
     python -m hpvaegan_tpu_torch.eval_video --exp-dir "<experiment_dir>" \
         --num-samples 10
 
-Same flags as hpvaegan_tpu_torch.eval_image, `--on-device-fid` included.
+Same flags as hpvaegan_tpu_torch.eval_image, `--on-device-fid`,
+`--mesh-data` and the --dist-* flags included.
 Runs on the card (cuda:<device-id>) unless `--device cpu` is given.
 """
 

@@ -9,22 +9,30 @@ package's format, so an experiment trained by either package evaluates
 here; --netG may also name the original hp-vae-gan's .pth or a MindSpore
 checkpoint. With cfg.on_device_fid the samples and their features stay on
 the device and only per-sample statistics reach the host
-(parallel/sampling.py). The JAX package's mesh-sharded and multi-process
-evaluation have no counterpart here.
+(parallel/sampling.py).
+
+Multi-process evaluation (parallel/multihost.py, the JAX package's
+evaluation.py:95-107): the samples shard over every rank (`--mesh-data`
+ranks, or all of them in a multi-process run; parallel/mesh.py::
+eval_group), each rank drawing its rows of the global draws, and are
+gathered to every rank. The primary alone writes the artifacts and
+metrics.json; a disk-read score is the primary's, broadcast
+(`agree_float`), and the ranks meet at a barrier before returning.
 """
 
 from __future__ import annotations
 
 import datetime
+import functools
 import logging
 import os
 from typing import Optional
 
 import numpy as np
-import torch
 
 from . import models
 from .config import Config
+from .parallel import mesh, multihost
 from .tools.convert import load_generator_checkpoint
 from .utils import pyramid
 from .utils.device import resolve_device
@@ -50,7 +58,7 @@ def load_generator(cfg, exp_dir: str, ndim: int = 2, netG: str = "",
     """Load netG at the saved scale (reference eval_image.py:154-177).
     Returns (generator on `device`, saver)."""
     device = resolve_device(device)
-    saver = DataSaver(cfg)
+    saver = multihost.select_saver(cfg, lambda: DataSaver(cfg))
     inter = saver.load_json("intermediate.json", path=exp_dir)
     if cfg.scale_idx == -1:
         # an inflight marker resolves to the last finalized scale
@@ -123,14 +131,17 @@ def generate_samples(cfg, generator, ndim: int = 2, seed: int = 0,
     forward on moving statistics, which runs the fused upscale+noise kernel
     when cfg.pallas_fused_sampling is set. Every draw comes from `noise`
     (default: a NoiseSource seeded `seed` on the generator's device)."""
-    from .parallel.sampling import sharded_sampler
+    from .parallel.sampling import group_to_host, sharded_sampler
 
     if noise is None:
         noise = NoiseSource(seed, next(generator.parameters()).device)
     sample = sharded_sampler(cfg, generator, ndim=ndim, train=train_mode,
                              z_tail=eval_z_tail(cfg, ndim))
-    outs = [sample(cfg.num_samples, noise) for _ in range(cfg.niter)]
-    return torch.cat(outs, dim=0).movedim(1, -1).cpu().numpy()
+    outs = [sample(cfg.num_samples, noise).movedim(1, -1)
+            for _ in range(cfg.niter)]
+    # under a data group: each iteration's rows of every rank, in one
+    # gather
+    return np.concatenate(group_to_host(*outs), axis=0)
 
 
 def _persist_eval_metrics(saver, cfg, metric: str, value: float) -> None:
@@ -146,6 +157,18 @@ def _persist_eval_metrics(saver, cfg, metric: str, value: float) -> None:
     }, os.path.join("eval", "metrics.json"))
 
 
+def _eval_in_group(evaluate):
+    """Run `evaluate` with evaluation's data group in force."""
+    @functools.wraps(evaluate)
+    def run(cfg, exp_dir: str, seed: int = 0, device="cuda",
+            noise: Optional[NoiseSource] = None):
+        with mesh.data_parallel(mesh.eval_group(getattr(cfg, "mesh_data",
+                                                        1))):
+            return evaluate(cfg, exp_dir, seed, device, noise)
+    return run
+
+
+@_eval_in_group
 def eval_image_experiment(cfg, exp_dir: str, seed: int = 0, device="cuda",
                           noise: Optional[NoiseSource] = None):
     """One experiment dir: samples -> npy -> PNGs -> SIFID
@@ -163,6 +186,7 @@ def eval_image_experiment(cfg, exp_dir: str, seed: int = 0, device="cuda",
     generator, saver = load_generator(cfg, exp_dir, ndim=2, netG=cfg.netG,
                                       device=device)
     noise = noise or NoiseSource(seed, device)
+    primary = multihost.is_primary()
     if getattr(cfg, "on_device_fid", False):
         from .data.image import load_image01
         from .parallel.sampling import sampled_sifid
@@ -172,28 +196,36 @@ def eval_image_experiment(cfg, exp_dir: str, seed: int = 0, device="cuda",
             cfg, generator, load_image01(cfg.image_path), total, noise,
             z_tail=eval_z_tail(cfg, 2),
             return_samples=min(cfg.max_samples, total))
-        np.save(os.path.join(saver.eval_dir, "random_samples.npy"),
-                firstk.transpose(0, 3, 1, 2))  # (N, C, H, W)
-        generate_images(cfg, saver)
         sifid = float(np.mean(vals))
-        _persist_eval_metrics(saver, cfg, "SIFID", sifid)
+        if primary:
+            np.save(os.path.join(saver.eval_dir, "random_samples.npy"),
+                    firstk.transpose(0, 3, 1, 2))  # (N, C, H, W)
+            generate_images(cfg, saver)
+            _persist_eval_metrics(saver, cfg, "SIFID", sifid)
         logging.info("SIFID (on-device): %s", sifid)
+        # the others must not return while the primary still writes
+        multihost.sync("eval_image_artifacts")
         return sifid, saver
     samples = generate_samples(cfg, generator, ndim=2, noise=noise)
-    # reference artifact layout: (N, C, H, W)
-    np.save(os.path.join(saver.eval_dir, "random_samples.npy"),
-            samples.transpose(0, 3, 1, 2))
-    generate_images(cfg, saver)
-    # the trained image FILE, not its directory: sibling images would pair
-    # with the fakes
-    sifid = calculate_SIFID(os.path.abspath(cfg.image_path),
-                            os.path.join(saver.eval_dir, cfg.save_path),
-                            device=device)
-    _persist_eval_metrics(saver, cfg, "SIFID", sifid)
+    sifid = 0.0
+    if primary:
+        # reference artifact layout: (N, C, H, W)
+        np.save(os.path.join(saver.eval_dir, "random_samples.npy"),
+                samples.transpose(0, 3, 1, 2))
+        generate_images(cfg, saver)
+        # the trained image FILE, not its directory: sibling images would
+        # pair with the fakes
+        sifid = calculate_SIFID(os.path.abspath(cfg.image_path),
+                                os.path.join(saver.eval_dir, cfg.save_path),
+                                device=device)
+        _persist_eval_metrics(saver, cfg, "SIFID", sifid)
+    # the primary's disk-read score on every rank (also the barrier)
+    sifid = multihost.agree_float(sifid)
     logging.info("SIFID: %s", sifid)
     return sifid, saver
 
 
+@_eval_in_group
 def eval_video_experiment(cfg, exp_dir: str, seed: int = 0, device="cuda",
                           noise: Optional[NoiseSource] = None):
     """One experiment dir: samples -> npy -> GIFs -> SVFID (reference
@@ -217,8 +249,10 @@ def eval_video_experiment(cfg, exp_dir: str, seed: int = 0, device="cuda",
     # (T, H, W, C) uint8
     frames = dataset.scale_frames(cfg.scale_idx)[0].permute(1, 2, 3, 0)
     frames = frames.cpu().numpy()
-    np.save(os.path.join(saver.eval_dir, "real_full_scale.npy"),
-            (frames * 255).astype(np.uint8))
+    primary = multihost.is_primary()
+    if primary:
+        np.save(os.path.join(saver.eval_dir, "real_full_scale.npy"),
+                (frames * 255).astype(np.uint8))
 
     # the real side is the window the model trained on at this scale's
     # sampling rate, not the first td full-rate frames
@@ -231,25 +265,31 @@ def eval_video_experiment(cfg, exp_dir: str, seed: int = 0, device="cuda",
         vals, firstk = sampled_svfid(
             cfg, generator, window, total, noise, z_tail=eval_z_tail(cfg, 3),
             return_samples=min(cfg.max_samples, total))
-        np.save(os.path.join(saver.eval_dir, "random_samples.npy"),
-                firstk.transpose(0, 4, 1, 2, 3))  # (N, C, T, H, W)
-        generate_gifs(cfg, saver)
         svfid = float(np.mean(vals))
-        _persist_eval_metrics(saver, cfg, "SVFID", svfid)
+        if primary:
+            np.save(os.path.join(saver.eval_dir, "random_samples.npy"),
+                    firstk.transpose(0, 4, 1, 2, 3))  # (N, C, T, H, W)
+            generate_gifs(cfg, saver)
+            _persist_eval_metrics(saver, cfg, "SVFID", svfid)
         logging.info("SVFID (on-device): %s", svfid)
+        multihost.sync("eval_video_artifacts")
         return svfid, saver
 
     samples = generate_samples(cfg, generator, ndim=3, noise=noise)
-    # reference artifact layout: (N, C, T, H, W)
-    np.save(os.path.join(saver.eval_dir, "random_samples.npy"),
-            samples.transpose(0, 4, 1, 2, 3))
-    generate_gifs(cfg, saver)
+    if primary:
+        # reference artifact layout: (N, C, T, H, W)
+        np.save(os.path.join(saver.eval_dir, "random_samples.npy"),
+                samples.transpose(0, 4, 1, 2, 3))
+        generate_gifs(cfg, saver)
 
+    # from the gathered arrays, the same on every rank
     reals = window[None]
     fakes = (samples + 1) / 2
     t, h, w = (min(a, b) for a, b in zip(reals.shape[1:4], fakes.shape[1:4]))
     svfid = float(np.mean(svfid_arrays(reals[:, :t, :h, :w],
                                        fakes[:, :t, :h, :w], device=device)))
-    _persist_eval_metrics(saver, cfg, "SVFID", svfid)
+    if primary:
+        _persist_eval_metrics(saver, cfg, "SVFID", svfid)
+    multihost.sync("eval_video_artifacts")
     logging.info("SVFID: %s", svfid)
     return svfid, saver

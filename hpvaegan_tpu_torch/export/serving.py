@@ -71,6 +71,10 @@ class ServingModule(nn.Module):
         # GeneratorVAE_nb splits its key in three (networks_2d.py:195
         # there), GeneratorHPVAEGAN in two
         self.gated = isinstance(generator, GeneratorVAE_nb)
+        # the normal draws' shapes of a forward at each batch size, from the
+        # first one: later forwards draw them all up front, through one
+        # erfinv (the same bits; one erfinv for a compiler to build)
+        self.draw_shapes = {}
 
     def forward(self, noise_init: torch.Tensor, noise_amps: torch.Tensor,
                 seed: torch.Tensor) -> torch.Tensor:
@@ -79,9 +83,11 @@ class ServingModule(nn.Module):
         keys = key[None] if b == 1 else jax_prng.split(key, b)
         parts = jax_prng.split(keys, 3 if self.gated else 2)
         noise = KeyedNoise(parts[:, -1],
-                           gate_keys=parts[:, 1] if self.gated else None)
+                           gate_keys=parts[:, 1] if self.gated else None,
+                           shapes=self.draw_shapes.get(b))
         x, _ = self.generator(noise_init, noise_amps, noise, bn="sample",
                               commit=False)
+        self.draw_shapes.setdefault(b, noise.drawn_shapes)
         return x
 
 
@@ -119,7 +125,8 @@ def export_sampler(cfg, generator: nn.Module, ndim: int = 2, batch: int = 1,
     """`torch.export.export` of ServingModule(generator) on `device` at
     the shapes of `serving_input_specs`. One eager call comes first: it
     fills the resize tables' cache (ops/resize.py) with real tensors, which
-    the trace then takes as constants."""
+    the trace then takes as constants, and records the draws' shapes, which
+    the traced forward draws up front through one erfinv."""
     device = resolve_device(device)
     module = ServingModule(generator.to(device)).eval()
     args = tuple(torch.zeros(s.shape, dtype=s.dtype, device=device)

@@ -168,7 +168,7 @@ def refinement_layers(cfg, body: Sequence[nn.Module], x: torch.Tensor, amps,
             x = x.detach()  # the VAE boundary (networks_2d.py:202-204)
         amp = stage_amp(amps, idx + 1)
         if use_fused:
-            seed = noise.seed()
+            seed = noise.batch_seed(x.shape[0])
             hw = scale_size_2d(idx + 1, cfg.scale_factor, cfg.stop_scale,
                                cfg.img_size, cfg.ar)
             bits = noise.kernel_bits((x.shape[0], x.shape[1], hw[0], hw[1]))
@@ -179,7 +179,8 @@ def refinement_layers(cfg, body: Sequence[nn.Module], x: torch.Tensor, amps,
                               cfg.img_size, cfg.ar)
             x_in = x_up
             if is_random:
-                z = noise.normal(x_up.shape)
+                z = noise.grouped_normal(x_up.shape, groups) if groups > 1 \
+                    else noise.normal(x_up.shape)
                 if noise_mask is not None:
                     z = z * noise_mask
                 x_in = x_up + (z * amp).to(x_up.dtype)

@@ -198,6 +198,9 @@ def fused_upscale_noise_2d(x: torch.Tensor, out_hw: Sequence[int], amp,
     version, over `bits` or, by default, the kernel's Philox words for
     `seed`."""
     out_hw = (int(out_hw[0]), int(out_hw[1]))
+    if x.shape[0] == 0:  # no samples (a rank's empty sub-batch): no launch
+        empty = x.new_empty((0, x.shape[1]) + out_hw)
+        return empty, empty.clone()
     if x.is_cuda:
         if bits is not None:
             raise ValueError("the CUDA kernel draws its own random words; "

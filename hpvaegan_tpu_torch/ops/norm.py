@@ -19,6 +19,12 @@ Three modes:
     there); the moving stats those forwards would fold are discarded, so
     state is unchanged.
 
+In "batch" mode under a data group of several ranks the statistics are the
+global batch's: each part's sums are summed over the ranks
+(`_group_batch_stats`, with the sum that parallel/mesh.py::data_parallel
+hands over through `set_group_sum`), so N ranks normalise as one process at
+the global batch does. "moving" and "sample" need no collective.
+
 Statistics are reduced in float32 whatever the activations' dtype, and the
 normalisation runs in the activations' dtype (bfloat16 under
 `--compute-dtype bfloat16`, ops/norm.py:40-75 there).
@@ -26,18 +32,35 @@ normalisation runs in the activations' dtype (bfloat16 under
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
 BN_MODES = ("batch", "moving", "sample")
 
+# (the differentiable sum over the data group's ranks, their number) while
+# a group of several ranks is in force; None on one rank
+GroupSum = Optional[Tuple[Callable[[torch.Tensor], torch.Tensor], int]]
+_GROUP_SUM: GroupSum = None
+
+
+def set_group_sum(group_sum: GroupSum) -> GroupSum:
+    """Make `group_sum` the one batch statistics are reduced with; returns
+    the one it replaces."""
+    global _GROUP_SUM
+    before, _GROUP_SUM = _GROUP_SUM, group_sum
+    return before
+
 
 def batch_stats(x: torch.Tensor, groups: int = 1
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Float32 mean and biased variance over (0, 2, ...) of each of `groups`
-    equal parts of the batch: two (groups, C) tensors."""
+    equal parts of the batch: two (groups, C) tensors. Under a data group
+    of several ranks, x is this rank's rows of each part and the statistics
+    are the global batch's."""
     xf = x.float()
+    if _GROUP_SUM is not None:
+        return _group_batch_stats(xf, groups, *_GROUP_SUM)
     if groups == 1:
         dims = (0,) + tuple(range(2, x.ndim))
         return (xf.mean(dim=dims).unsqueeze(0),
@@ -45,6 +68,20 @@ def batch_stats(x: torch.Tensor, groups: int = 1
     xg = xf.reshape((groups, -1) + tuple(x.shape[1:]))
     dims = (1,) + tuple(range(3, xg.ndim))
     return xg.mean(dim=dims), xg.var(dim=dims, unbiased=False)
+
+
+def _group_batch_stats(xf: torch.Tensor, groups: int, group_sum, ranks: int
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """batch_stats over the data group, in two passes as the float32 JAX
+    reduction: the global mean, then the global mean squared deviation
+    from it, each a `group_sum` of the ranks' sums."""
+    xg = xf.reshape((groups, -1) + tuple(xf.shape[1:]))
+    dims = (1,) + tuple(range(3, xg.ndim))
+    n = xg.numel() // (groups * xg.shape[2]) * ranks
+    mean = group_sum(xg.sum(dim=dims)) / n
+    shape = (groups, 1, -1) + (1,) * (xg.ndim - 3)
+    dev = (xg - mean.reshape(shape)) ** 2
+    return mean, group_sum(dev.sum(dim=dims)) / n
 
 
 def fold(mean: torch.Tensor, var: torch.Tensor, b_mean: torch.Tensor,

@@ -1,12 +1,22 @@
 """Batched sample generation on one device, and SIFID / SVFID computed
 beside it on the device.
 
-The port of the JAX package's `parallel/sampling.py` for one device (the
-mesh-sharded and multi-process forms come later): `sharded_sampler` and
+The port of the JAX package's `parallel/sampling.py`: `sharded_sampler` and
 the on-device metrics `make_sampled_sifid` / `make_sampled_svfid`. BASELINE
 config 5 is batched diverse-sample generation at 64 samples a batch with
 on-device SIFID; the reference generates one sample per generator call
 (eval_image.py:54-61) and scores PNG files.
+
+Over a data group of N ranks (parallel/mesh.py, the group in force) each
+rank generates its share of the num_samples, which N must divide (JAX
+:90-93): rows [rank * n, (rank + 1) * n) of them, n = num_samples / N,
+from its rows of the global draws (z, the refinement noise, and in
+moving-stat mode K1's per-sample seeds, offset by the rank's first row in
+each forward), so that N ranks x n make what one process makes at
+num_samples, sub-batches included (below). The on-device metrics gather
+the packed per-sample statistics and the kept samples to every rank in
+one all_gather (multihost.to_host), and every rank computes the same
+Frechet distances.
 
 A batch whose widest activation would hold 2^31 elements (8.6 GB of
 float32) or more runs as equal sub-batches, one forward each, to bound the
@@ -18,12 +28,16 @@ baseline's widest activation is at its last stage's size padded by
 num_layer + 1 per side, 64 x 25 x 204 x 269 = 87.8M elements at full
 width, so 64 samples run as 21 / 21 / 22. The split is exact in both
 sampler modes (neither reads batch statistics); it changes only the order
-of the refinement noise draws.
+of the refinement noise draws. A data group keeps one process's split of
+num_samples, and so its draws: each rank runs each sub-batch on its rows
+in it, and on none where it has none, to make the sub-batch's draws
+(`batches`).
 """
 
 from __future__ import annotations
 
 import math
+import warnings
 from typing import List, Tuple
 
 import numpy as np
@@ -31,6 +45,7 @@ import torch
 
 from ..utils import pyramid
 from ..utils.noise import NoiseSource
+from . import mesh, multihost
 
 MAX_ELEMENTS = 2 ** 31 - 1  # per activation tensor of one forward
 
@@ -73,7 +88,8 @@ def sub_batches(num_samples: int, per_sample: int) -> list:
 def sharded_sampler(cfg, generator, ndim: int = 2, train: bool = True,
                     z_tail=None):
     """Returns sample(num_samples, noise) -> (N, C, H, W) tensor (in 3D
-    (N, C, T, H, W)) in [-1, 1] on the generator's device.
+    (N, C, T, H, W)) in [-1, 1] on the generator's device: under a data
+    group, this rank's N = num_samples / group size rows.
 
     train=True (default) normalises with per-sample statistics (BatchNorm
     mode "sample"): one batched forward equal to the JAX sampler's vmap of
@@ -108,12 +124,25 @@ def sharded_sampler(cfg, generator, ndim: int = 2, train: bool = True,
 
     def batches(num_samples: int, noise: NoiseSource):
         """The samples of sample(num_samples, noise), one tensor per
-        sub-batch, each made when the caller asks for it."""
-        z = noise.normal((num_samples, z_tail[-1]) + z_tail[:-1])
+        sub-batch, each made when the caller asks for it. The sub-batches
+        are one process's, over all num_samples: under a data group each
+        rank runs every one of them on its rows in it, none for some, from
+        the draws one process makes for it (`noise.window`)."""
+        local = mesh.local_rows(num_samples)
+        first = mesh.active().rank * local
+        z = noise.normal((local, z_tail[-1]) + z_tail[:-1])
         for a, b in sub_batches(num_samples, per_sample):
-            with torch.no_grad():
-                out = generator(z[a:b], amps, noise, bn=bn)[0]
-            yield out
+            lo, hi = max(a, first), min(b, first + local)
+            if hi <= lo:  # no rows here: a forward of none, for the draws
+                with torch.no_grad(), noise.window(b - a, 0), \
+                        warnings.catch_warnings():
+                    # per-sample statistics of no sample
+                    warnings.simplefilter("ignore", UserWarning)
+                    generator(z[:0], amps, noise, bn=bn)
+                continue
+            with torch.no_grad(), noise.window(b - a, lo - a):
+                yield generator(z[lo - first:hi - first], amps, noise,
+                                bn=bn)[0]
 
     def sample(num_samples: int, noise: NoiseSource) -> torch.Tensor:
         outs = list(batches(num_samples, noise))
@@ -150,6 +179,15 @@ def _host_copy(t: torch.Tensor) -> np.ndarray:
     return t.cpu().numpy()
 
 
+def group_to_host(*ts: torch.Tensor):
+    """A run's results on the host: one copy each on one rank; over a data
+    group, this rank's rows of each, gathered to every rank in one
+    all_gather."""
+    if mesh.active().group is not None:
+        return multihost.to_host(ts)
+    return tuple(_host_copy(t) for t in ts)
+
+
 def _frechet(stats: np.ndarray, real: np.ndarray) -> List[float]:
     """Frechet distance of each packed per-sample (mu, sigma) to the real
     one's, on the host (scipy sqrtm)."""
@@ -179,6 +217,9 @@ def _sampled_fid(cfg, generator, real01: np.ndarray, ndim: int, model,
     def run(num_samples: int, noise: NoiseSource, return_samples: int = 0):
         stats, kept = [], []
         k = min(return_samples, num_samples)
+        # each rank keeps its first rows; the first k of the gathered rows
+        # are the global batch's first k
+        k_local = min(k, mesh.local_rows(num_samples))
         for fakes in sample.batches(num_samples, noise):
             stats.append(_feature_stats(model, block, (fakes + 1.0) * 0.5))
             if not real_stats:
@@ -186,13 +227,14 @@ def _sampled_fid(cfg, generator, real01: np.ndarray, ndim: int, model,
                 size = fakes.shape[2:]
                 real_stats.append(_host_copy(_feature_stats(
                     model, block, resize(real, size, align_corners=False)))[0])
-            left = k - sum(len(f) for f in kept)
+            left = k_local - sum(len(f) for f in kept)
             if left > 0:  # a copy, so that the sub-batch can go
                 kept.append(fakes[:left].clone())
-        vals = _frechet(_host_copy(torch.cat(stats)), real_stats[0])
         if return_samples:
-            return vals, _host_copy(torch.cat(kept).movedim(1, -1))
-        return vals
+            host_stats, host_kept = group_to_host(torch.cat(stats),
+                                             torch.cat(kept).movedim(1, -1))
+            return _frechet(host_stats, real_stats[0]), host_kept[:k]
+        return _frechet(group_to_host(torch.cat(stats))[0], real_stats[0])
 
     return run
 

@@ -29,7 +29,20 @@ run); the JAX package's qualified configuration is
 
 Its XLA knobs are accepted, kept in args.txt and change nothing (they
 change no result there either); so is --netD, which the JAX trainer never
-reads either. Multi-process and mesh training raise NotImplementedError.
+reads either. The spatial mesh (--mesh-sp > 1) raises
+NotImplementedError.
+
+Multi-process and data-parallel training (parallel/multihost.py,
+parallel/mesh.py): one process per card, rank 0 writing the experiment,
+
+    python -m hpvaegan_tpu_torch.train_image --image-path <image> \
+        --batch-size N --mesh-data N --dist-coordinator host:port \
+        --dist-nprocs N --dist-procid <i>
+
+or `--dist-coordinator auto` under torchrun (cuda:LOCAL_RANK), NCCL with
+one card per rank (gloo with --device cpu). --batch-size is the global batch,
+which N ranks train as one process does; without --mesh-data every rank
+trains the whole batch.
 """
 
 import argparse
@@ -39,12 +52,11 @@ import random
 
 from . import models
 from .config import Config
+from .parallel import mesh, multihost
 from .utils import logger as hlog
-from .utils.device import resolve_device
 from .utils.saver import DataSaver
 
 _NO_EFFECT = "accepted and kept in args.txt; no effect in this port (XLA only)"
-_MULTI = "multi-process and mesh training"
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -126,15 +138,12 @@ def build_parser() -> argparse.ArgumentParser:
                         help='write a torch.profiler trace of the run '
                              '(trace.json) into this dir')
     parser.add_argument('--mesh-data', type=int, default=1,
-                        help='data-parallel devices (> 1 not ported yet)')
+                        help='data-parallel ranks: the global --batch-size '
+                             'splits over them (must equal --dist-nprocs)')
     parser.add_argument('--mesh-sp', type=int, default=1,
-                        help='spatial mesh axis (> 1 not ported yet)')
-    parser.add_argument('--dist-coordinator', type=str, default='',
-                        help='multi-process bootstrap (not ported yet)')
-    parser.add_argument('--dist-nprocs', type=int, default=0,
-                        help='process count (not ported yet)')
-    parser.add_argument('--dist-procid', type=int, default=-1,
-                        help="this process's id (not ported yet)")
+                        help=f'spatial mesh axis (> 1: {mesh.SPATIAL}, not '
+                             'ported yet)')
+    multihost.add_dist_flags(parser)
     parser.add_argument('--paired-g', action='store_true', default=False,
                         help='GAN-phase G step: reconstruction and fake as '
                              'one width-2B forward with per-half BatchNorm '
@@ -159,17 +168,12 @@ def build_parser() -> argparse.ArgumentParser:
 
 def unported(args, ndim: int = 2) -> list:
     """(flag, ROADMAP.md queue 1 item) of every flag set to a value this
-    port does not run: multi-process and mesh training, and the REFUSED
-    generators."""
+    port does not run: the spatial mesh, and the REFUSED generators."""
     checks = [
         ("--generator " + args.generator,
          (args.generator, ndim) in models.REFUSED,
          models.REFUSED.get((args.generator, ndim))),
-        ("--mesh-data", args.mesh_data > 1, _MULTI),
-        ("--mesh-sp", args.mesh_sp > 1, _MULTI),
-        ("--dist-coordinator", args.dist_coordinator, _MULTI),
-        ("--dist-nprocs", args.dist_nprocs != 0, _MULTI),
-        ("--dist-procid", args.dist_procid != -1, _MULTI),
+        ("--mesh-sp", args.mesh_sp > 1, mesh.SPATIAL),
     ]
     return [(flag, item) for flag, is_set, item in checks if is_set]
 
@@ -220,7 +224,10 @@ def launch(args: argparse.Namespace, ndim: int, summary,
     Experiment Summary (`summary(cfg)` gives its (name, value) lines) and
     the run of `trainer` (a module with run_training: training/trainer.py
     by default, training/baselines_trainer.py for the baselines). Returns
-    the dir. --profile-dir traces the run (utils/profiling.py)."""
+    the dir. --profile-dir traces the run (utils/profiling.py). With the
+    --dist-* flags the process joins the run's ranks first and trains from
+    the primary's seed; the primary alone makes the dir, the logbook and
+    the trace, and every rank returns the dir."""
     from .training import baselines_trainer
     from .training import trainer as hpvaegan_trainer
     from .utils.profiling import trace
@@ -228,20 +235,25 @@ def launch(args: argparse.Namespace, ndim: int, summary,
     trainer = trainer or hpvaegan_trainer
     cfg = cfg_from_args(args, ndim,
                         baselines=trainer is baselines_trainer).finalize()
-    device = resolve_device(
-        f'cuda:{args.device_id}' if args.device == 'cuda' else 'cpu')
+    device = mesh.select_device(args.device, args.device_id)
+    multihost.init_from_cfg(cfg, device)
+    mesh.make_data_group(cfg.mesh_data, cfg.mesh_sp)  # refuse before IO
     if cfg.manualSeed is None:
         cfg.manualSeed = random.randint(1, 10000)
+    cfg.manualSeed = multihost.agree_seed(cfg.manualSeed)
 
-    saver = DataSaver(cfg, create=True)
-    hlog.configure_logging(os.path.abspath(
-        os.path.join(saver.experiment_dir, 'logbook.txt')))
-    logging.info('Random Seed: %s', cfg.manualSeed)
-    with hlog.LoggingBlock('Experiment Summary', emph=True):
-        logging.info('Experiment dir: %s', saver.experiment_dir)
-        for name, value in summary(cfg) + [('Device', device)]:
-            logging.info('%-15s: %s', name, value)
-    with trace(args.profile_dir, device):
+    saver = multihost.select_saver(cfg,
+                                   lambda: DataSaver(cfg, create=True))
+    primary = multihost.is_primary()
+    if primary:
+        hlog.configure_logging(os.path.abspath(
+            os.path.join(saver.experiment_dir, 'logbook.txt')))
+        logging.info('Random Seed: %s', cfg.manualSeed)
+        with hlog.LoggingBlock('Experiment Summary', emph=True):
+            logging.info('Experiment dir: %s', saver.experiment_dir)
+            for name, value in summary(cfg) + [('Device', device)]:
+                logging.info('%-15s: %s', name, value)
+    with trace(args.profile_dir if primary else '', device):
         trainer.run_training(cfg, saver, device=device, seed=cfg.manualSeed,
                              mode="image" if ndim == 2 else "video")
     return saver.experiment_dir

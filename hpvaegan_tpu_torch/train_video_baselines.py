@@ -15,7 +15,7 @@ Z_init.npy, intermediate.json), which the eval_video CLI of either package
 evaluates. --netG / --intermediate / --ckpt-interval resume as in
 train_image; --compute-dtype bfloat16, --fused-dg, --flat-opt and
 --profile-dir work as there (--paired-g and --visualize change nothing, as
-in the JAX baselines trainer).
+in the JAX baselines trainer), and so do --dist-* and --mesh-data.
 """
 
 from . import train_image, train_video

@@ -29,9 +29,12 @@ finalized port marker continues at k + 1 with netD_<k> copied; any other
 marker (the JAX package's) retrains scale k from its k + 1 stages with D
 warm from --netG's directory.
 
-Not ported: the multi-process warm-start agreement (`agree_minmax`) and
-barriers (`sync`), which wait for multi-process training (ROADMAP.md queue
-1), and the scan chunks and `run_scale_with_retry`, which exist for XLA.
+Multi-process and data-parallel runs as in training/trainer.py: the
+warm start's `agree_minmax` (trainer.make_discriminator, JAX :124), a
+barrier after each scale's checkpoints (JAX :258), the primary-only resume
+netD copy (JAX :337-341), args.txt and Z_init.npy, and a barrier at the
+end (JAX :393). Not ported: the scan chunks and `run_scale_with_retry`,
+which exist for XLA.
 """
 
 from __future__ import annotations
@@ -45,6 +48,7 @@ import torch
 from .. import models
 from ..data.video import SingleVideoDataset
 from ..models.blocks import init_weights_
+from ..parallel import mesh, multihost
 from ..utils import pyramid
 from ..utils.device import resolve_device
 from ..utils.noise import NoiseSource
@@ -115,8 +119,10 @@ def run_training(cfg, saver: DataSaver, device="cuda",
         raise ValueError(f"{cfg.generator} is not a baseline generator "
                          f"({', '.join(models.BASELINES)})")
     device = resolve_device(device)
+    group = mesh.make_data_group(cfg.mesh_data, cfg.mesh_sp)
     dataset = SingleVideoDataset(cfg, device)
-    cfg.write_args_txt(os.path.join(saver.experiment_dir, "args.txt"))
+    if multihost.is_primary():
+        cfg.write_args_txt(os.path.join(saver.experiment_dir, "args.txt"))
 
     seed = seed if seed is not None else (cfg.manualSeed or 0)
     init_gen = torch.Generator().manual_seed(int(seed))
@@ -136,9 +142,14 @@ def run_training(cfg, saver: DataSaver, device="cuda",
             raise ValueError(f"the resumed run's Z_init is "
                              f"{tuple(z_init.shape)}, this config's "
                              f"{z_init_shape(cfg)}")
-    save_z_init(saver.experiment_dir, z_init)
+    # the same on every rank (same seed, same draw): the primary writes it
+    if multihost.is_primary():
+        save_z_init(saver.experiment_dir, z_init)
     G.z_init = z_init.to(device)
-    noise_amps = trainer.train_scales(cfg, G, dataset, saver, noise_amps,
-                                      noise, init_gen, start, train_scale,
-                                      step_callback, inflight, warm_dir)
+    with mesh.data_parallel(group):
+        noise_amps = trainer.train_scales(cfg, G, dataset, saver,
+                                          noise_amps, noise, init_gen, start,
+                                          train_scale, step_callback,
+                                          inflight, warm_dir)
+    multihost.sync("baselines_run_training_end")
     return G, noise_amps

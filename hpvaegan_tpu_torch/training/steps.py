@@ -29,6 +29,16 @@ The flag variants of the JAX steps:
               and then that fake. It wins over --paired-g (steps.py:214-222)
   --compute-dtype bfloat16  is the modules' (models/blocks.py); the steps
               are the same
+
+Data parallel (--mesh-data N over N ranks, parallel/mesh.py): each rank
+forms its rows of the global batch from the same draws (utils/noise.py::
+NoiseSource), BatchNorm reduces over the ranks, and `_set_grads` averages
+every gradient over them, in one collective, before the optimizer's
+per-tensor clip (d_step, g_step, the paired G step and fused_dg_iteration
+all set their gradients there; every optimizer, FlatAdam too, takes the
+averaged ones). The metrics of an iteration and the calibration's
+MSE are the group's means. N ranks thus compute what one process computes
+at the global batch, up to the order of float32 sums.
 """
 
 from __future__ import annotations
@@ -42,13 +52,17 @@ from ..data.image import make_image_batch
 from ..data.video import make_baseline_batch, make_video_batch
 from ..losses import d_loss_fn, g_gan_loss_fn, g_vae_loss_fn
 from ..models.blocks import DeferredFolds, assign_sn_state
+from ..parallel import mesh
 from .state import ScaleTrainState
 
 Metrics = Dict[str, torch.Tensor]
 
 
 def _set_grads(params: List[torch.Tensor], loss: torch.Tensor) -> None:
+    """The gradients of `loss` into .grad, averaged over the data group
+    (parallel/mesh.py)."""
     grads = torch.autograd.grad(loss, params, materialize_grads=True)
+    mesh.mean_(grads)
     for p, g in zip(params, grads):
         p.grad = g
 
@@ -130,9 +144,10 @@ def fused_dg_iteration(cfg, st: ScaleTrainState, real, real_zero,
 @torch.no_grad()
 def calibrate(G, real, real_zero, amps, noise) -> torch.Tensor:
     """RMSE of the reconstruction against `real` (reference
-    train_image.py:134-148), on the device."""
+    train_image.py:134-148), on the device; the MSE is the data group's
+    mean."""
     gen = G.reconstruct(real_zero, amps, noise, commit=False)[0]
-    return torch.sqrt(torch.mean((real - gen) ** 2))
+    return torch.sqrt(mesh.mean_([torch.mean((real - gen) ** 2)])[0])
 
 
 def batch_former(ndim: int, scale_idx: int, baseline: bool = False
@@ -157,10 +172,12 @@ def train_iteration(cfg, st: ScaleTrainState, data_scale, data_zero, amps,
     real, real_zero, noise_init = former(cfg, data_scale, data_zero,
                                          st.noise)
     if cfg.fused_dg and not vae_phase:
-        return fused_dg_iteration(cfg, st, real, real_zero, noise_init, amps)
-    metrics = {}
-    if not vae_phase:
-        metrics.update(d_step(cfg, st, real, noise_init, amps))
-    metrics.update(g_step(cfg, st, real, real_zero, noise_init, amps,
-                          vae_phase))
-    return metrics
+        metrics = fused_dg_iteration(cfg, st, real, real_zero, noise_init,
+                                     amps)
+    else:
+        metrics = {}
+        if not vae_phase:
+            metrics.update(d_step(cfg, st, real, noise_init, amps))
+        metrics.update(g_step(cfg, st, real, real_zero, noise_init, amps,
+                              vae_phase))
+    return mesh.mean_metrics(metrics)

@@ -48,10 +48,22 @@ In (b) and (c) --netG may also be the original hp-vae-gan's .pth or a
 MindSpore checkpoint (JAX trainer.py:459-479), though not for the CSG/SG
 baselines, whose JAX trainer resumes from pickled pytrees only.
 
+Multi-process runs (parallel/multihost.py): the saver is the caller's
+(`select_saver`: a NullSaver on every rank but the primary, which alone
+writes args.txt, checkpoints and inflight checkpoints and logs progress),
+and the ranks meet at a barrier after each scale's checkpoints (the next
+scale's D warm-starts from netD_<k> on every rank, after an `agree_minmax`
+that every rank sees it), after the resume's netD copy and at the run's
+end. With cfg.mesh_data > 1 the run is data-parallel over the ranks
+(parallel/mesh.py, training/steps.py): one global batch of cfg.batch_size,
+each rank forming its rows, which N ranks train as one process does;
+without it every rank trains the whole batch (the JAX trainer's mesh
+None).
+
 What the JAX trainer adds for XLA and the TPU has no counterpart here: the
 scan of `steps_per_call` iterations per dispatch, the compile-ahead
 pipeline (training/pipeline.py), the retry of a scale after a runtime
-error (`run_scale_with_retry`) and the device mesh.
+error (`run_scale_with_retry`) and the spatial mesh axis.
 
 The training flags of the JAX trainer: cfg.compute_dtype sets G's and D's
 convolutions' dtype for the scale (`scale_state`); cfg.flat_opt builds
@@ -81,6 +93,7 @@ from ..data.video import SingleVideoDataset
 from ..models.blocks import (cfg_compute_dtype, init_weights_,
                              set_compute_dtype)
 from ..optim import ClippedAdam, FlatAdam, adam, load_optimizer_state
+from ..parallel import mesh, multihost
 from ..tools.convert import (from_jax_discriminator,
                              load_generator_checkpoint, m2t_WDiscriminator,
                              to_jax, to_jax_discriminator)
@@ -117,16 +130,28 @@ def make_discriminator(cfg, saver: DataSaver, scale_idx: int,
         return D.to(device)
     name = f"netD_{scale_idx - 1}.ckpt"
     path = os.path.join(warm_dir or saver.experiment_dir, name)
+    state = None
     if os.path.isfile(path) and is_ms_checkpoint(path):
-        D.load_state_dict(m2t_WDiscriminator(load_ms_checkpoint(path)))
-        return D.to(device)
-    try:
-        ckpt = saver.load_checkpoint(name, path=warm_dir)
-    except FileNotFoundError:
+        state = m2t_WDiscriminator(load_ms_checkpoint(path))
+    else:
+        try:
+            ckpt = saver.load_checkpoint(name, path=warm_dir)
+        except FileNotFoundError:
+            pass
+        else:
+            state = from_jax_discriminator(ckpt["params"], ckpt["state"],
+                                           ndim)
+    # every rank must warm-start alike (JAX baselines_trainer.py:116-129):
+    # a checkpoint that only some ranks see aborts on all of them
+    lo, hi = multihost.agree_minmax(float(state is not None))
+    if lo != hi:
+        raise RuntimeError(f"{name} visible on only some ranks: multi-"
+                           "process training needs a shared filesystem "
+                           "view of the experiment dir")
+    if state is None:
         logging.warning("no previous netD checkpoint to warm-start from")
     else:
-        D.load_state_dict(from_jax_discriminator(ckpt["params"],
-                                                 ckpt["state"], ndim))
+        D.load_state_dict(state)
     return D.to(device)
 
 
@@ -244,7 +269,8 @@ def run_scale(cfg, st: ScaleTrainState, saver: DataSaver, data,
     amps = amps_list(noise_amps, cfg.stop_scale)
     start = int(inflight["iter"]) if inflight is not None else 0
     bar = Progress(cfg.niter, "Training scale [{}/{}]".format(
-        scale_idx + 1, cfg.stop_scale + 1), initial=start)
+        scale_idx + 1, cfg.stop_scale + 1), initial=start,
+        disable=not multihost.is_primary())
     for done in range(start + 1, cfg.niter + 1):
         metrics = train_iteration(cfg, st, data[0], data[1], amps,
                                   vae_phase, former)
@@ -265,7 +291,7 @@ def run_scale(cfg, st: ScaleTrainState, saver: DataSaver, data,
             visualize(G, saver, real, real_zero, noise_init, amps, st.noise,
                       done)
         if cfg.ckpt_interval and done < cfg.niter \
-                and done % cfg.ckpt_interval == 0:
+                and done % cfg.ckpt_interval == 0 and multihost.is_primary():
             saver.save_inflight(scale_idx, {
                 "G": G.state_dict(), "D": D.state_dict(),
                 "opt_g": st.opt_g.state_dict(), "opt_d": st.opt_d.state_dict(),
@@ -282,6 +308,8 @@ def run_scale(cfg, st: ScaleTrainState, saver: DataSaver, data,
     saver.finalize_scale(scale_idx, noise_amps,
                          {"params": params, "state": state}, d_tree,
                          rng=rng_state(init_gen, st.noise))
+    # the next scale's D warm-starts from netD_<k> on every rank
+    multihost.sync("scale_finalized")
 
 
 def train_scale(cfg, G, dataset, saver: DataSaver, noise_amps: List[float],
@@ -370,8 +398,10 @@ def resume(cfg, saver: DataSaver, G, init_gen: torch.Generator,
                       init_gen, noise)
         src = os.path.join(resume_dir, f"netD_{k}.ckpt")
         dst = os.path.join(saver.experiment_dir, f"netD_{k}.ckpt")
-        if os.path.isfile(src) and not os.path.exists(dst):
+        if multihost.is_primary() and os.path.isfile(src) \
+                and not os.path.exists(dst):
             shutil.copy(src, dst)
+        multihost.sync("resume_netd_copy")
         logging.info("resume: scale %d complete in %s; continuing at %d", k,
                      inter_dir, k + 1)
         return amps, k + 1, None, None
@@ -396,6 +426,7 @@ def run_training(cfg, saver: DataSaver, device="cuda",
                          "disc_loss_weight > 0")
     device = resolve_device(device)
     ndim = 2 if mode == "image" else 3
+    group = mesh.make_data_group(cfg.mesh_data, cfg.mesh_sp)
     if ndim == 2:
         dataset = SingleImageDataset(cfg, device)
     else:
@@ -403,7 +434,8 @@ def run_training(cfg, saver: DataSaver, device="cuda",
     # args.txt after the dataset set cfg.ar (and org_fps, fps_lcm in video
     # mode; trainer.py:429-435 there): eval re-hydrates the pyramid
     # geometry from it
-    cfg.write_args_txt(os.path.join(saver.experiment_dir, "args.txt"))
+    if multihost.is_primary():
+        cfg.write_args_txt(os.path.join(saver.experiment_dir, "args.txt"))
 
     seed = seed if seed is not None else (cfg.manualSeed or 0)
     init_gen = torch.Generator().manual_seed(int(seed))
@@ -417,9 +449,12 @@ def run_training(cfg, saver: DataSaver, device="cuda",
     if cfg.netG or cfg.intermediate:
         noise_amps, start, inflight, warm_dir = resume(cfg, saver, G,
                                                        init_gen, noise)
-    noise_amps = train_scales(cfg, G, dataset, saver, noise_amps, noise,
-                              init_gen, start, train_scale, step_callback,
-                              inflight, warm_dir)
+    with mesh.data_parallel(group):
+        noise_amps = train_scales(cfg, G, dataset, saver, noise_amps, noise,
+                                  init_gen, start, train_scale,
+                                  step_callback, inflight, warm_dir)
+    # the primary's last writes before any rank returns
+    multihost.sync("run_training_end")
     return G, noise_amps
 
 

@@ -25,9 +25,14 @@ is an int64 tensor (..., 2) holding two 32-bit words; words stay in int64
 masked to 32 bits, so no unsigned type or bitcast is needed. Each function
 maps over the key's leading axes, as `jax.vmap` over a batch of keys does.
 The uniform is `(bits >> 9) * 2**-23` (exact), and the normal is
-`sqrt(2) * torch.erfinv(u)`: PyTorch's erfinv, not XLA's polynomial, so a
-draw may differ from JAX's by an ulp or so (the numpy path above is the bit
-exact one).
+`sqrt(2) * erfinv(u)` with the numpy path's erfinv as tensor arithmetic
+(`_erfinv_tensor`), so a draw equals `jax.random.normal`'s bit for bit.
+Each float32 product that feeds a sum is made where a compiler cannot fuse
+it into a multiply-add: inside `_fma_tensor`'s float64 form, or rounded to
+float32 from its exact float64 value first; divisions and square roots run
+in float64 and round once to float32, which gives the correctly rounded
+float32 result (float64 has more than 2 * 24 + 2 bits). So the exported
+program's Inductor kernels draw the same bits as the eager module.
 """
 
 from __future__ import annotations
@@ -265,10 +270,107 @@ def _uniform_tensor(key: torch.Tensor, shape: Sequence[int], minval: float,
     return torch.clamp_min(floats * float(hi - lo) + float(lo), float(lo))
 
 
-def _normal_tensor(key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
+def _f64(v):
+    """A float32 tensor or number in float64 (exactly)."""
+    return v.double() if torch.is_tensor(v) else float(np.float32(v))
+
+
+def _fma_tensor(a, b, c) -> torch.Tensor:
+    """_fma on float32 tensors (or numbers): the float64 product is exact,
+    and the midpoint fix-up is a `torch.where` over the whole tensor. A
+    compiler that fuses the float64 multiply and add changes nothing: the
+    product is exact either way."""
+    p = _f64(a) * _f64(b)
+    s = p + _f64(c)
+    bits = s.view(torch.int64)
+    mid = (bits & 0x1FFFFFFF) == (1 << 28)
+    t = s - p
+    err = (p - (s - t)) + (_f64(c) - t)  # s + err == p + c exactly
+    # one ulp of s toward the sign of err (s is not 0 where mid holds)
+    nudged = (bits + torch.where((err > 0) == (s > 0), 1, -1)
+              ).view(torch.float64)
+    return torch.where(mid & (err != 0), nudged, s).to(torch.float32)
+
+
+def _polynomials_tensor(x: torch.Tensor, rows) -> torch.Tensor:
+    """_polynomial of each coefficient row (all of one length) at x, as
+    one Horner chain over a (len(rows), *x.shape) stack."""
+    coeffs = torch.tensor([[float(np.float32(c)) for c in row]
+                           for row in rows], dtype=torch.float32,
+                          device=x.device)
+    coeffs = coeffs.reshape(coeffs.shape + (1,) * x.ndim)
+    p = coeffs[:, 0].expand((len(rows),) + tuple(x.shape))
+    for i in range(1, coeffs.shape[1]):
+        p = _fma_tensor(p, x, coeffs[:, i])
+    return p
+
+
+def _mul_tensor(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a * b in float32, rounded from the exact float64 product: a sum it
+    feeds cannot be fused with it."""
+    return (a.double() * b.double()).to(torch.float32)
+
+
+def _log_tensor(x: torch.Tensor) -> torch.Tensor:
+    """_log on a float32 tensor of x > 0."""
+    bits = torch.clamp_min(x, float(np.float32(2.0 ** -126))).view(
+        torch.int32)
+    e = 1.0 + ((bits >> 23) - 0x7F).to(torch.float32)
+    m = ((bits & 0x007FFFFF) | 0x3F000000).view(torch.float32)  # [0.5, 1)
+    low = m < float(np.float32(0.707106781186547524))
+    e = e - low.to(torch.float32)
+    m = (m - 1.0) + torch.where(low, m, torch.zeros_like(m))
+    m2 = m * m
+    m3 = m2 * m
+    p = _polynomials_tensor(m, (_LOG_P[0:3], _LOG_P[3:6], _LOG_P[6:9]))
+    y = _fma_tensor(p[0], m3, p[1])
+    y = _fma_tensor(y, m3, p[2])
+    y = _fma_tensor(y, m3, float(np.float32(-2.12194440e-4)) * e)
+    m = _fma_tensor(-0.5, m2, m) + y
+    return _fma_tensor(0.693359375, e, m)
+
+
+def _log1p_tensor(x: torch.Tensor) -> torch.Tensor:
+    """_log1p on a float32 tensor of x > -1, both branches computed."""
+    small = torch.abs(x) < float(np.float32(0.41421356237309504880))
+    x2 = x * x
+    num, den = _polynomials_tensor(x, (_LOG1P_NUM, _LOG1P_DEN)).double()
+    ratio = (num / den).to(torch.float32)
+    y = (x * x2) * ratio
+    return torch.where(small, x + _fma_tensor(-0.5, x2, y),
+                       _log_tensor(1.0 + x))
+
+
+def _erfinv_tensor(x: torch.Tensor) -> torch.Tensor:
+    """erfinv on a float32 tensor in (-1, 1): one Horner chain whose
+    variable and coefficients are each element's branch's."""
+    w = -_log1p_tensor(-_mul_tensor(x, x))
+    small = w < 5.0
+    t = torch.where(small, w - 2.5,
+                    torch.sqrt(w.double()).to(torch.float32) - 3.0)
+    rows = [(float(np.float32(a)), float(np.float32(b)))
+            for a, b in zip(_ERFINV_SMALL, _ERFINV_LARGE)]
+    p = torch.where(small, *rows[0])
+    for a, b in rows[1:]:
+        p = _fma_tensor(p, t, torch.where(small, a, b))
+    return p * x
+
+
+def normals(draws) -> list:
+    """jax.random.normal(key, shape) for each (key tensor, shape) of
+    `draws`: their uniforms, then one erfinv over all of them (an
+    elementwise function, so each draw's bits are its own draw's), which
+    a compiler then builds once for them all."""
     lo = np.nextafter(np.float32(-1), np.float32(0))
-    u = _uniform_tensor(key, shape, lo, 1.0)
-    return torch.erfinv(u) * float(np.float32(np.sqrt(2)))
+    us = [_uniform_tensor(key, shape, lo, 1.0) for key, shape in draws]
+    z = _erfinv_tensor(torch.cat([u.reshape(-1) for u in us])) \
+        * float(np.float32(np.sqrt(2)))
+    return [part.reshape(u.shape)
+            for part, u in zip(z.split([u.numel() for u in us]), us)]
+
+
+def _normal_tensor(key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
+    return normals([(key, shape)])[0]
 
 
 def bernoulli(key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:

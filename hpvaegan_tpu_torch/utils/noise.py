@@ -10,15 +10,19 @@ a test can replace it with one that hands out another framework's draws, in
 call order. `get_state` / `set_state` carry both of its generators through
 a checkpoint (utils/saver.py), so that a resumed run draws what the
 uninterrupted one would have. `KeyedNoise` draws from the JAX seed stream
-instead (utils/jax_prng.py), for the exported sampler.
+instead (utils/jax_prng.py), for the exported sampler. Under a data
+group of several ranks a NoiseSource draws the rank's rows of the global
+batch's draws.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
+from ..parallel import mesh
 from . import jax_prng
 from .device import resolve_device
 
@@ -46,7 +50,20 @@ class NoiseSource:
     Tensor draws come from a generator on the tensors' device. Kernel seeds
     are host integers and come from a second generator on the host, so that
     drawing one never waits for the device.
+
+    Under a data group of several ranks (parallel/mesh.py, the group in
+    force) every rank holds the same generator states, and each batched
+    draw, asked for with the rank's shape of b rows, is drawn at the global
+    batch of size * b rows and sliced to the rank's rows [rank * b,
+    (rank + 1) * b): N ranks draw what one process draws at the global
+    batch. Scalar draws (the GP's alpha) are whole; a grouped draw (the
+    paired G step's) gives the rank its rows of each group; `batch_seed`
+    offsets K1's per-sample seed (key seed + b, ops/fused_upscale_noise.py)
+    by the rank's first global row. `window` places the rows elsewhere in a
+    draw of another size (parallel/sampling.py's sub-batches).
     """
+
+    _window: Optional[Tuple[int, int]] = None
 
     def __init__(self, seed: int, device="cuda"):
         self.device = resolve_device(device)
@@ -55,24 +72,71 @@ class NoiseSource:
         self.host_gen = torch.Generator()
         self.host_gen.manual_seed(int(seed))
 
+    def _rows(self, b: int) -> Tuple[int, int]:
+        """(rows of the global draw, this rank's first row in it) for a
+        draw of b rows on this rank."""
+        if self._window is not None:
+            return self._window
+        group = mesh.active()
+        return group.size * b, group.rank * b
+
+    def _sharded(self, draw, shape: Sequence[int]) -> torch.Tensor:
+        """draw(shape) of this rank's rows of the global draw."""
+        shape = tuple(int(s) for s in shape)
+        if not shape:
+            return draw(shape)
+        total, start = self._rows(shape[0])
+        if (total, start) == (shape[0], 0):
+            return draw(shape)
+        return draw((total,) + shape[1:])[start:start + shape[0]]
+
+    @contextlib.contextmanager
+    def window(self, total: int, start: int):
+        """Within the body, a batched draw of b rows is rows [start,
+        start + b) of a draw of `total` rows, and K1's seeds are offset by
+        `start`, whatever the data group."""
+        self._window = (int(total), int(start))
+        try:
+            yield
+        finally:
+            self._window = None
+
     def normal(self, shape: Sequence[int]) -> torch.Tensor:
-        return generate_noise(self.gen, shape, "normal")
+        return self._sharded(
+            lambda s: generate_noise(self.gen, s, "normal"), shape)
+
+    def grouped_normal(self, shape: Sequence[int], groups: int
+                       ) -> torch.Tensor:
+        """normal(shape) of a batch made of `groups` equal contiguous parts
+        (the paired G step's width-2B forward): under a data group, the
+        rank's rows of each part of the global draw."""
+        shape = tuple(int(s) for s in shape)
+        b = shape[0] // groups
+        total, start = self._rows(b)
+        if (total, start) == (b, 0):
+            return self.normal(shape)
+        whole = generate_noise(self.gen, (groups * total,) + shape[1:],
+                               "normal")
+        return torch.cat([whole[g * total + start:g * total + start + b]
+                          for g in range(groups)])
 
     def uniform(self, shape: Sequence[int] = ()) -> torch.Tensor:
         """U[0, 1) draws on the device: one scalar by default (the GP's
         alpha), or `shape` (GeneratorVAE_nb's Gumbel noise)."""
-        return generate_noise(self.gen, shape, "uniform")
+        return self._sharded(
+            lambda s: generate_noise(self.gen, s, "uniform"), shape)
 
     def bernoulli(self, shape: Sequence[int]) -> torch.Tensor:
         """Bool Bernoulli(0.5) flags on the device (per-sample hflips,
         GeneratorVAE_nb's gate)."""
-        return generate_noise(self.gen, shape, "bernoulli", dtype=torch.bool)
+        return self._sharded(lambda s: generate_noise(
+            self.gen, s, "bernoulli", dtype=torch.bool), shape)
 
     def randint(self, high: int, shape: Sequence[int]) -> torch.Tensor:
         """int64 draws in [0, high) on the device (the video batch's window
         starts)."""
-        return torch.randint(0, int(high), tuple(int(s) for s in shape),
-                             generator=self.gen, device=self.device)
+        return self._sharded(lambda s: torch.randint(
+            0, int(high), s, generator=self.gen, device=self.device), shape)
 
     def get_state(self) -> Dict[str, torch.Tensor]:
         """Both generators' states (host byte tensors)."""
@@ -86,6 +150,11 @@ class NoiseSource:
     def seed(self) -> int:
         """A kernel seed in [0, 2^31 - 1), as networks_2d.py:207 draws it."""
         return int(torch.randint(0, 2 ** 31 - 1, (), generator=self.host_gen))
+
+    def batch_seed(self, rows: int) -> int:
+        """The kernel seed of a batch of `rows` samples: sample b draws from
+        seed + b, offset by this rank's first row of the global batch."""
+        return self.seed() + self._rows(int(rows))[1]
 
     def kernel_bits(self, shape: Sequence[int]
                     ) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
@@ -106,13 +175,33 @@ class KeyedNoise(NoiseSource):
     order, (1, H, W, C) or (1, T, H, W, C), then moves the channels to the
     port's axis 1. `bernoulli(shape)` draws GeneratorVAE_nb's gate from
     `gate_keys` (its `kb`, unsplit), also channels-last.
+
+    `shapes`, the shapes of the normal draws to come, in order (a previous
+    forward's `drawn_shapes`), draws them all up front through one erfinv
+    (jax_prng.normals): the same bits, and one erfinv for a compiler to
+    build instead of one per draw.
     """
 
     def __init__(self, keys: torch.Tensor,
-                 gate_keys: Optional[torch.Tensor] = None):
+                 gate_keys: Optional[torch.Tensor] = None,
+                 shapes: Optional[Sequence[Sequence[int]]] = None):
         self.device = keys.device
         self.keys = keys
         self.gate_keys = gate_keys
+        self.drawn_shapes = []
+        self._ahead = []
+        if shapes:
+            subs = [self._next_key() for _ in shapes]
+            draws = jax_prng.normals([(sub, self._channels_last(shape))
+                                      for sub, shape in zip(subs, shapes)])
+            self._ahead = [(tuple(shape), draw)
+                           for shape, draw in zip(shapes, draws)]
+
+    def _next_key(self) -> torch.Tensor:
+        """The subkey of the next draw: every key splits into (key, sub)."""
+        pairs = jax_prng.split(self.keys)
+        self.keys = pairs[:, 0]
+        return pairs[:, 1]
 
     @staticmethod
     def _channels_last(shape: Sequence[int]) -> Tuple[int, ...]:
@@ -125,9 +214,15 @@ class KeyedNoise(NoiseSource):
         return draw.squeeze(1).movedim(-1, 1)
 
     def normal(self, shape: Sequence[int]) -> torch.Tensor:
-        pairs = jax_prng.split(self.keys)
-        self.keys = pairs[:, 0]
-        return self._to_port(jax_prng.normal(pairs[:, 1],
+        shape = tuple(int(s) for s in shape)
+        self.drawn_shapes.append(shape)
+        if self._ahead:
+            ahead, draw = self._ahead.pop(0)
+            if ahead != shape:
+                raise ValueError(f"a draw of {shape} where {ahead} was "
+                                 "drawn ahead")
+            return self._to_port(draw)
+        return self._to_port(jax_prng.normal(self._next_key(),
                                              self._channels_last(shape)))
 
     def bernoulli(self, shape: Sequence[int]) -> torch.Tensor:

@@ -17,20 +17,24 @@ EVERY_S = 10.0
 
 
 class Progress:
-    def __init__(self, total: int, desc: str = "", initial: int = 0):
-        """`initial`: iterations done before (a resumed scale's)."""
-        self.total, self.desc = total, desc
+    def __init__(self, total: int, desc: str = "", initial: int = 0,
+                 disable: bool = False):
+        """`initial`: iterations done before (a resumed scale's); `disable`:
+        log nothing (a non-primary rank)."""
+        self.total, self.desc, self.disable = total, desc, disable
         self.n = self.initial = initial
         self.t0 = self.t_last = time.perf_counter()
 
     def update(self, n: int = 1) -> None:
         self.n += n
         now = time.perf_counter()
-        if now - self.t_last >= EVERY_S:
+        if not self.disable and now - self.t_last >= EVERY_S:
             self.t_last = now
             logging.info("%s: %d/%d", self.desc, self.n, self.total)
 
     def close(self) -> None:
+        if self.disable:
+            return
         secs = time.perf_counter() - self.t0
         logging.info("%s: %d/%d [%.1f s, %.2f it/s]", self.desc, self.n,
                      self.total, secs,

@@ -6,11 +6,11 @@ program and its save/load round trip against the eager module, and the
 refusal of the CSG/SG baselines.
 
 Weights are the JAX package's init (perturbed with numpy) and cross through
-tools/convert.py. Tolerances: split, bits and bernoulli bit for bit; the
-normal draws rtol 1e-5 / atol 1e-6 (the tensor path's erfinv is PyTorch's,
-XLA's is a polynomial: they differ by up to ~10 ulps); the multi-scale
-sampler atol 1e-4; the exported program equals the eager module bit for
-bit on the CPU.
+tools/convert.py. Tolerances: split, bits, bernoulli and the normal draws
+bit for bit (the tensor path's erfinv is XLA's polynomial as XLA:CPU
+computes it, the numpy path's, in arithmetic a compiler cannot reorder);
+the multi-scale sampler atol 1e-4; the exported program equals the eager
+module bit for bit on the CPU.
 """
 
 import os
@@ -36,7 +36,6 @@ import test_torch_video as s3
 torch.set_num_threads(1)
 
 GEN_TOL = dict(rtol=0, atol=1e-4)  # multi-scale sampler
-NORMAL_TOL = dict(rtol=1e-5, atol=1e-6)  # PyTorch's erfinv against XLA's
 
 
 def _key(seed):
@@ -69,18 +68,44 @@ def test_prng_key_and_split_equal_jax(seed):
 def test_normal_and_bernoulli_equal_jax(shape):
     for seed in (0, 5):
         key = jax.random.PRNGKey(seed)
-        np.testing.assert_allclose(
+        np.testing.assert_array_equal(
             jax_prng.normal(_key(seed), shape).numpy(),
-            np.asarray(jax.random.normal(key, shape)), **NORMAL_TOL)
+            np.asarray(jax.random.normal(key, shape)))
         np.testing.assert_array_equal(
             jax_prng.bernoulli(_key(seed), shape).numpy(),
             np.asarray(jax.random.bernoulli(key, 0.5, shape)))
     # per-sample keys draw as a vmap of single draws
     keys = jax.random.split(jax.random.PRNGKey(3), 3)
-    np.testing.assert_allclose(
+    np.testing.assert_array_equal(
         jax_prng.normal(torch.from_numpy(_jax_key_words(keys)), shape).numpy(),
-        np.asarray(jax.vmap(lambda k: jax.random.normal(k, shape))(keys)),
-        **NORMAL_TOL)
+        np.asarray(jax.vmap(lambda k: jax.random.normal(k, shape))(keys)))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 11, -7, 2 ** 31 - 1])
+@pytest.mark.parametrize("shape", [(1, 27, 36, 128), (1, 4, 24, 33, 128)],
+                         ids=["image", "video"])
+def test_normal_is_bit_equal_at_the_serving_shapes(seed, shape):
+    """The tensor path's normals equal jax.random.normal bit for bit at the
+    full-width serving models' z shapes (image 27 x 36, video 4 x 24 x 33,
+    128 latent channels), and equal the numpy path's."""
+    got = jax_prng.normal(_key(seed), shape).numpy()
+    want = np.asarray(jax.random.normal(jax.random.PRNGKey(np.int32(seed)),
+                                        shape))
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+    if seed >= 0:
+        np.testing.assert_array_equal(
+            got, jax_prng.normal(jax_prng.prng_key(seed), shape))
+
+
+def test_erfinv_tensor_equals_the_numpy_path():
+    """The tensor erfinv equals the numpy copy of XLA's on 2^18 uniforms and
+    at the ends of the uniform's range (both polynomial branches)."""
+    u = np.random.RandomState(0).uniform(-1, 1, 2 ** 18).astype(np.float32)
+    lo = np.nextafter(np.float32(-1), np.float32(0))
+    u = np.concatenate([u, np.float32([lo, -lo, 0.0, 2.0 ** -24, 0.5])])
+    got = jax_prng._erfinv_tensor(torch.from_numpy(u)).numpy()
+    np.testing.assert_array_equal(got.view(np.int32),
+                                  jax_prng.erfinv(u).view(np.int32))
 
 
 def test_keyed_noise_draws_channels_last_and_splits_per_draw():
@@ -92,10 +117,28 @@ def test_keyed_noise_draws_channels_last_and_splits_per_draw():
         keys, subs = pairs[:, 0], pairs[:, 1]
         tail = (1,) + shape[2:] + (shape[1],)
         want = np.asarray(jax.vmap(lambda k: jax.random.normal(k, tail))(subs))
-        np.testing.assert_allclose(
-            got.numpy(), np.moveaxis(want[:, 0], -1, 1), **NORMAL_TOL)
+        np.testing.assert_array_equal(
+            got.numpy(), np.moveaxis(want[:, 0], -1, 1))
     with pytest.raises(ValueError, match="gate keys"):
         noise.bernoulli((2, 1, 5, 7))
+
+
+def test_keyed_noise_drawn_ahead_equals_drawn_in_turn():
+    """Given the shapes of the draws to come (a previous forward's
+    drawn_shapes, as the serving module passes them), KeyedNoise draws
+    them all up front through one erfinv: the same bits, in the same key
+    chain; a draw of another shape is refused."""
+    keys = torch.from_numpy(_jax_key_words(jax.random.split(
+        jax.random.PRNGKey(2), 2)))
+    shapes = [(2, 3, 5, 7), (2, 3, 4, 9, 11), (2, 3, 6, 6)]
+    in_turn = KeyedNoise(keys)
+    want = [in_turn.normal(s) for s in shapes]
+    ahead = KeyedNoise(keys, shapes=in_turn.drawn_shapes)
+    for s, w in zip(shapes, want):
+        assert torch.equal(ahead.normal(s), w)
+    assert ahead.drawn_shapes == shapes
+    with pytest.raises(ValueError, match="drawn ahead"):
+        KeyedNoise(keys, shapes=shapes).normal((2, 3, 5, 8))
 
 
 # ---------------------------------------------------------- serving module
@@ -122,7 +165,8 @@ def _inputs(cfg, ndim, batch, seed=0):
 
 
 @pytest.mark.parametrize("kind,batch", [("2d", 1), ("2d", 2), ("3d", 1),
-                                        ("vae_nb", 1)])
+                                        ("3d", 2), ("vae_nb", 1),
+                                        ("vae_nb", 2), ("vae_nb", 3)])
 def test_serving_module_matches_jax(kind, batch):
     """The port's serving module equals JAX make_serving_fn (jit, CPU) for
     the same noise_init, amps and seed, and leaves BatchNorm's running
