@@ -186,6 +186,21 @@ Phases, each of which exits non-zero on a failed check:
              the gradients not averaged, BatchNorm's statistics not
              reduced, or every rank drawing the first rows (another
              rank's draws), each of which DP_TRAIN_REL must catch
+ 20. spatial mesh  --mesh-sp 2 (parallel/spatial.py): (a) two ranks on the
+             card over gloo (`chip_smoke.py --sp-worker` processes), each
+             on its rows of H, against this process at the same batch of
+             1, TF32 off: 4 full-width scale-9 iterations of the 2D model
+             (192x257; heights 24 .. 96 and 192 split, 121 and 153 whole):
+             the ranks' parameters and metrics bit-equal, the first
+             iteration's metrics and gradients within DP_TRAIN_REL of one
+             process, steps/s of both, the share of a rank's iteration in
+             collectives, peak GB per rank beside one process's, and the
+             heights the sharded convolutions ran on (96 + 2 at scale 9);
+             K1 launches 0; (b) the same for the 3D model
+             at scale 9 (13x192x257), 2 iterations; (c) planted faults:
+             (a)'s first iteration with the halo rows zeroed, BatchNorm not
+             summed over the spatial ranks, or every rank drawing the first
+             rows of H, each of which DP_TRAIN_REL must catch
 Then it prints the kernels' JSON line, the card's name and power limit as
 nvidia-smi gives them, and last {"ok": true, "device": {...}}.
 
@@ -2998,20 +3013,21 @@ def free_port():
     return port
 
 
-def start_dp_ranks(work, fault=None):
-    """Phase 19's two rank processes (`--dp-worker`), with `fault` planted
-    in both when given."""
+def start_dp_ranks(work, fault=None, kind="dp"):
+    """The two rank processes of phase 19 (`--dp-worker`) or, with kind
+    "sp", of phase 20 (`--sp-worker`), with `fault` planted in both when
+    given."""
     port = free_port()
     procs = [subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), "--dp-worker", str(r),
-         str(port), work] + ([fault] if fault else []), cwd=HERE,
+        [sys.executable, os.path.abspath(__file__), f"--{kind}-worker",
+         str(r), str(port), work] + ([fault] if fault else []), cwd=HERE,
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for r in range(DP_RANKS)]
     CHILDREN.extend(procs)
     return procs
 
 
-def join_dp_ranks(torch, procs, work, fault=None):
+def join_dp_ranks(torch, procs, work, fault=None, kind="dp"):
     """The results of start_dp_ranks' processes, one per rank."""
     logs = []
     try:
@@ -3025,8 +3041,9 @@ def join_dp_ranks(torch, procs, work, fault=None):
     for r, (proc, log) in enumerate(zip(procs, logs)):
         check(proc.returncode == 0, f"rank {r} ({fault or 'sound'}) exit "
               f"{proc.returncode}: {log[-3000:]}")
-    return [torch.load(os.path.join(work, f"dp_{fault or 'sound'}_{r}.pt"),
-                       weights_only=False) for r in range(DP_RANKS)]
+    return [torch.load(os.path.join(work, f"{kind}_{fault or 'sound'}_{r}"
+                                    ".pt"), weights_only=False)
+            for r in range(DP_RANKS)]
 
 
 def phase_data_parallel(torch, k1, ckpt):
@@ -3144,9 +3161,231 @@ def phase_data_parallel(torch, k1, ckpt):
     return out
 
 
+# phase 20: the spatial mesh (--mesh-sp 2): two ranks on the card over gloo
+# split H, against this process at the same batch; iterations at scale 9
+# per model: 2D 1 compared, 2 timed, 1 with the collectives timed; 3D 1
+# compared, 1 timed with the collectives timed (steps/s read from it)
+SP_ITERS = {2: 4, 3: 2}
+# phase 20 (c): the faults planted in a rank, each breaking one of the
+# exchanges that make S ranks one process (parallel/spatial.py)
+SP_FAULTS = ("halo_zeros", "bn_not_summed_over_sp", "draws_first_rows")
+
+
+def plant_sp_fault(fault):
+    """Break one exchange of the spatial axis in this process: the halo
+    rows (zeros for the neighbours' rows), BatchNorm's sum over the
+    spatial ranks (ops/norm.py never handed one: each rank normalises by
+    its own rows' statistics), or the draws (every rank takes the first
+    rows of H of the global draw)."""
+    from hpvaegan_tpu_torch.ops import norm
+    from hpvaegan_tpu_torch.parallel import spatial
+    from hpvaegan_tpu_torch.utils.noise import NoiseSource
+
+    if fault == "halo_zeros":
+        import torch
+
+        spatial._neighbour_rows = lambda top, bottom, ax: (
+            torch.zeros_like(bottom), torch.zeros_like(top))
+    elif fault == "bn_not_summed_over_sp":
+        norm.set_sharded_sum = lambda sharded_sum: None
+    elif fault == "draws_first_rows":
+        def first_rows(self, h, kind, shape, *args):
+            draw = getattr(self, kind)
+            if not spatial.sharded(h):
+                return draw(shape, *args)
+            shape = tuple(int(s) for s in shape)
+            whole = draw(shape[:-2] + (h, shape[-1]), *args)
+            return whole.narrow(-2, 0, shape[-2])
+        NoiseSource.draw_rows = first_rows
+    else:
+        raise ValueError(f"unknown fault {fault!r}")
+
+
+def sp_train_leg(torch, group, ndim, first_only=False):
+    """SP_ITERS[ndim] full-width training iterations at scale 9 (GAN) of
+    the 2D (air_balloons.jpg, 192x257) or 3D (balloons_pan.avi, 13x192x257)
+    model at batch 1, under `group` (a rank's rows of H, or the whole in
+    one process). Returns the first iteration's metrics and gradients, the
+    heights the H-sharded convolutions of that iteration ran on (rows plus
+    halos, by height), G's and D's state after all the iterations, the
+    steps/s, the share of the last iteration spent in collectives and
+    their number, and the peak memory allocated."""
+    from hpvaegan_tpu_torch.data.image import SingleImageDataset
+    from hpvaegan_tpu_torch.parallel import mesh, spatial
+    from hpvaegan_tpu_torch.tools.step_parity import build_state
+    from hpvaegan_tpu_torch.training.steps import (batch_former,
+                                                   train_iteration)
+    from hpvaegan_tpu_torch.utils.noise import NoiseSource
+
+    if ndim == 2:
+        image = os.path.join(HERE, "data", "imgs", "air_balloons.jpg")
+        cfg = full_width_config(image_path=image, batch_size=1)
+        dataset = SingleImageDataset(cfg, DP_DEVICE)
+        data = dataset.scale_image(DP_SCALE), dataset.scale_image(0)
+    else:
+        cfg, dataset = video_config(batch_size=1)
+        data = dataset.scale_frames(DP_SCALE), dataset.scale_frames(0)
+    amps = [1.0] + [0.05] * (cfg.stop_scale + 1)
+    st = build_state(cfg, DP_SCALE, SEED, DP_DEVICE, ndim)
+    former = batch_former(ndim, DP_SCALE)
+
+    def iteration():
+        return {k: float(v) for k, v in train_iteration(
+            cfg, st, data[0], data[1], amps, False, former).items()}
+
+    def grads(module):
+        return {k: p.grad.detach().cpu().clone()
+                for k, p in module.named_parameters() if p.grad is not None}
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with mesh.data_parallel(group):
+        st.noise = NoiseSource(SEED, DP_DEVICE)
+        spatial.conv_rows.clear()
+        metrics = iteration()
+        out = {"metrics": metrics, "G_grads": grads(st.G),
+               "D_grads": grads(st.D),
+               "conv_rows": dict(sorted(spatial.conv_rows.items()))}
+        if first_only:
+            return out
+        timed = SP_ITERS[ndim] - 2
+        torch.cuda.synchronize()
+        if timed:
+            t0 = time.perf_counter()
+            for _ in range(timed):
+                metrics = iteration()
+            torch.cuda.synchronize()
+            out["steps_per_s"] = timed / (time.perf_counter() - t0)
+        mesh.timing, mesh.COLLECTIVE_SECONDS[0] = True, 0.0
+        mesh.COLLECTIVE_CALLS[0] = 0
+        t0 = time.perf_counter()
+        metrics = iteration()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        mesh.timing = False
+        out["collective_share"] = mesh.COLLECTIVE_SECONDS[0] / secs
+        out["collectives"] = mesh.COLLECTIVE_CALLS[0]
+        out.setdefault("steps_per_s", 1 / secs)
+    check(all(math.isfinite(v) for v in metrics.values()),
+          f"spatial-mesh metrics {metrics}")
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["G"] = {k: v.cpu() for k, v in st.G.state_dict().items()}
+    out["D"] = {k: v.cpu() for k, v in st.D.state_dict().items()}
+    del st, data, dataset
+    torch.cuda.empty_cache()
+    return out
+
+
+def sp_worker(rank, port, work, fault=None):
+    """One rank of phase 20 (b), run as `chip_smoke.py --sp-worker <rank>
+    <port> <dir>`: the 2D and 3D legs over two gloo ranks on the card
+    (--mesh-sp 2); with a fault (one of SP_FAULTS) after <dir>, (c): that
+    fault planted, the 2D leg's first iteration only."""
+    import torch
+
+    from hpvaegan_tpu_torch.parallel import mesh, multihost
+
+    device = mesh.select_device(DP_DEVICE, 0)
+    multihost.init_distributed(f"127.0.0.1:{port}", DP_RANKS, rank,
+                               backend="gloo", device=device)
+    group = mesh.make_data_group(1, DP_RANKS)
+    out = {"backend": torch.distributed.get_backend(),
+           "place": (group.sp.rank, group.sp.size)}
+    with exact_math(torch):
+        if fault:
+            plant_sp_fault(fault)
+            out["2d"] = sp_train_leg(torch, group, 2, first_only=True)
+        else:
+            out["2d"] = sp_train_leg(torch, group, 2)
+            out["3d"] = sp_train_leg(torch, group, 3)
+    torch.save(out, os.path.join(work, f"sp_{fault or 'sound'}_{rank}.pt"))
+    multihost.sync()
+    torch.distributed.destroy_process_group()
+
+
+def phase_spatial(torch, k1):
+    """Phase 20 (module doc)."""
+    from hpvaegan_tpu_torch.parallel import mesh
+
+    k1.fused_upscale_noise_2d.launches = 0
+    with exact_math(torch):
+        one = {ndim: sp_train_leg(torch, mesh.DataGroup(), ndim)
+               for ndim in (2, 3)}
+    check(k1.fused_upscale_noise_2d.launches == 0,
+          f"K1 launched {k1.fused_upscale_noise_2d.launches} times in "
+          "training")
+    with tempfile.TemporaryDirectory(prefix="hpv_sp_") as work:
+        t0 = time.perf_counter()
+        ranks = join_dp_ranks(torch, start_dp_ranks(work, kind="sp"), work,
+                              kind="sp")
+        ranks_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        started = [(f, start_dp_ranks(work, f, kind="sp"))
+                   for f in SP_FAULTS]
+        faults = {f: join_dp_ranks(torch, procs, work, f, kind="sp")
+                  for f, procs in started}
+        faults_s = time.perf_counter() - t0
+    check([r["place"] for r in ranks] == [(0, 2), (1, 2)],
+          f"spatial places {[r['place'] for r in ranks]}")
+    out = {}
+    for ndim, what in ((2, "2d"), (3, "3d")):
+        r0, r1 = (r[what] for r in ranks)
+        for part in ("G", "D"):
+            same = all(torch.equal(v, r1[part][k])
+                       for k, v in r0[part].items())
+            check(same, f"{what}: the ranks' {part} differ")
+        check(r0["metrics"] == r1["metrics"], f"{what}: the ranks' metrics")
+        rel = first_iteration_rel(r0, one[ndim])
+        check(max(rel.values()) <= DP_TRAIN_REL,
+              f"{what} spatial mesh vs 1 process: {rel}")
+        g_par, g_run = param_diffs(r0["G"], one[ndim]["G"])
+        # scale 9's height 192 splits into 96 rows a rank; every 3x3
+        # convolution there ran on them and one halo row on each side
+        rows = [r["conv_rows"] for r in (r0, r1)]
+        check(all(96 + 2 in c for c in rows),
+              f"{what}: the sharded convolutions' heights {rows}")
+        check(not one[ndim]["conv_rows"],
+              f"{what}: one process ran sharded convolutions")
+        out[what] = {
+            "ranks": DP_RANKS, "mesh_sp": DP_RANKS, "backend": ranks[0][
+                "backend"], "batch": 1, "scale": DP_SCALE,
+            "iterations": SP_ITERS[ndim], **rel,
+            f"G_param_max_diff_after_{SP_ITERS[ndim]}": g_par,
+            f"G_running_stats_max_rel_after_{SP_ITERS[ndim]}": g_run,
+            "steps_per_s_2_ranks": round(r0["steps_per_s"], 3),
+            "steps_per_s_1_process": round(one[ndim]["steps_per_s"], 3),
+            "collective_share_rank0": round(r0["collective_share"], 4),
+            "collective_share_rank1": round(r1["collective_share"], 4),
+            "collectives_per_iteration": r0["collectives"],
+            "peak_gb_per_rank": [round(r["peak_gb"], 3) for r in (r0, r1)],
+            "peak_gb_1_process": round(one[ndim]["peak_gb"], 3),
+            "conv_heights_rank0_iter1": r0["conv_rows"]}
+        print(f"  (a/b) {what} full-width scale {DP_SCALE}, batch 1, "
+              f"{DP_RANKS} gloo ranks splitting H vs 1 process (TF32 off): "
+              + json.dumps(out[what]), flush=True)
+    print(f"  the two ranks' processes took {ranks_s:.1f} s", flush=True)
+    planted = {}
+    for fault, outs in faults.items():
+        rels = [first_iteration_rel(o["2d"], one[2]) for o in outs]
+        planted[fault] = {k: max(r[k] for r in rels) for k in rels[0]}
+        check(max(planted[fault].values()) > DP_TRAIN_REL,
+              f"planted fault {fault} reads {planted[fault]}, within "
+              f"DP_TRAIN_REL {DP_TRAIN_REL}")
+    print(f"  (c) planted faults, 2D first iteration on {DP_RANKS} ranks vs "
+          f"1 process (the larger rank's reading; bar {DP_TRAIN_REL}; the "
+          f"three pairs side by side, {faults_s:.1f} s): "
+          + json.dumps(planted), flush=True)
+    out["faults"] = planted
+    return out
+
+
 def main():
     if len(sys.argv) > 1 and sys.argv[1] == "--dp-worker":
         dp_worker(int(sys.argv[2]), sys.argv[3], sys.argv[4],
+                  sys.argv[5] if len(sys.argv) > 5 else None)
+        return
+    if len(sys.argv) > 1 and sys.argv[1] == "--sp-worker":
+        sp_worker(int(sys.argv[2]), sys.argv[3], sys.argv[4],
                   sys.argv[5] if len(sys.argv) > 5 else None)
         return
     if len(sys.argv) > 1 and sys.argv[1] == "--serving-draws":
@@ -3281,6 +3520,12 @@ def main():
     dp = phase_data_parallel(torch, k1, ckpt)
     print(f"  phase 19 took {time.perf_counter() - t0:.1f} s", flush=True)
 
+    print("phase 20: the spatial mesh (--mesh-sp 2), two ranks splitting H",
+          flush=True)
+    t0 = time.perf_counter()
+    phase_spatial(torch, k1)
+    print(f"  phase 20 took {time.perf_counter() - t0:.1f} s", flush=True)
+
     kernels = [{
         "name": "fused_upscale_noise_2d",
         "route": "cuda",
@@ -3303,7 +3548,8 @@ def main():
           "15's baselines (0), phase 16's training-flag runs (0), phase "
           "17's on-device eval and interop (0), phase 18's export and "
           "serving (0), phase 19's training (0) and sharded sampler "
-          f"({dp['sampler']['k1_launches_per_rank']} per rank)",
+          f"({dp['sampler']['k1_launches_per_rank']} per rank), phase 20's "
+          "spatial-mesh training (0)",
           flush=True)
     print(f"  total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

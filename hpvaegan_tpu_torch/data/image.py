@@ -7,6 +7,8 @@ resolution; each pyramid level is a half-pixel bilinear resize (cv2
 INTER_LINEAR, no antialias) on the device, cached. A batch is B copies of
 the level, each flipped on its own Bernoulli(0.5) draw under cfg.hflip,
 mapped to [-1, 1], plus the scale-0 noise_init. All tensors are NCHW.
+Under a spatial axis (parallel/spatial.py) the batch holds the rank's rows
+of H of each tensor whose height is split.
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ import numpy as np
 import torch
 
 from ..ops.resize import resize_bilinear
-from ..parallel import mesh
+from ..parallel import mesh, spatial
 from ..utils import pyramid
 from ..utils.noise import NoiseSource
 
@@ -73,10 +75,12 @@ def make_image_batch(cfg, scale_img: torch.Tensor, zero_img: torch.Tensor,
     """(real, real_zero, noise_init), the first two in [-1, 1]: draws the
     hflip flags (under cfg.hflip), then noise_init (B, latent, h0, w0). B
     is this rank's share of cfg.batch_size: a data-parallel rank forms its
-    rows of the global batch, from the global batch's draws."""
+    rows of the global batch, from the global batch's draws; and the three
+    are the rank's rows of H where the spatial axis splits their
+    height."""
     batch = mesh.local_rows(cfg.batch_size)
-    real = scale_img.expand(batch, -1, -1, -1)
-    real_zero = zero_img.expand(batch, -1, -1, -1)
+    real = spatial.shard_rows(scale_img).expand(batch, -1, -1, -1)
+    real_zero = spatial.shard_rows(zero_img).expand(batch, -1, -1, -1)
     if cfg.hflip:
         flips = noise.bernoulli((batch,)).reshape(batch, 1, 1, 1)
         real = torch.where(flips, real.flip(-1), real)
@@ -86,5 +90,6 @@ def make_image_batch(cfg, scale_img: torch.Tensor, zero_img: torch.Tensor,
     real_zero = real_zero * 2.0 - 1.0
     h0, w0 = pyramid.scale_size_2d(0, cfg.scale_factor, cfg.stop_scale,
                                    cfg.img_size, cfg.ar)
-    noise_init = noise.normal((batch, cfg.latent_dim, h0, w0))
+    noise_init = noise.draw_rows(h0, "normal", (
+        batch, cfg.latent_dim, spatial.local_h(h0), w0))
     return real, real_zero, noise_init

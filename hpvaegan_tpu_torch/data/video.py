@@ -8,7 +8,9 @@ NCDHW. `make_video_batch` forms a training batch on the device (the port
 of `make_video_batch_body`, data/video.py:71-115 there): random temporal
 windows at the scale's sampling rate, per-sample flips, z_init;
 `make_baseline_batch` the baselines' (JAX training/baselines_trainer.py:
-71-84), whose noise has nc_im channels.
+71-84), whose noise has nc_im channels. Under a spatial axis
+(parallel/spatial.py) a batch holds the rank's rows of H of each tensor
+whose height is split.
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ import numpy as np
 import torch
 
 from ..ops.resize import resize_bilinear
-from ..parallel import mesh
+from ..parallel import mesh, spatial
 from ..utils import pyramid
 from ..utils.noise import NoiseSource
 from .frames import video_metadata, video_to_frames
@@ -86,7 +88,8 @@ def make_video_batch(cfg, scale_frames: torch.Tensor,
     (reference video.py:50-63). The frames are gathered with device index
     arithmetic, so forming a batch never waits on the device. B is this
     rank's share of cfg.batch_size: a data-parallel rank forms its rows of
-    the global batch, from the global batch's draws.
+    the global batch, from the global batch's draws; and the three are the
+    rank's rows of H where the spatial axis splits their height.
     """
     batch = mesh.local_rows(cfg.batch_size)
     _, _, fps_index = pyramid.get_fps_td_by_index(
@@ -103,8 +106,9 @@ def make_video_batch(cfg, scale_frames: torch.Tensor,
         return win.reshape(c, batch, idx.shape[1], h, w).transpose(
             0, 1).contiguous()
 
-    real = take(scale_frames, cfg.sampling_rates[fps_index])
-    real_zero = take(zero_frames, cfg.sampling_rates[0])
+    real = take(spatial.shard_rows(scale_frames),
+                cfg.sampling_rates[fps_index])
+    real_zero = take(spatial.shard_rows(zero_frames), cfg.sampling_rates[0])
     if cfg.hflip:
         flips = noise.bernoulli((batch,)).reshape(batch, 1, 1, 1, 1)
         real = torch.where(flips, real.flip(-1), real)
@@ -117,7 +121,8 @@ def make_video_batch(cfg, scale_frames: torch.Tensor,
                                             cfg.sampling_rates, cfg.org_fps,
                                             cfg.fps_lcm)
     channels = cfg.latent_dim if noise_channels is None else noise_channels
-    noise_init = noise.normal((batch, channels, td0, h0, w0))
+    noise_init = noise.draw_rows(h0, "normal", (
+        batch, channels, td0, spatial.local_h(h0), w0))
     return real, real_zero, noise_init
 
 

@@ -10,6 +10,17 @@ Reference bugs, as in the JAX package: the GP alpha is drawn per step by the
 caller (cfg.bug_compat freezes it to 0.5 there), and the adversarial G term
 reaches the generator unless cfg.bug_compat detaches the fake
 (reference losses.py:94).
+
+Over ranks (--mesh-data, --mesh-sp; parallel/mesh.py) every mean here is
+the rank's own: the mean over its rows of the batch and, where the
+spatial axis splits H, over its rows of H. training/steps.py averages the
+gradients and metrics over all D x S ranks, which makes them the global
+means': the shards are equal (H is split only where it divides), and a
+term of a replicated activation is the same on every spatial rank. The
+gradient penalty's per-pixel channel norm is local, and the gradient it
+takes the norm of is the global one: the halo exchanges' adjoints
+(parallel/spatial.py) add to each rank's rows what its neighbours' outputs
+owe them.
 """
 
 from __future__ import annotations

@@ -25,6 +25,13 @@ one fake forward after the reconstruction, as the JAX package threads it.
 own statistics and folds them in order (ops/norm.py), for the paired
 forward.
 
+`sharded` (an argument of every forward, False by default) says that the
+activation holds this rank's rows of an H split over the spatial axis
+(parallel/spatial.py): the convolutions then pad H with their neighbours'
+rows and BatchNorm's statistics span the spatial ranks (ops/conv.py,
+ops/norm.py). Spectral norm acts on the replicated weights and needs
+nothing.
+
 `compute_dtype` (None, or bfloat16 under `--compute-dtype bfloat16`) is an
 attribute of every Conv and SNConv, set by `set_compute_dtype`; the
 training state sets it from cfg.compute_dtype (`cfg_compute_dtype`), and
@@ -60,9 +67,9 @@ class Conv(nn.Module):
         self.bias = nn.Parameter(torch.zeros(cout)) if bias else None
         self.padding = padding
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, sharded: bool = False) -> torch.Tensor:
         return conv(x, self.weight, self.bias, padding=self.padding,
-                    compute_dtype=self.compute_dtype)
+                    compute_dtype=self.compute_dtype, sharded=sharded)
 
 
 class DeferredFolds(list):
@@ -92,11 +99,12 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(ch))
 
     def forward(self, x: torch.Tensor, mode: str, commit: Commit = True,
-                groups: int = 1) -> torch.Tensor:
+                groups: int = 1, sharded: bool = False) -> torch.Tensor:
         if mode != "batch":
             return batchnorm(x, self.weight, self.bias, self.running_mean,
-                             self.running_var, mode, groups=groups)[0]
-        b_mean, b_var = batch_stats(x, groups)
+                             self.running_var, mode, groups=groups,
+                             sharded=sharded)[0]
+        b_mean, b_var = batch_stats(x, groups, sharded)
         if isinstance(commit, DeferredFolds):
             commit.append((self, b_mean.detach(), b_var.detach()))
         elif commit:
@@ -116,8 +124,9 @@ class ConvBlock(nn.Module):
         self.norm = BatchNorm(cout)
 
     def forward(self, x: torch.Tensor, bn: str, commit: Commit = True,
-                groups: int = 1) -> torch.Tensor:
-        return lrelu(self.norm(self.conv(x), bn, commit, groups))
+                groups: int = 1, sharded: bool = False) -> torch.Tensor:
+        return lrelu(self.norm(self.conv(x, sharded), bn, commit, groups,
+                               sharded))
 
 
 class ConvStack(nn.Module):
@@ -134,11 +143,11 @@ class ConvStack(nn.Module):
         self.tail = Conv(mid, cout, ker, ker // 2, ndim)
 
     def forward(self, x: torch.Tensor, bn: str, commit: Commit = True,
-                groups: int = 1) -> torch.Tensor:
-        x = self.head(x, bn, commit, groups)
+                groups: int = 1, sharded: bool = False) -> torch.Tensor:
+        x = self.head(x, bn, commit, groups, sharded)
         for i in range(self.num_layer):
-            x = getattr(self, f"block{i}")(x, bn, commit, groups)
-        return self.tail(x)
+            x = getattr(self, f"block{i}")(x, bn, commit, groups, sharded)
+        return self.tail(x, sharded)
 
 
 class SNConv(nn.Module):
@@ -159,13 +168,14 @@ class SNConv(nn.Module):
         self.register_buffer("weight_v", torch.zeros(cin * ker ** ndim))
         self.padding = ker // 2
 
-    def forward(self, x: torch.Tensor, u: torch.Tensor, v: torch.Tensor
+    def forward(self, x: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
+                sharded: bool = False
                 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
         """Conv with W / sigma from one power step on (u, v); returns the
         output and the new (u, v). The buffers are not written."""
         w, u, v = spectral_normalize(self.weight_orig, u, v)
         return conv(x, w, self.bias, padding=self.padding,
-                    compute_dtype=self.compute_dtype), (u, v)
+                    compute_dtype=self.compute_dtype, sharded=sharded), (u, v)
 
 
 class SNBlock(nn.Module):
@@ -176,21 +186,21 @@ class SNBlock(nn.Module):
         super().__init__()
         self.conv = SNConv(cin, cout, ker, ndim)
 
-    def forward(self, x: torch.Tensor):
-        y, uv = self.conv(x, self.conv.weight_u, self.conv.weight_v)
+    def forward(self, x: torch.Tensor, sharded: bool = False):
+        y, uv = self.conv(x, self.conv.weight_u, self.conv.weight_v, sharded)
         return lrelu(y), uv
 
 
 SNState = List[Tuple[torch.Tensor, torch.Tensor]]
 
 
-def sn_blocks_apply(blocks: Sequence[SNBlock], x: torch.Tensor
-                    ) -> Tuple[torch.Tensor, SNState]:
+def sn_blocks_apply(blocks: Sequence[SNBlock], x: torch.Tensor,
+                    sharded: bool = False) -> Tuple[torch.Tensor, SNState]:
     """A stack of SN blocks (JAX feature_extractor_apply, return_linear
     False); returns the output and each block's new (u, v)."""
     state = []
     for block in blocks:
-        x, uv = block(x)
+        x, uv = block(x, sharded)
         state.append(uv)
     return x, state
 

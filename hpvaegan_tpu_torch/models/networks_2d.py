@@ -29,6 +29,14 @@ flow in it from the first conv on; the latents (mu, logvar, the gate) are
 float32, and the refinement noise is cast to the activations' dtype before
 the add. `reconstruct_pair` is the paired G step's forward
 (`--paired-g`), GeneratorHPVAEGAN's only.
+
+Under a spatial axis (--mesh-sp, parallel/spatial.py) every activation of
+a pyramid height that divides by the axis's ranks holds the rank's rows of
+H: the encoder, the decoder and each refinement stage run `sharded` by
+their scale's height (`_sharded`), the upscales between stages move
+between the two layouts (ops/resize.py), every draw is the rank's rows of
+the global draw (NoiseSource.draw_rows) and Encode2DVAE_nb's spatial mean
+is the global one. The discriminator takes `sharded` from its caller.
 """
 
 from __future__ import annotations
@@ -41,8 +49,9 @@ import torch.nn as nn
 
 from ..ops.fused_upscale_noise import fused_upscale_noise_2d
 from ..ops.resize import upscale_2d
+from ..parallel import spatial
 from ..utils.noise import NoiseSource
-from ..utils.pyramid import scale_size_2d
+from ..utils.pyramid import scale_height, scale_size_2d
 from .blocks import (Commit, Conv, ConvStack, SNBlock, SNState,
                      assign_sn_state, init_weights_, sn_blocks_apply)
 
@@ -70,19 +79,19 @@ class Encode2DVAE(nn.Module):
         self.mu = _ConvHead(cfg.nfc, out_dim, cfg.ker_size, self.ndim)
         self.logvar = _ConvHead(cfg.nfc, out_dim, cfg.ker_size, self.ndim)
 
-    def features_apply(self, x: torch.Tensor
+    def features_apply(self, x: torch.Tensor, sharded: bool = False
                        ) -> Tuple[torch.Tensor, SNState]:
         """The SN blocks' output and their new (u, v)."""
         return sn_blocks_apply([getattr(self.features, f"conv_block_{i}")
-                                for i in range(self.num_blocks)], x)
+                                for i in range(self.num_blocks)], x, sharded)
 
-    def forward(self, x: torch.Tensor
+    def forward(self, x: torch.Tensor, sharded: bool = False
                 ) -> Tuple[Tuple[torch.Tensor, torch.Tensor], SNState]:
         """Returns ((mu, logvar), the SN blocks' new (u, v))."""
-        feats, state = self.features_apply(x)
+        feats, state = self.features_apply(x, sharded)
         # the latents stay float32 under a compute dtype (JAX :51-52)
-        return (self.mu.conv(feats).float(),
-                self.logvar.conv(feats).float()), state
+        return (self.mu.conv(feats, sharded).float(),
+                self.logvar.conv(feats, sharded).float()), state
 
 
 class Encode2DVAE_nb(Encode2DVAE):
@@ -94,15 +103,25 @@ class Encode2DVAE_nb(Encode2DVAE):
         super().__init__(cfg, out_dim, num_blocks)
         self.bern = _ConvHead(cfg.nfc, 1, cfg.ker_size, self.ndim)
 
-    def forward(self, x: torch.Tensor):
+    def forward(self, x: torch.Tensor, sharded: bool = False):
         """Returns ((mu, logvar, bern), the SN blocks' new (u, v)): mu and
         logvar (B, out_dim, 1, 1), bern (B, 1, H', W')."""
-        feats, state = self.features_apply(x)
-        bern = torch.sigmoid(self.bern.conv(feats))
+        feats, state = self.features_apply(x, sharded)
+        bern = torch.sigmoid(self.bern.conv(feats, sharded))
         feats = bern * feats
-        mu = self.mu.conv(feats).mean(dim=(2, 3), keepdim=True)
-        logvar = self.logvar.conv(feats).mean(dim=(2, 3), keepdim=True)
+        mu = _mean_hw(self.mu.conv(feats, sharded), sharded)
+        logvar = _mean_hw(self.logvar.conv(feats, sharded), sharded)
         return (mu.float(), logvar.float(), bern.float()), state
+
+
+def _mean_hw(t: torch.Tensor, sharded: bool) -> torch.Tensor:
+    """The mean over (H, W), keeping them as size 1; of all of H where t
+    holds the rank's rows of it (in float32, then t's dtype)."""
+    if not sharded:
+        return t.mean(dim=(2, 3), keepdim=True)
+    total = spatial.sum_sp(t.float().sum(dim=(2, 3), keepdim=True))
+    return (total / (t.shape[2] * spatial.axis().size * t.shape[3])).to(
+        t.dtype)
 
 
 class WDiscriminator2D(nn.Module):
@@ -124,14 +143,15 @@ class WDiscriminator2D(nn.Module):
         self.num_layer = cfg.num_layer
         self.tail = Conv(n, 1, cfg.ker_size, 1, self.ndim)
 
-    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, SNState]:
+    def forward(self, x: torch.Tensor, sharded: bool = False
+                ) -> Tuple[torch.Tensor, SNState]:
         """Returns (scores, the new (u, v) of every SN conv, head first);
         scores are (B, 1, H', W'), in 3D (B, 1, T', H', W'). The buffers
-        are not written."""
+        are not written. `sharded`: x holds the rank's rows of H."""
         blocks = [self.head] + [getattr(self.body, f"block{i}")
                                 for i in range(self.num_layer)]
-        y, state = sn_blocks_apply(blocks, x)
-        return self.tail(y), state
+        y, state = sn_blocks_apply(blocks, x, sharded)
+        return self.tail(y, sharded), state
 
 
 def stage_amp(amps, index: int):
@@ -159,33 +179,38 @@ def refinement_layers(cfg, body: Sequence[nn.Module], x: torch.Tensor, amps,
     `cfg.pallas_fused_sampling`, in random mode, on moving-stat BatchNorm,
     without a noise mask (networks_2d.py:189-195 there); one seed per
     stage. Training forwards run batch statistics and never reach it.
+    Under a spatial axis x is the rank's rows of the decoder's output
+    where scale 0's height is split, and each stage's where its is.
     """
     use_fused = bool(getattr(cfg, "pallas_fused_sampling", False)) \
         and is_random and bn == "moving" and noise_mask is None
+    h_in = scale_height(cfg, 0)
     for idx in range(len(body)):
         if cfg.vae_levels == idx + 1 \
                 and not (cfg.train_all and train_all_escape):
             x = x.detach()  # the VAE boundary (networks_2d.py:202-204)
         amp = stage_amp(amps, idx + 1)
+        hw = scale_size_2d(idx + 1, cfg.scale_factor, cfg.stop_scale,
+                           cfg.img_size, cfg.ar)
         if use_fused:
             seed = noise.batch_seed(x.shape[0])
-            hw = scale_size_2d(idx + 1, cfg.scale_factor, cfg.stop_scale,
-                               cfg.img_size, cfg.ar)
             bits = noise.kernel_bits((x.shape[0], x.shape[1], hw[0], hw[1]))
             x_up, x_in = fused_upscale_noise_2d(
                 x.contiguous(), hw, float(amp), seed, bits=bits)
         else:
             x_up = upscale_2d(x, idx + 1, cfg.scale_factor, cfg.stop_scale,
-                              cfg.img_size, cfg.ar)
+                              cfg.img_size, cfg.ar, h_in=h_in)
             x_in = x_up
             if is_random:
-                z = noise.grouped_normal(x_up.shape, groups) if groups > 1 \
-                    else noise.normal(x_up.shape)
+                z = noise.draw_rows(hw[0], "grouped_normal", x_up.shape,
+                                    groups) if groups > 1 \
+                    else noise.draw_rows(hw[0], "normal", x_up.shape)
                 if noise_mask is not None:
                     z = z * noise_mask
                 x_in = x_up + (z * amp).to(x_up.dtype)
-        y = body[idx](x_in, bn, commit, groups)
+        y = body[idx](x_in, bn, commit, groups, spatial.sharded(hw[0]))
         x = torch.tanh(y + x_up)
+        h_in = hw[0]
     return x
 
 
@@ -228,6 +253,11 @@ class GeneratorHPVAEGAN(nn.Module):
             stage = copy.deepcopy(self.body[-1])
         self.body.append(stage)
 
+    def _sharded(self, index: int) -> bool:
+        """Whether pyramid scale `index`'s activations hold the rank's rows
+        of H (parallel/spatial.py)."""
+        return spatial.sharded(scale_height(self.cfg, index))
+
     def _random_z(self, noise_init: torch.Tensor,
                   noise: NoiseSource) -> torch.Tensor:
         """The decoder's input in random mode."""
@@ -236,9 +266,10 @@ class GeneratorHPVAEGAN(nn.Module):
     def _latent(self, video: torch.Tensor, noise: NoiseSource):
         """The decoder's input in reconstruction mode, mu, logvar and the
         encoder's new (u, v): z = eps * exp(logvar / 2) + mu."""
-        (mu, logvar), enc_state = self.encode(video)
+        (mu, logvar), enc_state = self.encode(video, self._sharded(0))
         std = torch.exp(logvar * 0.5)
-        return noise.normal(std.shape) * std + mu, mu, logvar, enc_state
+        eps = noise.draw_rows(scale_height(self.cfg, 0), "normal", std.shape)
+        return eps * std + mu, mu, logvar, enc_state
 
     def forward(self, noise_init: torch.Tensor, amps, noise: NoiseSource, *,
                 bn: str = "batch", commit: Commit = True
@@ -247,7 +278,8 @@ class GeneratorHPVAEGAN(nn.Module):
         in 3D (B, latent_dim, td, h0, w0)). Returns (x, vae_out). bn:
         "batch", "moving" or "sample" (ops/norm.py)."""
         z = self._random_z(noise_init, noise)
-        vae_out = torch.tanh(self.decoder(z, bn, commit))
+        vae_out = torch.tanh(self.decoder(z, bn, commit,
+                                          sharded=self._sharded(0)))
         x = self._refine(vae_out, amps, noise, is_random=True, bn=bn,
                          commit=commit)
         return x, vae_out
@@ -260,7 +292,8 @@ class GeneratorHPVAEGAN(nn.Module):
         `_latent`. Returns (x, vae_out, mu, logvar). With commit, BatchNorm
         folds and the encoder keeps its new (u, v)."""
         z, mu, logvar, enc_state = self._latent(video, noise)
-        vae_out = torch.tanh(self.decoder(z, "batch", commit))
+        vae_out = torch.tanh(self.decoder(z, "batch", commit,
+                                          sharded=self._sharded(0)))
         x = self._refine(vae_out, amps, noise, is_random=False, bn="batch",
                          commit=commit)
         if commit:
@@ -284,7 +317,8 @@ class GeneratorHPVAEGAN(nn.Module):
             raise ValueError(f"the paired forward needs equal batches, got "
                              f"{b} and {noise_init.shape[0]}")
         z_all = torch.cat([z, noise_init.to(z.dtype)])
-        vae_all = torch.tanh(self.decoder(z_all, "batch", True, groups=2))
+        vae_all = torch.tanh(self.decoder(z_all, "batch", True, groups=2,
+                                          sharded=self._sharded(0)))
         # made on the device: a host tensor's copy would wait for the queue
         mask = torch.cat([torch.zeros(b, device=z.device),
                           torch.ones(b, device=z.device)])
@@ -318,15 +352,17 @@ class GeneratorVAE_nb(GeneratorHPVAEGAN):
     def _random_z(self, noise_init: torch.Tensor,
                   noise: NoiseSource) -> torch.Tensor:
         gate_shape = (noise_init.shape[0], 1) + tuple(noise_init.shape[2:])
-        return noise_init * noise.bernoulli(gate_shape).to(noise_init.dtype)
+        gate = noise.draw_rows(scale_height(self.cfg, 0), "bernoulli",
+                               gate_shape)
+        return noise_init * gate.to(noise_init.dtype)
 
     def _latent(self, video: torch.Tensor, noise: NoiseSource):
         """z_norm * z_bern; the encoder's bern is
         `self.encode(video)[0][2]`."""
-        (mu, logvar, bern), enc_state = self.encode(video)
+        (mu, logvar, bern), enc_state = self.encode(video, self._sharded(0))
         std = torch.exp(logvar * 0.5)
         z_norm = noise.normal(std.shape) * std + mu
-        u = noise.uniform(bern.shape)
+        u = noise.draw_rows(scale_height(self.cfg, 0), "uniform", bern.shape)
         z_bern = torch.log(bern + 1e-20) \
             - torch.log(-torch.log(u + 1e-20) + 1e-20)
         return z_norm * z_bern, mu, logvar, enc_state

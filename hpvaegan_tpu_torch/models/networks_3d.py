@@ -21,6 +21,11 @@ fixed reconstruction noise Z_init that the baselines trainer sets.
 Under a compute dtype the 3D networks flow in it as the 2D ones do: the
 refinement noise (the baselines' random-mode stage input too) is drawn in
 float32 and cast before the add (JAX :232, :420, :472).
+
+The HP-VAE-GAN classes run under a spatial axis (--mesh-sp) as the 2D ones
+do, H being axis 3 of NCDHW and T never split; the baselines do not (their
+padding-0 stages take rows off H unevenly across the ranks), and their
+trainer refuses the axis.
 """
 
 from __future__ import annotations
@@ -34,7 +39,9 @@ import torch.nn.functional as F
 
 from ..ops.conv import lrelu
 from ..ops.resize import resize_trilinear, upscale_3d
+from ..parallel import spatial
 from ..utils.noise import NoiseSource
+from ..utils.pyramid import scale_height
 from . import networks_2d
 from .blocks import Commit, Conv, ConvBlock, SNBlock, sn_blocks_apply
 
@@ -50,20 +57,26 @@ def refinement_layers_3d(cfg, body: Sequence[nn.Module], x: torch.Tensor,
                          amps, noise: NoiseSource, *, is_random: bool,
                          bn: str, commit: Commit = True) -> torch.Tensor:
     """Residual refinement chain (networks_3d.py:214-240 of the JAX
-    package). amps: (stop_scale + 2,) per-scale noise amplitudes."""
+    package). amps: (stop_scale + 2,) per-scale noise amplitudes. Under a
+    spatial axis, each activation as in networks_2d.refinement_layers."""
+    h_in = scale_height(cfg, 0)
     for idx in range(len(body)):
         if cfg.vae_levels == idx + 1 and not cfg.train_all:
             x = x.detach()  # the VAE boundary (networks_3d.py:224-225)
+        h = scale_height(cfg, idx + 1)
         x_up = upscale_3d(x, idx + 1, cfg.scale_factor, cfg.stop_scale,
                           cfg.img_size, cfg.stop_scale_time,
-                          cfg.sampling_rates, cfg.org_fps, cfg.fps_lcm, cfg.ar)
+                          cfg.sampling_rates, cfg.org_fps, cfg.fps_lcm, cfg.ar,
+                          h_in=h_in)
         if is_random and cfg.vae_levels <= idx + 1:
-            z = noise.normal(x_up.shape) * networks_2d.stage_amp(amps, idx + 1)
+            z = noise.draw_rows(h, "normal", x_up.shape) \
+                * networks_2d.stage_amp(amps, idx + 1)
             x_in = x_up + z.to(x_up.dtype)  # float32 noise, cast (JAX :232)
         else:
             x_in = x_up
-        y = body[idx](x_in, bn, commit)
+        y = body[idx](x_in, bn, commit, sharded=spatial.sharded(h))
         x = torch.tanh(y + x_up)
+        h_in = h
     return x
 
 

@@ -10,6 +10,13 @@ outside any Pallas kernel in the JAX package.
 package's flow-through, not autocast: the input and the weight are cast to
 it, the output stays in it, and the bias is added in the output's dtype
 (ops/conv.py:40-75 there). Without it the conv runs in the input's dtype.
+
+`sharded` (the input holds this rank's rows of an H split over the spatial
+axis, parallel/spatial.py): H is padded with the neighbours' rows
+(`spatial.halo`, k = padding) instead of zeros, the other axes with zeros
+as always, so the rank's output is exactly its rows of the global output;
+the height each such convolution ran on is counted in
+`spatial.conv_rows`.
 """
 
 from __future__ import annotations
@@ -19,10 +26,30 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from ..parallel import spatial
+
+
+def _halo(x: torch.Tensor, weight: torch.Tensor, stride: int, padding: int):
+    """An H-sharded input with its halo rows, and the padding left to do:
+    none on H, `padding` on the other spatial axes."""
+    if stride != 1 or 2 * padding != weight.shape[-2] - 1:
+        raise NotImplementedError(
+            f"an H-sharded convolution keeps the height (stride 1, padding "
+            f"(ker - 1) / 2), not ker {weight.shape[-2]} stride {stride} "
+            f"padding {padding}")
+    x = spatial.halo(x, padding)
+    spatial.conv_rows[x.shape[-2]] += 1
+    pads = [padding] * (x.ndim - 2)
+    pads[-2] = 0
+    return x, tuple(pads)
+
 
 def _conv(fn, x: torch.Tensor, weight: torch.Tensor,
           bias: Optional[torch.Tensor], stride: int, padding: int,
-          compute_dtype: Optional[torch.dtype]) -> torch.Tensor:
+          compute_dtype: Optional[torch.dtype],
+          sharded: bool = False) -> torch.Tensor:
+    if sharded:
+        x, padding = _halo(x, weight, stride, padding)
     if compute_dtype is None:
         return fn(x, weight, bias, stride=stride, padding=padding)
     out = fn(x.to(compute_dtype), weight.to(compute_dtype), None,
@@ -35,27 +62,32 @@ def _conv(fn, x: torch.Tensor, weight: torch.Tensor,
 def conv2d(x: torch.Tensor, weight: torch.Tensor,
            bias: Optional[torch.Tensor] = None, stride: int = 1,
            padding: int = 0,
-           compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+           compute_dtype: Optional[torch.dtype] = None,
+           sharded: bool = False) -> torch.Tensor:
     """Plain 2D convolution, zero padding (reference networks_2d.py:47-49)."""
-    return _conv(F.conv2d, x, weight, bias, stride, padding, compute_dtype)
+    return _conv(F.conv2d, x, weight, bias, stride, padding, compute_dtype,
+                 sharded)
 
 
 def conv3d(x: torch.Tensor, weight: torch.Tensor,
            bias: Optional[torch.Tensor] = None, stride: int = 1,
            padding: int = 0,
-           compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+           compute_dtype: Optional[torch.dtype] = None,
+           sharded: bool = False) -> torch.Tensor:
     """Plain 3D convolution, zero padding (reference networks_3d.py:48-50)."""
-    return _conv(F.conv3d, x, weight, bias, stride, padding, compute_dtype)
+    return _conv(F.conv3d, x, weight, bias, stride, padding, compute_dtype,
+                 sharded)
 
 
 def conv(x: torch.Tensor, weight: torch.Tensor,
          bias: Optional[torch.Tensor] = None, stride: int = 1,
          padding: int = 0,
-         compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+         compute_dtype: Optional[torch.dtype] = None,
+         sharded: bool = False) -> torch.Tensor:
     """conv2d or conv3d, by the weight's rank (OIHW or OIDHW)."""
     fn = conv2d if weight.ndim == 4 else conv3d
     return fn(x, weight, bias, stride=stride, padding=padding,
-              compute_dtype=compute_dtype)
+              compute_dtype=compute_dtype, sharded=sharded)
 
 
 # 0.2 rounded to bfloat16: the slope JAX's weakly typed 0.2 takes there

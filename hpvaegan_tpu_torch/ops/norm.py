@@ -23,7 +23,12 @@ In "batch" mode under a data group of several ranks the statistics are the
 global batch's: each part's sums are summed over the ranks
 (`_group_batch_stats`, with the sum that parallel/mesh.py::data_parallel
 hands over through `set_group_sum`), so N ranks normalise as one process at
-the global batch does. "moving" and "sample" need no collective.
+the global batch does. An activation whose H is split over the spatial
+axis (`sharded`, parallel/spatial.py) sums over the spatial ranks too,
+with the sum handed over through `set_sharded_sum`; a replicated one holds
+all of H on every spatial rank and sums over the data axis alone, so its
+rows count once. "moving" needs no collective; "sample" (sampling only)
+refuses a sharded activation.
 
 Statistics are reduced in float32 whatever the activations' dtype, and the
 normalisation runs in the activations' dtype (bfloat16 under
@@ -42,6 +47,9 @@ BN_MODES = ("batch", "moving", "sample")
 # a group of several ranks is in force; None on one rank
 GroupSum = Optional[Tuple[Callable[[torch.Tensor], torch.Tensor], int]]
 _GROUP_SUM: GroupSum = None
+# the same over every rank of the mesh (data and spatial axes), for an
+# H-sharded activation, while the spatial axis has several ranks
+_SHARDED_SUM: GroupSum = None
 
 
 def set_group_sum(group_sum: GroupSum) -> GroupSum:
@@ -52,15 +60,25 @@ def set_group_sum(group_sum: GroupSum) -> GroupSum:
     return before
 
 
-def batch_stats(x: torch.Tensor, groups: int = 1
+def set_sharded_sum(sharded_sum: GroupSum) -> GroupSum:
+    """Make `sharded_sum` the one an H-sharded activation's statistics are
+    reduced with; returns the one it replaces."""
+    global _SHARDED_SUM
+    before, _SHARDED_SUM = _SHARDED_SUM, sharded_sum
+    return before
+
+
+def batch_stats(x: torch.Tensor, groups: int = 1, sharded: bool = False
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Float32 mean and biased variance over (0, 2, ...) of each of `groups`
     equal parts of the batch: two (groups, C) tensors. Under a data group
     of several ranks, x is this rank's rows of each part and the statistics
-    are the global batch's."""
+    are the global batch's; `sharded`: x holds the rank's rows of H, and
+    the statistics are those of all of H."""
     xf = x.float()
-    if _GROUP_SUM is not None:
-        return _group_batch_stats(xf, groups, *_GROUP_SUM)
+    group_sum = _SHARDED_SUM if sharded else _GROUP_SUM
+    if group_sum is not None:
+        return _group_batch_stats(xf, groups, *group_sum)
     if groups == 1:
         dims = (0,) + tuple(range(2, x.ndim))
         return (xf.mean(dim=dims).unsqueeze(0),
@@ -110,13 +128,15 @@ def normalize_batch(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
 
 def batchnorm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
               mean: torch.Tensor, var: torch.Tensor, mode: str,
-              momentum: float = 0.9, eps: float = 1e-5, groups: int = 1
+              momentum: float = 0.9, eps: float = 1e-5, groups: int = 1,
+              sharded: bool = False
               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """x: (B, C, H, W) or (B, C, T, H, W). Returns (y, new_mean, new_var)."""
+    """x: (B, C, H, W) or (B, C, T, H, W), the rank's rows of H when
+    `sharded`. Returns (y, new_mean, new_var)."""
     shape = (1, -1) + (1,) * (x.ndim - 2)
     spatial = tuple(range(2, x.ndim))
     if mode == "batch":
-        b_mean, b_var = batch_stats(x, groups)
+        b_mean, b_var = batch_stats(x, groups, sharded)
         new_mean, new_var = fold(mean, var, b_mean, b_var, momentum)
         return normalize_batch(x, gamma, beta, b_mean, b_var, eps), \
             new_mean, new_var
@@ -128,6 +148,9 @@ def batchnorm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
             * inv.reshape(shape).to(x.dtype) + beta.reshape(shape).to(x.dtype)
         return y, mean, var
     if mode == "sample":
+        if sharded:
+            raise NotImplementedError("per-sample BatchNorm of an H-sharded "
+                                      "activation: sampling never shards H")
         s_mean = x.mean(dim=spatial, keepdim=True)  # (B, C, 1, 1[, 1])
         s_var = x.var(dim=spatial, unbiased=False, keepdim=True)
         inv = torch.rsqrt(s_var + eps) * gamma.reshape(shape)

@@ -14,16 +14,24 @@ are computed on the host by `_interp_gather`, whose arithmetic (float64
 source position, float32 fraction) is the JAX package's, so the two
 packages gather the same taps with the same weights. The fused kernel of
 ops/fused_upscale_noise.py reads the same tables.
+
+The upscales between pyramid stages take an H split over the spatial axis
+(parallel/spatial.py) in and out, in all four combinations: a sharded
+input is gathered whole (the 3-channel stage output, `h_in` its global
+height), and a sharded output computes only the rank's rows, from the
+global tables cut to them. Each output element is the same gather and
+lerp as in one process, so the result is its rows bit for bit.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
+from ..parallel import spatial
 from ..utils import pyramid
 
 
@@ -62,7 +70,27 @@ def _resize_axis(x: torch.Tensor, axis: int, n_out: int,
     n_in = x.shape[axis]
     if n_in == n_out:
         return x
-    lo, hi, frac = interp_tables(n_in, n_out, align_corners, x.device)
+    return _lerp(x, axis, *interp_tables(n_in, n_out, align_corners,
+                                         x.device))
+
+
+def _resize_rows(x: torch.Tensor, h_in: int, h_out: int) -> torch.Tensor:
+    """Align-corners resize of axis -2 (H) from global height h_in to
+    h_out: `x` holds the rank's rows of h_in where the spatial axis splits
+    it, and the result the rank's rows of h_out where it splits that."""
+    if h_in == h_out:
+        return x
+    x = spatial.gather_rows(x, h_in)
+    tables = interp_tables(h_in, h_out, True, x.device)
+    start, n = spatial.rows(h_out)
+    if n != h_out:
+        tables = tuple(t[start:start + n] for t in tables)
+    return _lerp(x, x.ndim - 2, *tables)
+
+
+def _lerp(x: torch.Tensor, axis: int, lo: torch.Tensor, hi: torch.Tensor,
+          frac: torch.Tensor) -> torch.Tensor:
+    n_out = lo.shape[0]
     x_lo = torch.index_select(x, axis, lo)
     x_hi = torch.index_select(x, axis, hi)
     fshape = [1] * x.ndim
@@ -100,24 +128,36 @@ def resize_trilinear(x: torch.Tensor, size_thw: Sequence[int],
 
 
 def upscale_2d(x: torch.Tensor, index: int, scale_factor: float,
-               stop_scale: int, img_size: int, ar: float) -> torch.Tensor:
+               stop_scale: int, img_size: int, ar: float,
+               h_in: Optional[int] = None) -> torch.Tensor:
     """Upscale (B, C, H, W) to the size of pyramid scale `index`
-    (reference: src/utils/images.py:110-117, align_corners=True)."""
+    (reference: src/utils/images.py:110-117, align_corners=True). `h_in`:
+    x's global height, where x may be the rank's rows of it (default: x's
+    own height, x whole); the output is the rank's rows of the scale's."""
     if index <= 0:
         raise ValueError(f"upscale_2d needs index > 0, got {index}")
     h, w = pyramid.scale_size_2d(index, scale_factor, stop_scale, img_size, ar)
-    return resize_bilinear(x, (h, w), align_corners=True)
+    if x.ndim not in (4, 5):
+        raise ValueError(f"upscale_2d expects rank 4 NCHW or 5 NCDHW, got "
+                         f"{x.ndim}")
+    x = _resize_rows(x, x.shape[-2] if h_in is None else h_in, h)
+    return _resize_axis(x, x.ndim - 1, w, True)
 
 
 def upscale_3d(x: torch.Tensor, index: int, scale_factor: float,
                stop_scale: int, img_size: int, stop_scale_time: int,
                sampling_rates: Sequence[int], org_fps: float, fps_lcm: int,
-               ar: float) -> torch.Tensor:
+               ar: float, h_in: Optional[int] = None) -> torch.Tensor:
     """Upscale (B, C, T, H, W) to pyramid scale `index`, time depth included
-    (reference: src/utils/images.py:96-107, align_corners=True)."""
+    (reference: src/utils/images.py:96-107, align_corners=True); `h_in` as
+    in upscale_2d."""
     if index <= 0:
         raise ValueError(f"upscale_3d needs index > 0, got {index}")
     t, h, w = pyramid.scale_size_3d(index, scale_factor, stop_scale, img_size,
                                     stop_scale_time, sampling_rates, org_fps,
                                     fps_lcm, ar)
-    return resize_trilinear(x, (t, h, w), align_corners=True)
+    if x.ndim != 5:
+        raise ValueError(f"upscale_3d expects rank 5 NCDHW, got {x.ndim}")
+    x = _resize_axis(x, 2, t, True)
+    x = _resize_rows(x, x.shape[-2] if h_in is None else h_in, h)
+    return _resize_axis(x, 4, w, True)

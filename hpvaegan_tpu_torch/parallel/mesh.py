@@ -1,4 +1,5 @@
-"""The data axis of the JAX package's `parallel/mesh.py`, over ranks.
+"""The ('data', 'sp') mesh of the JAX package's `parallel/mesh.py`, over
+ranks.
 
 In the JAX package a batch sharded over a ('data', 'sp') mesh is still ONE
 global batch under pjit: BatchNorm statistics, loss means, the gradient
@@ -17,16 +18,30 @@ same global batch by hand:
     training/steps.py), and so are the logged metrics and the amp
     calibration's MSE.
 Every loss is a mean over equal shards, so these means are the global
-ones. `--mesh-data` must equal the number of ranks; without it a
+ones. `--mesh-data` x `--mesh-sp` must equal the number of ranks; without
+them a
 multi-process run trains a replicated program on every rank (the JAX
 trainer's mesh None) and evaluation still shards its samples over all
 ranks (`eval_group`).
 
+The spatial axis (--mesh-sp S, the JAX mesh's 'sp'): the ranks form a
+D x S grid, rank d * S + s (JAX's `reshape(dp, n // dp)`), and
+`DataGroup.sp` is the rank's row of S ranks, over which H is split
+(parallel/spatial.py holds its exchanges). Each data rank of the JAX
+package's batch is then S ranks here: the data group is the rank's column
+of D ranks (its place s on the spatial axis fixed), and the sums that span
+both axes (the gradients, the metrics, the statistics of an H-sharded
+activation) run over all D x S ranks in one collective (`sum_all`,
+`mean_`). Each rank's losses are means over its own shard, and shards are
+equal (H is split only where it divides by S), so the mean over all ranks
+is the global mean.
+
 The group in force is set by `data_parallel(group)` for the extent of a
-run, and every helper here, the draws (utils/noise.py) and BatchNorm read
-that one; outside it, the trivial group (no process group), where every
-helper is the identity and issues no collective. A group of one rank in a
-process group runs its collectives (NCCL's one-rank path on the card).
+run, and every helper here, the draws (utils/noise.py), BatchNorm and the
+spatial exchanges read that one; outside it, the trivial group (no process
+group), where every helper is the identity and issues no collective. A
+group of one rank in a process group runs its collectives (NCCL's one-rank
+path on the card).
 """
 
 from __future__ import annotations
@@ -42,45 +57,76 @@ import torch.distributed as dist
 from ..ops import norm
 from . import multihost
 
-SPATIAL = "spatial mesh training"
+SPATIAL_BASELINES = "spatial mesh baselines"
+
+
+class Axis(NamedTuple):
+    """This rank's place on one axis of the mesh: index `rank` of `size`
+    ranks, whose collectives run over `group` (None: one rank, none)."""
+    rank: int = 0
+    size: int = 1
+    group: Optional[object] = None
 
 
 class DataGroup(NamedTuple):
     """This rank's place on the data axis: rows [rank * b, (rank + 1) * b)
-    of a global batch of size * b."""
+    of a global batch of size * b; and `sp`, its place on the spatial
+    axis."""
     rank: int = 0
     size: int = 1
     group: Optional[object] = None  # the process group; None: one rank
+    sp: Axis = Axis()
 
 
 _ACTIVE = DataGroup()
 # seconds spent in the group's collectives while `timing` is on (the
-# device is synchronized before each, so that queued work is not counted)
+# device is synchronized before each, so that queued work is not counted),
+# and their number
 COLLECTIVE_SECONDS = [0.0]
+COLLECTIVE_CALLS = [0]
 timing = False
 
 
-def make_data_group(mesh_data: int = 1, mesh_sp: int = 1) -> DataGroup:
-    """The data group of --mesh-data over the ranks: all of them when
-    mesh_data > 1 (it must equal the number of ranks), the trivial group
-    (a replicated program) when mesh_data is 1."""
-    if mesh_sp > 1:
-        raise NotImplementedError(f"--mesh-sp {mesh_sp}: not ported yet "
-                                  f"(ROADMAP.md queue 1: {SPATIAL})")
+def check_mesh(mesh_data: int = 1, mesh_sp: int = 1) -> None:
+    """Refuse a mesh that the ranks of this run cannot form: more than one
+    rank in one process, or D x S other than the number of ranks."""
+    if mesh_data <= 1 and mesh_sp <= 1:
+        return
     world = multihost.process_count()
-    if mesh_data <= 1:
-        return DataGroup()
+    flags = " ".join(f"{flag} {n}" for flag, n in (
+        ("--mesh-data", mesh_data), ("--mesh-sp", mesh_sp)) if n > 1)
+    n = max(mesh_data, 1) * max(mesh_sp, 1)
     if world == 1:
         raise ValueError(
-            f"--mesh-data {mesh_data} runs one rank per device: launch "
-            f"{mesh_data} processes with --dist-coordinator host:port "
-            f"--dist-nprocs {mesh_data} --dist-procid <i> (or --dist-"
-            "coordinator auto under torchrun); a single process never "
-            "runs a data axis on its own")
-    if mesh_data != world:
-        raise ValueError(f"--mesh-data {mesh_data} must equal the number of "
-                         f"ranks ({world}): one device per rank")
-    return DataGroup(dist.get_rank(), world, dist.group.WORLD)
+            f"{flags} runs one rank per device: launch {n} processes with "
+            f"--dist-coordinator host:port --dist-nprocs {n} --dist-procid "
+            "<i> (or --dist-coordinator auto under torchrun); a single "
+            "process never runs a mesh axis on its own")
+    if n != world:
+        raise ValueError(f"--mesh-data {mesh_data} x --mesh-sp {mesh_sp} = "
+                         f"{n} must equal the number of ranks ({world}): one "
+                         "device per rank")
+
+
+def make_data_group(mesh_data: int = 1, mesh_sp: int = 1) -> DataGroup:
+    """The mesh of --mesh-data D x --mesh-sp S over the ranks, as the
+    rank's DataGroup: the trivial group (a replicated program) when both
+    are 1. Every rank makes every process group, in the same order: the
+    S data columns of D ranks, then the D spatial rows of S ranks."""
+    check_mesh(mesh_data, mesh_sp)
+    d, s = max(mesh_data, 1), max(mesh_sp, 1)
+    if d * s == 1:
+        return DataGroup()
+    rank = dist.get_rank()
+    if s == 1:
+        return DataGroup(rank, d, dist.group.WORLD)
+    if d == 1:
+        return DataGroup(sp=Axis(rank, s, dist.group.WORLD))
+    columns = [dist.new_group([i * s + j for i in range(d)])
+               for j in range(s)]
+    rows = [dist.new_group([i * s + j for j in range(s)]) for i in range(d)]
+    return DataGroup(rank // s, d, columns[rank % s],
+                     Axis(rank % s, s, rows[rank // s]))
 
 
 def eval_group(mesh_data: int = 1) -> DataGroup:
@@ -95,19 +141,33 @@ def active() -> DataGroup:
     return _ACTIVE
 
 
+def _everyone(group: DataGroup):
+    """(the process group of all D x S ranks, their number)."""
+    if group.sp.group is None:
+        return group.group, group.size
+    if group.group is None:
+        return group.sp.group, group.sp.size
+    return dist.group.WORLD, group.size * group.sp.size
+
+
 @contextlib.contextmanager
 def data_parallel(group: DataGroup):
-    """Run the body with `group` as the data group in force, and hand
-    BatchNorm its sum over the group's ranks."""
+    """Run the body with `group` (both of its axes) in force, and hand
+    BatchNorm its sums: over the data axis for a replicated activation,
+    over all ranks for an H-sharded one."""
     global _ACTIVE
     before, _ACTIVE = _ACTIVE, group
     norm_before = norm.set_group_sum(
         (all_reduce_sum, group.size) if group.group is not None else None)
+    sharded_before = norm.set_sharded_sum(
+        (sum_all, _everyone(group)[1]) if group.sp.group is not None
+        else None)
     try:
         yield group
     finally:
         _ACTIVE = before
         norm.set_group_sum(norm_before)
+        norm.set_sharded_sum(sharded_before)
 
 
 def select_device(kind: str = "cuda", device_id: int = 0) -> torch.device:
@@ -132,7 +192,6 @@ def local_rows(n: int) -> int:
     return n // _ACTIVE.size
 
 
-
 class _Timed:
     def __init__(self, device: torch.device):
         self.device = device
@@ -145,56 +204,77 @@ class _Timed:
     def __exit__(self, *exc):
         if timing:
             COLLECTIVE_SECONDS[0] += time.perf_counter() - self.t0
+            COLLECTIVE_CALLS[0] += 1
 
 
 class _AllReduceSum(torch.autograd.Function):
-    """Sum over the group; the backward is the same all-reduce of the
-    incoming gradients, recorded when the backward builds a graph."""
+    """Sum over `group`; the backward is the same all-reduce of the
+    incoming gradients, recorded when the backward builds a graph. The
+    copies to and from the collective's device (the host under gloo) are
+    inside, so that the node's gradients stay on the tensor's device and
+    the backward runs every exchange on that device's one autograd thread,
+    in the same order on every rank."""
 
     @staticmethod
     def forward(ctx, t, group):
         ctx.group = group
-        out = t.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(out, group=group)
-        return out
+        comm = multihost.comm_device(group)
+        with _Timed(t.device):
+            out = t.to(comm, memory_format=torch.contiguous_format,
+                       copy=True)
+            dist.all_reduce(out, group=group)
+            return out.to(t.device)
 
     @staticmethod
     def backward(ctx, grad):
         return _AllReduceSum.apply(grad, ctx.group), None
 
 
-def all_reduce_sum(t: torch.Tensor) -> torch.Tensor:
-    """The sum of `t` over the group, differentiable twice (the gradient
-    penalty's double backward runs through it). Under gloo a CUDA tensor
-    is copied to the host and back."""
-    if _ACTIVE.group is None:
+def group_sum(t: torch.Tensor, group) -> torch.Tensor:
+    """The sum of `t` over the ranks of `group` (None: `t`), differentiable
+    twice (the gradient penalty's double backward runs through it); a
+    bfloat16 tensor is summed in float32 and rounded back once."""
+    if group is None:
         return t
-    comm = multihost.comm_device(_ACTIVE.group)
-    with _Timed(t.device):
-        out = _AllReduceSum.apply(t.to(comm), _ACTIVE.group).to(t.device)
-    return out
+    if t.dtype == torch.bfloat16:
+        return _AllReduceSum.apply(t.float(), group).to(t.dtype)
+    return _AllReduceSum.apply(t, group)
+
+
+def all_reduce_sum(t: torch.Tensor) -> torch.Tensor:
+    """The sum of `t` over the data axis in force. Under gloo a CUDA
+    tensor is copied to the host and back."""
+    return group_sum(t, _ACTIVE.group)
+
+
+def sum_all(t: torch.Tensor) -> torch.Tensor:
+    """The sum of `t` over all D x S ranks in force."""
+    return group_sum(t, _everyone(_ACTIVE)[0])
 
 
 @torch.no_grad()
 def mean_(tensors: Sequence[torch.Tensor]) -> List[torch.Tensor]:
-    """The group means of `tensors` (one all-reduce of one flat buffer),
-    written into them in place; returned for convenience."""
+    """The means of `tensors` over all D x S ranks in force (one
+    all-reduce of one flat buffer), written into them in place; returned
+    for convenience."""
     tensors = list(tensors)
-    if _ACTIVE.group is None or not tensors:
+    group, n = _everyone(_ACTIVE)
+    if group is None or not tensors:
         return tensors
-    comm = multihost.comm_device(_ACTIVE.group)
+    comm = multihost.comm_device(group)
     with _Timed(tensors[0].device):
         flat = torch.cat([t.reshape(-1).float() for t in tensors]).to(comm)
-        dist.all_reduce(flat, group=_ACTIVE.group)
-        flat = flat.div_(_ACTIVE.size).to(tensors[0].device)
+        dist.all_reduce(flat, group=group)
+        flat = flat.div_(n).to(tensors[0].device)
     for t, m in zip(tensors, flat.split([t.numel() for t in tensors])):
         t.copy_(m.view_as(t))
     return tensors
 
 
 def mean_metrics(metrics: dict) -> dict:
-    """The group means of a dict of scalar tensors, in one collective."""
-    if _ACTIVE.group is None or not metrics:
+    """The means over all ranks of a dict of scalar tensors, in one
+    collective."""
+    if _everyone(_ACTIVE)[0] is None or not metrics:
         return metrics
     vals = mean_([torch.stack([v.float() for v in metrics.values()])])[0]
     return dict(zip(metrics, vals.unbind()))

@@ -29,8 +29,7 @@ run); the JAX package's qualified configuration is
 
 Its XLA knobs are accepted, kept in args.txt and change nothing (they
 change no result there either); so is --netD, which the JAX trainer never
-reads either. The spatial mesh (--mesh-sp > 1) raises
-NotImplementedError.
+reads either.
 
 Multi-process and data-parallel training (parallel/multihost.py,
 parallel/mesh.py): one process per card, rank 0 writing the experiment,
@@ -42,7 +41,15 @@ parallel/mesh.py): one process per card, rank 0 writing the experiment,
 or `--dist-coordinator auto` under torchrun (cuda:LOCAL_RANK), NCCL with
 one card per rank (gloo with --device cpu). --batch-size is the global batch,
 which N ranks train as one process does; without --mesh-data every rank
-trains the whole batch.
+trains the whole batch. --mesh-sp S splits H over S ranks for each data
+rank (parallel/spatial.py: halo exchanges, BatchNorm and losses over the
+split), on D x S processes in all:
+
+    python -m hpvaegan_tpu_torch.train_image --image-path <image> \
+        --batch-size D --mesh-data D --mesh-sp S \
+        --dist-coordinator host:port --dist-nprocs <D x S> --dist-procid <i>
+
+which trains as one process does at --batch-size D.
 """
 
 import argparse
@@ -141,8 +148,9 @@ def build_parser() -> argparse.ArgumentParser:
                         help='data-parallel ranks: the global --batch-size '
                              'splits over them (must equal --dist-nprocs)')
     parser.add_argument('--mesh-sp', type=int, default=1,
-                        help=f'spatial mesh axis (> 1: {mesh.SPATIAL}, not '
-                             'ported yet)')
+                        help='spatial ranks per data rank: H splits over '
+                             'them where it divides (--mesh-data x --mesh-sp '
+                             'must equal --dist-nprocs)')
     multihost.add_dist_flags(parser)
     parser.add_argument('--paired-g', action='store_true', default=False,
                         help='GAN-phase G step: reconstruction and fake as '
@@ -166,14 +174,16 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
-def unported(args, ndim: int = 2) -> list:
+def unported(args, ndim: int = 2, baselines: bool = False) -> list:
     """(flag, ROADMAP.md queue 1 item) of every flag set to a value this
-    port does not run: the spatial mesh, and the REFUSED generators."""
+    port does not run: the REFUSED generators, and the baselines' spatial
+    mesh."""
     checks = [
         ("--generator " + args.generator,
          (args.generator, ndim) in models.REFUSED,
          models.REFUSED.get((args.generator, ndim))),
-        ("--mesh-sp", args.mesh_sp > 1, mesh.SPATIAL),
+        ("--mesh-sp", baselines and args.mesh_sp > 1,
+         mesh.SPATIAL_BASELINES),
     ]
     return [(flag, item) for flag, is_set, item in checks if is_set]
 
@@ -199,7 +209,7 @@ def cfg_from_args(args: argparse.Namespace, ndim: int = 2,
         raise SystemExit("--netG and --intermediate go together: a resume "
                          "needs the checkpoint and its experiment's "
                          "intermediate.json")
-    bad = unported(args, ndim)
+    bad = unported(args, ndim, baselines)
     if bad:
         raise NotImplementedError("not ported yet: " + "; ".join(
             f"{flag} (ROADMAP.md queue 1: {item})" for flag, item in bad))
@@ -237,7 +247,7 @@ def launch(args: argparse.Namespace, ndim: int, summary,
                         baselines=trainer is baselines_trainer).finalize()
     device = mesh.select_device(args.device, args.device_id)
     multihost.init_from_cfg(cfg, device)
-    mesh.make_data_group(cfg.mesh_data, cfg.mesh_sp)  # refuse before IO
+    mesh.check_mesh(cfg.mesh_data, cfg.mesh_sp)  # refuse before IO
     if cfg.manualSeed is None:
         cfg.manualSeed = random.randint(1, 10000)
     cfg.manualSeed = multihost.agree_seed(cfg.manualSeed)

@@ -16,9 +16,9 @@ checkname DEBUG). Resume and the training flags work as in train_image;
 `--visualize` is accepted and writes nothing, and `--paired-g` changes
 nothing (the JAX package pairs only the 2D generator), as in the JAX
 package. GeneratorVAE_nb (the JAX package's 3D one cannot run, so there is
-nothing to port it from) and the spatial mesh (--mesh-sp > 1) raise
-NotImplementedError; multi-process and data-parallel training
-(--dist-*, --mesh-data) run as in train_image. The CSG/SG baselines train with
+nothing to port it from) raises NotImplementedError; multi-process,
+data-parallel and spatial-mesh training (--dist-*, --mesh-data, --mesh-sp,
+which splits H, never T) run as in train_image. The CSG/SG baselines train with
 train_video_baselines.
 """
 

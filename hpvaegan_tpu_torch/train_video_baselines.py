@@ -16,6 +16,8 @@ evaluates. --netG / --intermediate / --ckpt-interval resume as in
 train_image; --compute-dtype bfloat16, --fused-dg, --flat-opt and
 --profile-dir work as there (--paired-g and --visualize change nothing, as
 in the JAX baselines trainer), and so do --dist-* and --mesh-data.
+--mesh-sp > 1 raises NotImplementedError (ROADMAP.md queue 1: spatial mesh
+baselines).
 """
 
 from . import train_image, train_video

@@ -118,8 +118,12 @@ def run_training(cfg, saver: DataSaver, device="cuda",
     if cfg.generator not in models.BASELINES:
         raise ValueError(f"{cfg.generator} is not a baseline generator "
                          f"({', '.join(models.BASELINES)})")
+    if cfg.mesh_sp > 1:
+        raise NotImplementedError(
+            f"--mesh-sp {cfg.mesh_sp}: not ported yet for the baselines "
+            f"(ROADMAP.md queue 1: {mesh.SPATIAL_BASELINES})")
     device = resolve_device(device)
-    group = mesh.make_data_group(cfg.mesh_data, cfg.mesh_sp)
+    group = mesh.make_data_group(cfg.mesh_data)
     dataset = SingleVideoDataset(cfg, device)
     if multihost.is_primary():
         cfg.write_args_txt(os.path.join(saver.experiment_dir, "args.txt"))

@@ -39,6 +39,13 @@ all set their gradients there; every optimizer, FlatAdam too, takes the
 averaged ones). The metrics of an iteration and the calibration's
 MSE are the group's means. N ranks thus compute what one process computes
 at the global batch, up to the order of float32 sums.
+
+Spatial mesh (--mesh-sp S, parallel/spatial.py): each of those ranks is S
+ranks, each holding its rows of H of every activation whose height
+divides by S. The discriminator runs `sharded` by the scale's height
+(`_d_apply`), the losses are each rank's means (losses.py), and
+`_set_grads`, the metrics and the calibration's MSE average over all
+D x S ranks, in one collective over both axes.
 """
 
 from __future__ import annotations
@@ -52,19 +59,28 @@ from ..data.image import make_image_batch
 from ..data.video import make_baseline_batch, make_video_batch
 from ..losses import d_loss_fn, g_gan_loss_fn, g_vae_loss_fn
 from ..models.blocks import DeferredFolds, assign_sn_state
-from ..parallel import mesh
+from ..parallel import mesh, spatial
+from ..utils.pyramid import scale_height
 from .state import ScaleTrainState
 
 Metrics = Dict[str, torch.Tensor]
 
 
 def _set_grads(params: List[torch.Tensor], loss: torch.Tensor) -> None:
-    """The gradients of `loss` into .grad, averaged over the data group
-    (parallel/mesh.py)."""
+    """The gradients of `loss` into .grad, averaged over all ranks of the
+    data and spatial axes (parallel/mesh.py)."""
     grads = torch.autograd.grad(loss, params, materialize_grads=True)
     mesh.mean_(grads)
     for p, g in zip(params, grads):
         p.grad = g
+
+
+def _d_apply(cfg, D) -> Callable:
+    """D's forward at scale cfg.scale_idx: on the rank's rows of H where
+    the spatial axis splits the scale's height."""
+    if spatial.sharded(scale_height(cfg, cfg.scale_idx)):
+        return functools.partial(D, sharded=True)
+    return D
 
 
 def _detached(loss: torch.Tensor, name: str, aux: Metrics) -> Metrics:
@@ -83,9 +99,10 @@ def d_step(cfg, st: ScaleTrainState, real, noise_init, amps,
     # one alpha per step; bug_compat freezes it (reference losses.py:26)
     alpha = 0.5 if cfg.bug_compat else st.noise.uniform()
     kept = []
+    d_apply = _d_apply(cfg, st.D)
 
     def d_fn(x):
-        y, sn_state = st.D(x)
+        y, sn_state = d_apply(x)
         if not kept:
             kept.append(sn_state)
         return y
@@ -110,17 +127,19 @@ def g_step(cfg, st: ScaleTrainState, real, real_zero, noise_init, amps,
     has one."""
     pair = None if vae_phase or not cfg.paired_g \
         else getattr(st.G, "reconstruct_pair", None)
+    d_apply = _d_apply(cfg, st.D)
     if pair is not None:
         gen, fake = pair(real_zero, noise_init, amps, st.noise)[:2]
         return _g_update(st, *g_gan_loss_fn(
-            cfg, lambda x: st.D(x)[0], gen, real, fake))
+            cfg, lambda x: d_apply(x)[0], gen, real, fake))
     gen, gen_vae, mu, logvar = st.G.reconstruct(real_zero, amps, st.noise)
     if vae_phase:
         loss, aux = g_vae_loss_fn(cfg, gen, gen_vae, real, real_zero, mu,
                                   logvar)
     else:
         fake = st.G(noise_init, amps, st.noise, bn="batch")[0]
-        loss, aux = g_gan_loss_fn(cfg, lambda x: st.D(x)[0], gen, real, fake)
+        loss, aux = g_gan_loss_fn(cfg, lambda x: d_apply(x)[0], gen, real,
+                                  fake)
     return _g_update(st, loss, aux)
 
 
@@ -136,16 +155,17 @@ def fused_dg_iteration(cfg, st: ScaleTrainState, real, real_zero,
     metrics = d_step(cfg, st, real, noise_init, amps, fake=fake)
     gen = st.G.reconstruct(real_zero, amps, st.noise)[0]
     folds.apply()
+    d_apply = _d_apply(cfg, st.D)
     metrics.update(_g_update(st, *g_gan_loss_fn(
-        cfg, lambda x: st.D(x)[0], gen, real, fake)))
+        cfg, lambda x: d_apply(x)[0], gen, real, fake)))
     return metrics
 
 
 @torch.no_grad()
 def calibrate(G, real, real_zero, amps, noise) -> torch.Tensor:
     """RMSE of the reconstruction against `real` (reference
-    train_image.py:134-148), on the device; the MSE is the data group's
-    mean."""
+    train_image.py:134-148), on the device; the MSE is the mean over all
+    ranks."""
     gen = G.reconstruct(real_zero, amps, noise, commit=False)[0]
     return torch.sqrt(mesh.mean_([torch.mean((real - gen) ** 2)])[0])
 

@@ -57,13 +57,17 @@ that every rank sees it), after the resume's netD copy and at the run's
 end. With cfg.mesh_data > 1 the run is data-parallel over the ranks
 (parallel/mesh.py, training/steps.py): one global batch of cfg.batch_size,
 each rank forming its rows, which N ranks train as one process does;
-without it every rank trains the whole batch (the JAX trainer's mesh
-None).
+with cfg.mesh_sp = S > 1 each data rank is S ranks that split H
+(parallel/spatial.py), and the D x S ranks still train as one process
+does. Without either every rank trains the whole batch (the JAX
+trainer's mesh None). The state is replicated on every rank, so the
+inflight checkpoints and resume need no gather; `visualize` gathers H
+before the primary writes its images.
 
 What the JAX trainer adds for XLA and the TPU has no counterpart here: the
 scan of `steps_per_call` iterations per dispatch, the compile-ahead
-pipeline (training/pipeline.py), the retry of a scale after a runtime
-error (`run_scale_with_retry`) and the spatial mesh axis.
+pipeline (training/pipeline.py) and the retry of a scale after a runtime
+error (`run_scale_with_retry`).
 
 The training flags of the JAX trainer: cfg.compute_dtype sets G's and D's
 convolutions' dtype for the scale (`scale_state`); cfg.flat_opt builds
@@ -93,7 +97,7 @@ from ..data.video import SingleVideoDataset
 from ..models.blocks import (cfg_compute_dtype, init_weights_,
                              set_compute_dtype)
 from ..optim import ClippedAdam, FlatAdam, adam, load_optimizer_state
-from ..parallel import mesh, multihost
+from ..parallel import mesh, multihost, spatial
 from ..tools.convert import (from_jax_discriminator,
                              load_generator_checkpoint, m2t_WDiscriminator,
                              to_jax, to_jax_discriminator)
@@ -246,15 +250,23 @@ def visualize(G, saver: DataSaver, real, real_zero, noise_init, amps,
     reconstruction's generated_<done+1>.jpg and generated_vae_<done+1>.jpg,
     then one batch-statistics sample from a fresh noise_init-shaped normal,
     fake_var_<done>.jpg and fake_vae_var<done>.jpg of sample 0. Neither
-    forward keeps BatchNorm or spectral-norm state."""
-    saver.save_image(_denorm(real), f"real_{done + 1}.jpg")
+    forward keeps BatchNorm or spectral-norm state. Under a spatial axis
+    every rank gathers H of each image (parallel/spatial.py) before the
+    primary writes it."""
+    h = pyramid.scale_height(G.cfg, G.cfg.scale_idx)
+    h0 = pyramid.scale_height(G.cfg, 0)
+
+    def save(x, height, name):
+        saver.save_image(_denorm(spatial.gather_rows(x, height)), name)
+
+    save(real, h, f"real_{done + 1}.jpg")
     gen, gen_vae = G.reconstruct(real_zero, amps, noise, commit=False)[:2]
-    saver.save_image(_denorm(gen), f"generated_{done + 1}.jpg")
-    saver.save_image(_denorm(gen_vae), f"generated_vae_{done + 1}.jpg")
-    z = noise.normal(noise_init.shape)
+    save(gen, h, f"generated_{done + 1}.jpg")
+    save(gen_vae, h0, f"generated_vae_{done + 1}.jpg")
+    z = noise.draw_rows(h0, "normal", noise_init.shape)
     fake, fake_vae = G(z, amps, noise, bn="batch", commit=False)[:2]
-    saver.save_image(_denorm(fake[:1]), f"fake_var_{done}.jpg")
-    saver.save_image(_denorm(fake_vae[:1]), f"fake_vae_var{done}.jpg")
+    save(fake[:1], h, f"fake_var_{done}.jpg")
+    save(fake_vae[:1], h0, f"fake_vae_var{done}.jpg")
 
 
 def run_scale(cfg, st: ScaleTrainState, saver: DataSaver, data,

@@ -12,7 +12,8 @@ a checkpoint (utils/saver.py), so that a resumed run draws what the
 uninterrupted one would have. `KeyedNoise` draws from the JAX seed stream
 instead (utils/jax_prng.py), for the exported sampler. Under a data
 group of several ranks a NoiseSource draws the rank's rows of the global
-batch's draws.
+batch's draws, and under a spatial axis (`draw_rows`) the rank's rows of
+H of the draw at the global height.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
-from ..parallel import mesh
+from ..parallel import mesh, spatial
 from . import jax_prng
 from .device import resolve_device
 
@@ -104,6 +105,22 @@ class NoiseSource:
     def normal(self, shape: Sequence[int]) -> torch.Tensor:
         return self._sharded(
             lambda s: generate_noise(self.gen, s, "normal"), shape)
+
+    def draw_rows(self, h: int, kind: str, shape: Sequence[int], *args
+                  ) -> torch.Tensor:
+        """self.<kind>(shape, *args) of a tensor whose axis -2 has global
+        height h, `shape` this rank's: where the spatial axis splits h
+        (parallel/spatial.py), the draw at height h, cut to the rank's
+        rows, so that S ranks draw what one process draws; else the draw
+        itself."""
+        draw = getattr(self, kind)
+        if not spatial.sharded(h):
+            return draw(shape, *args)
+        shape = tuple(int(s) for s in shape)
+        start, n = spatial.rows(h)
+        if shape[-2] != n:
+            raise ValueError(f"a draw of {shape} for {n} rows of height {h}")
+        return draw(shape[:-2] + (h, shape[-1]), *args).narrow(-2, start, n)
 
     def grouped_normal(self, shape: Sequence[int], groups: int
                        ) -> torch.Tensor:

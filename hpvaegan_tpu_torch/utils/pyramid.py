@@ -55,3 +55,9 @@ def scale_size_3d(index: int, scale_factor: float, stop_scale: int, img_size: in
     _, td, _ = get_fps_td_by_index(index, stop_scale_time, sampling_rates,
                                    org_fps, fps_lcm)
     return [td, int(base * ar), base]
+
+
+def scale_height(cfg, index: int) -> int:
+    """H of pyramid scale `index` of cfg's pyramid, in 2D and 3D alike."""
+    return scale_size_2d(index, cfg.scale_factor, cfg.stop_scale,
+                         cfg.img_size, cfg.ar)[0]

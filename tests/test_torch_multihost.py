@@ -202,14 +202,15 @@ def test_nullsaver_writes_nothing_reads_shared_dir(tmp_path):
 
 
 def test_a_single_process_refuses_a_data_axis():
-    """--mesh-data > 1 in one process raises and says how to launch the
-    ranks; --mesh-sp stays refused as the spatial mesh; a lone process
-    count or id needs a coordinator."""
+    """--mesh-data > 1 or --mesh-sp > 1 in one process raises and says how
+    to launch the ranks; a lone process count or id needs a
+    coordinator."""
     with pytest.raises(ValueError, match="--dist-nprocs 2 --dist-procid"):
         mesh.make_data_group(2)
     with pytest.raises(ValueError, match="--dist-nprocs 3"):
         mesh.eval_group(3)
-    with pytest.raises(NotImplementedError, match="spatial mesh training"):
+    with pytest.raises(ValueError, match="--mesh-sp 2 runs one rank per "
+                       "device: launch 2 processes .* --dist-nprocs 2"):
         mesh.make_data_group(1, mesh_sp=2)
     cfg = tcfg.Config(dist_nprocs=2)
     with pytest.raises(ValueError, match="--dist-nprocs needs --dist-coord"):

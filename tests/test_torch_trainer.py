@@ -353,11 +353,10 @@ def test_train_cli_on_cpu_writes_a_jax_experiment(tmp_path, restore_logging):
     ["--dist-coordinator", "localhost:1234"], ["--dist-nprocs", "2"],
     ["--dist-procid", "0"]])
 def test_unported_flags_raise(flag, tmp_path):
-    """The spatial mesh is not ported; a data axis, a coordinator, a process
-    count or a process id that one process cannot run is refused with a
-    message naming the flag. Nothing is written either way."""
-    error = NotImplementedError if flag[0] == "--mesh-sp" else ValueError
-    with pytest.raises(error, match=flag[0]):
+    """A data or spatial mesh axis, a coordinator, a process count or a
+    process id that one process cannot run is refused with a message
+    naming the flag. Nothing is written either way."""
+    with pytest.raises(ValueError, match=flag[0]):
         ttrain_cli.main(TINY + ["--run-dir", str(tmp_path)] + flag)
     assert not os.listdir(tmp_path)  # nothing written
 
