@@ -200,7 +200,23 @@ Phases, each of which exits non-zero on a failed check:
              at scale 9 (13x192x257), 2 iterations; (c) planted faults:
              (a)'s first iteration with the halo rows zeroed, BatchNorm not
              summed over the spatial ranks, or every rank drawing the first
-             rows of H, each of which DP_TRAIN_REL must catch
+             rows of H, each of which DP_TRAIN_REL must catch; (d) the
+             CSG/SG baselines against WDiscriminatorBaselines at full
+             width on --mesh-sp 4: four gloo ranks (`chip_smoke.py
+             --spb-worker` processes) against this process at batch 1,
+             2 scale-9 iterations per generator, TF32 off (every stage of
+             the body runs, heights 24 48 60 76 96 192 split into 4 and 30
+             38 121 153 whole; the padded stages' and the critic's edge
+             ranks hold their pad rows, 6 and 7 more than the middle
+             ranks' 48 at scale 9): the ranks' parameters and metrics
+             bit-equal, the first iteration's metrics and gradients within
+             DP_TRAIN_REL of one process, steps/s of both, each rank's
+             share of an iteration in collectives and their number, peak
+             GB per rank beside one process's, the heights each rank's
+             sharded convolutions ran on (the edge ranks' differ from the
+             middle ranks'), K1 launches 0; and the first CSG iteration
+             with BatchNorm of a padded layout counted as equal shards,
+             which DP_TRAIN_REL must catch
 Then it prints the kernels' JSON line, the card's name and power limit as
 nvidia-smi gives them, and last {"ok": true, "device": {...}}.
 
@@ -3013,21 +3029,23 @@ def free_port():
     return port
 
 
-def start_dp_ranks(work, fault=None, kind="dp"):
+def start_dp_ranks(work, fault=None, kind="dp", ranks=DP_RANKS):
     """The two rank processes of phase 19 (`--dp-worker`) or, with kind
-    "sp", of phase 20 (`--sp-worker`), with `fault` planted in both when
+    "sp", of phase 20 (`--sp-worker`), or `ranks` of them with kind "spb"
+    (phase 20 (d), `--spb-worker`), with `fault` planted in each when
     given."""
     port = free_port()
     procs = [subprocess.Popen(
         [sys.executable, os.path.abspath(__file__), f"--{kind}-worker",
          str(r), str(port), work] + ([fault] if fault else []), cwd=HERE,
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for r in range(DP_RANKS)]
+        for r in range(ranks)]
     CHILDREN.extend(procs)
     return procs
 
 
-def join_dp_ranks(torch, procs, work, fault=None, kind="dp"):
+def join_dp_ranks(torch, procs, work, fault=None, kind="dp",
+                  ranks=DP_RANKS):
     """The results of start_dp_ranks' processes, one per rank."""
     logs = []
     try:
@@ -3043,7 +3061,7 @@ def join_dp_ranks(torch, procs, work, fault=None, kind="dp"):
               f"{proc.returncode}: {log[-3000:]}")
     return [torch.load(os.path.join(work, f"{kind}_{fault or 'sound'}_{r}"
                                     ".pt"), weights_only=False)
-            for r in range(DP_RANKS)]
+            for r in range(ranks)]
 
 
 def phase_data_parallel(torch, k1, ckpt):
@@ -3169,6 +3187,14 @@ SP_ITERS = {2: 4, 3: 2}
 # phase 20 (c): the faults planted in a rank, each breaking one of the
 # exchanges that make S ranks one process (parallel/spatial.py)
 SP_FAULTS = ("halo_zeros", "bn_not_summed_over_sp", "draws_first_rows")
+# phase 20 (d): the CSG/SG baselines on 4 spatial ranks, where the padded
+# stages' edge ranks hold more rows than the middle ones; 2 iterations at
+# scale 9 per generator (1 compared, 1 timed with the collectives timed),
+# and the fault (d) plants: BatchNorm of a padded layout counted as equal
+# shards (each rank's count times the ranks)
+SPB_RANKS = 4
+SPB_GENS = ("GeneratorCSG", "GeneratorSG")
+SPB_FAULT = "bn_padded_as_equal"
 
 
 def plant_sp_fault(fault):
@@ -3197,15 +3223,19 @@ def plant_sp_fault(fault):
             whole = draw(shape[:-2] + (h, shape[-1]), *args)
             return whole.narrow(-2, 0, shape[-2])
         NoiseSource.draw_rows = first_rows
+    elif fault == SPB_FAULT:
+        norm._elements = lambda xf, groups, ranks, sharded: (
+            xf.numel() // (groups * xf.shape[1]) * ranks)
     else:
         raise ValueError(f"unknown fault {fault!r}")
 
 
-def sp_train_leg(torch, group, ndim, first_only=False):
+def sp_train_leg(torch, group, ndim, first_only=False, generator=None):
     """SP_ITERS[ndim] full-width training iterations at scale 9 (GAN) of
     the 2D (air_balloons.jpg, 192x257) or 3D (balloons_pan.avi, 13x192x257)
-    model at batch 1, under `group` (a rank's rows of H, or the whole in
-    one process). Returns the first iteration's metrics and gradients, the
+    model at batch 1, or of the baseline `generator` (GeneratorCSG or
+    GeneratorSG against WDiscriminatorBaselines, 3D), under `group` (a
+    rank's rows of H, or the whole in one process). Returns the first iteration's metrics and gradients, the
     heights the H-sharded convolutions of that iteration ran on (rows plus
     halos, by height), G's and D's state after all the iterations, the
     steps/s, the share of the last iteration spent in collectives and
@@ -3226,8 +3256,9 @@ def sp_train_leg(torch, group, ndim, first_only=False):
         cfg, dataset = video_config(batch_size=1)
         data = dataset.scale_frames(DP_SCALE), dataset.scale_frames(0)
     amps = [1.0] + [0.05] * (cfg.stop_scale + 1)
-    st = build_state(cfg, DP_SCALE, SEED, DP_DEVICE, ndim)
-    former = batch_former(ndim, DP_SCALE)
+    models = (generator, "WDiscriminatorBaselines") if generator else ()
+    st = build_state(cfg, DP_SCALE, SEED, DP_DEVICE, ndim, *models)
+    former = batch_former(ndim, DP_SCALE, baseline=bool(generator))
 
     def iteration():
         return {k: float(v) for k, v in train_iteration(
@@ -3303,6 +3334,124 @@ def sp_worker(rank, port, work, fault=None):
     torch.distributed.destroy_process_group()
 
 
+def spb_worker(rank, port, work, fault=None):
+    """One rank of phase 20 (d), run as `chip_smoke.py --spb-worker <rank>
+    <port> <dir>`: the CSG and SG legs over four gloo ranks on the card
+    (--mesh-sp 4), and K1's launches in them; with SPB_FAULT after <dir>,
+    that fault planted, GeneratorCSG's first iteration only."""
+    import torch
+
+    from hpvaegan_tpu_torch.ops import fused_upscale_noise as k1
+    from hpvaegan_tpu_torch.parallel import mesh, multihost
+
+    device = mesh.select_device(DP_DEVICE, 0)
+    multihost.init_distributed(f"127.0.0.1:{port}", SPB_RANKS, rank,
+                               backend="gloo", device=device)
+    group = mesh.make_data_group(1, SPB_RANKS)
+    out = {"backend": torch.distributed.get_backend(),
+           "place": (group.sp.rank, group.sp.size)}
+    k1.fused_upscale_noise_2d.launches = 0
+    with exact_math(torch):
+        if fault:
+            plant_sp_fault(fault)
+            out[SPB_GENS[0]] = sp_train_leg(torch, group, 3, True,
+                                            SPB_GENS[0])
+        else:
+            for name in SPB_GENS:
+                out[name] = sp_train_leg(torch, group, 3, generator=name)
+    out["k1_launches"] = k1.fused_upscale_noise_2d.launches
+    torch.save(out, os.path.join(work, f"spb_{fault or 'sound'}_{rank}.pt"))
+    multihost.sync()
+    torch.distributed.destroy_process_group()
+
+
+def spatial_baselines(torch, k1):
+    """Phase 20 (d) (module doc): the CSG/SG legs in this process, then
+    on SPB_RANKS ranks, then the planted fault on as many."""
+    from hpvaegan_tpu_torch.parallel import mesh
+
+    t_start = time.perf_counter()
+    k1.fused_upscale_noise_2d.launches = 0
+    with exact_math(torch):
+        one = {name: sp_train_leg(torch, mesh.DataGroup(), 3, generator=name)
+               for name in SPB_GENS}
+    one_launches = k1.fused_upscale_noise_2d.launches
+    with tempfile.TemporaryDirectory(prefix="hpv_spb_") as work:
+        t0 = time.perf_counter()
+        ranks = join_dp_ranks(torch, start_dp_ranks(
+            work, kind="spb", ranks=SPB_RANKS), work, kind="spb",
+            ranks=SPB_RANKS)
+        ranks_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        faulty = join_dp_ranks(torch, start_dp_ranks(
+            work, SPB_FAULT, kind="spb", ranks=SPB_RANKS), work, SPB_FAULT,
+            kind="spb", ranks=SPB_RANKS)
+        fault_s = time.perf_counter() - t0
+    check([r["place"] for r in ranks] == [(s, SPB_RANKS)
+                                          for s in range(SPB_RANKS)],
+          f"spatial places {[r['place'] for r in ranks]}")
+    launches = [one_launches] + [r["k1_launches"] for r in ranks]
+    check(launches == [0] * (1 + SPB_RANKS),
+          f"K1 launched {launches} times in the baselines' training")
+    out = {}
+    for name in SPB_GENS:
+        legs = [r[name] for r in ranks]
+        for part in ("G", "D"):
+            same = all(torch.equal(v, leg[part][k]) for leg in legs[1:]
+                       for k, v in legs[0][part].items())
+            check(same, f"{name}: the ranks' {part} differ")
+        check(all(leg["metrics"] == legs[0]["metrics"] for leg in legs),
+              f"{name}: the ranks' metrics")
+        rel = first_iteration_rel(legs[0], one[name])
+        check(max(rel.values()) <= DP_TRAIN_REL,
+              f"{name} spatial mesh of {SPB_RANKS} vs 1 process: {rel}")
+        g_par, g_run = param_diffs(legs[0]["G"], one[name]["G"])
+        # scale 9's 192 rows split into 48 a rank; the middle ranks' convs
+        # run on 48 + 2, the edge ranks' on their pad rows too: the two
+        # kinds of rank must differ, and the edge ranks mirror each other
+        rows = [leg["conv_rows"] for leg in legs]
+        check(48 + 2 in rows[1] and rows[1] == rows[2]
+              and rows[0] == rows[3] and set(rows[0]) != set(rows[1]),
+              f"{name}: the sharded convolutions' heights {rows}")
+        check(not one[name]["conv_rows"],
+              f"{name}: one process ran sharded convolutions")
+        out[name] = {
+            "ranks": SPB_RANKS, "mesh_sp": SPB_RANKS,
+            "backend": ranks[0]["backend"], "batch": 1, "scale": DP_SCALE,
+            "iterations": SP_ITERS[3], **rel,
+            f"G_param_max_diff_after_{SP_ITERS[3]}": g_par,
+            f"G_running_stats_max_rel_after_{SP_ITERS[3]}": g_run,
+            f"steps_per_s_{SPB_RANKS}_ranks": legs[0]["steps_per_s"],
+            "steps_per_s_1_process": one[name]["steps_per_s"],
+            "collective_share_per_rank": [leg["collective_share"]
+                                          for leg in legs],
+            "collectives_per_iteration": legs[0]["collectives"],
+            "peak_gb_per_rank": [leg["peak_gb"] for leg in legs],
+            "peak_gb_1_process": one[name]["peak_gb"],
+            "ranks_bit_equal": True,
+            "conv_heights_edge_rank0_iter1": rows[0],
+            "conv_heights_middle_rank1_iter1": rows[1],
+            "k1_launches": launches}
+        print(f"  (d) {name} vs WDiscriminatorBaselines, full-width scale "
+              f"{DP_SCALE}, batch 1, {SPB_RANKS} gloo ranks splitting H "
+              "into unequal padded shards vs 1 process (TF32 off): "
+              + json.dumps(out[name]), flush=True)
+    rels = [first_iteration_rel(r[SPB_GENS[0]], one[SPB_GENS[0]])
+            for r in faulty]
+    planted = {k: max(r[k] for r in rels) for k in rels[0]}
+    check(max(planted.values()) > DP_TRAIN_REL,
+          f"planted fault {SPB_FAULT} reads {planted}, within DP_TRAIN_REL "
+          f"{DP_TRAIN_REL}")
+    out["fault"] = planted
+    print(f"  (d) planted fault {SPB_FAULT}, {SPB_GENS[0]} first iteration "
+          f"on {SPB_RANKS} ranks vs 1 process (the largest rank's reading; "
+          f"bar {DP_TRAIN_REL}): " + json.dumps(planted), flush=True)
+    print(f"  (d) took {time.perf_counter() - t_start:.1f} s (the ranks' "
+          f"processes {ranks_s:.1f} s, the fault's {fault_s:.1f} s)",
+          flush=True)
+    return out
+
+
 def phase_spatial(torch, k1):
     """Phase 20 (module doc)."""
     from hpvaegan_tpu_torch.parallel import mesh
@@ -3376,6 +3525,7 @@ def phase_spatial(torch, k1):
           f"three pairs side by side, {faults_s:.1f} s): "
           + json.dumps(planted), flush=True)
     out["faults"] = planted
+    out["baselines"] = spatial_baselines(torch, k1)
     return out
 
 
@@ -3387,6 +3537,10 @@ def main():
     if len(sys.argv) > 1 and sys.argv[1] == "--sp-worker":
         sp_worker(int(sys.argv[2]), sys.argv[3], sys.argv[4],
                   sys.argv[5] if len(sys.argv) > 5 else None)
+        return
+    if len(sys.argv) > 1 and sys.argv[1] == "--spb-worker":
+        spb_worker(int(sys.argv[2]), sys.argv[3], sys.argv[4],
+                   sys.argv[5] if len(sys.argv) > 5 else None)
         return
     if len(sys.argv) > 1 and sys.argv[1] == "--serving-draws":
         serving_draws_worker(sys.argv[2])
@@ -3520,8 +3674,8 @@ def main():
     dp = phase_data_parallel(torch, k1, ckpt)
     print(f"  phase 19 took {time.perf_counter() - t0:.1f} s", flush=True)
 
-    print("phase 20: the spatial mesh (--mesh-sp 2), two ranks splitting H",
-          flush=True)
+    print("phase 20: the spatial mesh (--mesh-sp 2, two ranks splitting H; "
+          "(d) the baselines on --mesh-sp 4)", flush=True)
     t0 = time.perf_counter()
     phase_spatial(torch, k1)
     print(f"  phase 20 took {time.perf_counter() - t0:.1f} s", flush=True)
@@ -3549,7 +3703,8 @@ def main():
           "17's on-device eval and interop (0), phase 18's export and "
           "serving (0), phase 19's training (0) and sharded sampler "
           f"({dp['sampler']['k1_launches_per_rank']} per rank), phase 20's "
-          "spatial-mesh training (0)",
+          "spatial-mesh training (0) and (d)'s baselines on 4 ranks (0 in "
+          "each)",
           flush=True)
     print(f"  total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

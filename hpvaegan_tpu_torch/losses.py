@@ -20,7 +20,10 @@ term of a replicated activation is the same on every spatial rank. The
 gradient penalty's per-pixel channel norm is local, and the gradient it
 takes the norm of is the global one: the halo exchanges' adjoints
 (parallel/spatial.py) add to each rank's rows what its neighbours' outputs
-owe them.
+owe them. The critic's scores are meaned by `score_mean`, which the
+caller hands over: torch.mean, or for the baselines' critic under a
+spatial axis, whose scores' shards are unequal, spatial.mean, which
+weighs each rank's share by its rows.
 """
 
 from __future__ import annotations
@@ -64,12 +67,13 @@ def gradient_penalty(d_apply: Callable, real: torch.Tensor,
 
 
 def d_loss_fn(cfg, d_apply: Callable, real: torch.Tensor, fake: torch.Tensor,
-              alpha) -> Tuple[torch.Tensor, Metrics]:
+              alpha, score_mean: Callable = torch.mean
+              ) -> Tuple[torch.Tensor, Metrics]:
     """-E[D(real)] + E[D(fake)] + GP (reference losses.py:27-45); `fake` is
     detached by the caller. Applies `d_apply` to `real` FIRST: the D step
     keeps the spectral-norm state of that application."""
-    err_real = -torch.mean(d_apply(real).float())
-    err_fake = torch.mean(d_apply(fake).float())
+    err_real = -score_mean(d_apply(real).float())
+    err_fake = score_mean(d_apply(fake).float())
     gp = gradient_penalty(d_apply, real, fake, alpha, cfg.lambda_grad)
     return err_real + err_fake + gp, {"d_real": -err_real, "d_fake": err_fake,
                                       "gp": gp}
@@ -83,12 +87,13 @@ def g_vae_loss_fn(cfg, generated, generated_vae, real, real_zero, mu,
     return cfg.rec_weight * rec + cfg.kl_weight * kl, {"rec": rec, "kl": kl}
 
 
-def g_gan_loss_fn(cfg, d_apply: Callable, generated, real,
-                  fake) -> Tuple[torch.Tensor, Metrics]:
+def g_gan_loss_fn(cfg, d_apply: Callable, generated, real, fake,
+                  score_mean: Callable = torch.mean
+                  ) -> Tuple[torch.Tensor, Metrics]:
     """GAN-phase G loss: reconstruction + adversarial (reference
     losses.py:87-101)."""
     rec = mse(generated, real)
     if cfg.bug_compat:
         fake = fake.detach()  # reference losses.py:94
-    adv = -torch.mean(d_apply(fake).float()) * cfg.disc_loss_weight
+    adv = -score_mean(d_apply(fake).float()) * cfg.disc_loss_weight
     return cfg.rec_weight * rec + adv, {"rec": rec, "adv": adv}

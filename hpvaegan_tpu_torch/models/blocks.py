@@ -29,7 +29,10 @@ forward.
 activation holds this rank's rows of an H split over the spatial axis
 (parallel/spatial.py): the convolutions then pad H with their neighbours'
 rows and BatchNorm's statistics span the spatial ranks (ops/conv.py,
-ops/norm.py). Spectral norm acts on the replicated weights and needs
+ops/norm.py). It is True for the equal split, or the input's padded
+layout (spatial.Padded, the baselines'), which a padding-0 convolution
+shrinks (`Conv.layout_after`): a ConvBlock's BatchNorm takes its conv's
+output layout. Spectral norm acts on the replicated weights and needs
 nothing.
 
 `compute_dtype` (None, or bfloat16 under `--compute-dtype bfloat16`) is an
@@ -52,6 +55,7 @@ import torch.nn as nn
 from ..ops.conv import conv, lrelu
 from ..ops.norm import batch_stats, batchnorm, fold, normalize_batch
 from ..ops.spectral_norm import spectral_normalize
+from ..parallel import spatial
 
 
 class Conv(nn.Module):
@@ -67,9 +71,15 @@ class Conv(nn.Module):
         self.bias = nn.Parameter(torch.zeros(cout)) if bias else None
         self.padding = padding
 
-    def forward(self, x: torch.Tensor, sharded: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                sharded: spatial.Layout = False) -> torch.Tensor:
         return conv(x, self.weight, self.bias, padding=self.padding,
                     compute_dtype=self.compute_dtype, sharded=sharded)
+
+    def layout_after(self, sharded: spatial.Layout) -> spatial.Layout:
+        """The layout of this conv's output on an input in `sharded`."""
+        return spatial.conv_layout(sharded, self.weight.shape[-1],
+                                   self.padding)
 
 
 class DeferredFolds(list):
@@ -99,7 +109,8 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(ch))
 
     def forward(self, x: torch.Tensor, mode: str, commit: Commit = True,
-                groups: int = 1, sharded: bool = False) -> torch.Tensor:
+                groups: int = 1,
+                sharded: spatial.Layout = False) -> torch.Tensor:
         if mode != "batch":
             return batchnorm(x, self.weight, self.bias, self.running_mean,
                              self.running_var, mode, groups=groups,
@@ -124,9 +135,10 @@ class ConvBlock(nn.Module):
         self.norm = BatchNorm(cout)
 
     def forward(self, x: torch.Tensor, bn: str, commit: Commit = True,
-                groups: int = 1, sharded: bool = False) -> torch.Tensor:
+                groups: int = 1,
+                sharded: spatial.Layout = False) -> torch.Tensor:
         return lrelu(self.norm(self.conv(x, sharded), bn, commit, groups,
-                               sharded))
+                               self.conv.layout_after(sharded)))
 
 
 class ConvStack(nn.Module):
@@ -169,7 +181,7 @@ class SNConv(nn.Module):
         self.padding = ker // 2
 
     def forward(self, x: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
-                sharded: bool = False
+                sharded: spatial.Layout = False
                 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
         """Conv with W / sigma from one power step on (u, v); returns the
         output and the new (u, v). The buffers are not written."""
@@ -186,7 +198,7 @@ class SNBlock(nn.Module):
         super().__init__()
         self.conv = SNConv(cin, cout, ker, ndim)
 
-    def forward(self, x: torch.Tensor, sharded: bool = False):
+    def forward(self, x: torch.Tensor, sharded: spatial.Layout = False):
         y, uv = self.conv(x, self.conv.weight_u, self.conv.weight_v, sharded)
         return lrelu(y), uv
 
@@ -195,7 +207,7 @@ SNState = List[Tuple[torch.Tensor, torch.Tensor]]
 
 
 def sn_blocks_apply(blocks: Sequence[SNBlock], x: torch.Tensor,
-                    sharded: bool = False) -> Tuple[torch.Tensor, SNState]:
+                    sharded: spatial.Layout = False) -> Tuple[torch.Tensor, SNState]:
     """A stack of SN blocks (JAX feature_extractor_apply, return_linear
     False); returns the output and each block's new (u, v)."""
     state = []

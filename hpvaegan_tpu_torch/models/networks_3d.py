@@ -22,10 +22,18 @@ Under a compute dtype the 3D networks flow in it as the 2D ones do: the
 refinement noise (the baselines' random-mode stage input too) is drawn in
 float32 and cast before the add (JAX :232, :420, :472).
 
-The HP-VAE-GAN classes run under a spatial axis (--mesh-sp) as the 2D ones
-do, H being axis 3 of NCDHW and T never split; the baselines do not (their
-padding-0 stages take rows off H unevenly across the ranks), and their
-trainer refuses the axis.
+Under a spatial axis (--mesh-sp, parallel/spatial.py) H, axis 3 of NCDHW,
+is split wherever a scale's height divides by the axis's ranks, and T is
+never split. The HP-VAE-GAN classes run as the 2D ones do. The baselines'
+stages take rows off H: each zero pad of p rows puts the activation in the
+padded layout (H, p) (spatial.Padded: the edge ranks hold the pad rows,
+`_zero_pad`), and each padding-0 convolution of the stage brings it one
+row a side closer to the equal split, which the stage's output is in. A
+stage learns its layout from its pyramid height (`_Baseline._layout`); the
+random-mode input is the resize and the draw cut to the rank's rows of
+the layout, and the critic's scores are in the layout (H, num_layer + 2)
+(`WDiscriminatorBaselines.score_pad`), whose mean training/steps.py
+weighs.
 """
 
 from __future__ import annotations
@@ -38,7 +46,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.conv import lrelu
-from ..ops.resize import resize_trilinear, upscale_3d
+from ..ops.resize import resize_trilinear_padded, upscale_3d
 from ..parallel import spatial
 from ..utils.noise import NoiseSource
 from ..utils.pyramid import scale_height
@@ -120,14 +128,23 @@ class WDiscriminatorBaselines(nn.Module):
         self.num_layer = cfg.num_layer
         self.tail = Conv(n, 1, cfg.ker_size, cfg.padd_size, 3)
         self.pad = cfg.num_layer + 2
+        # the scores' pad rows a side: the head and the tail keep the
+        # input's pad unless padd_size differs from ker // 2
+        self.score_pad = self.pad + 2 * (cfg.padd_size - cfg.ker_size // 2)
 
-    def forward(self, x: torch.Tensor):
+    def forward(self, x: torch.Tensor, sharded: bool = False):
         """Returns (scores (B, 1, T + 2p, H + 2p, W + 2p), the new (u, v) of
-        the body's SN convs); the buffers are not written."""
-        y = lrelu(self.head.conv(F.pad(x, (self.pad,) * 6)))
+        the body's SN convs); the buffers are not written. `sharded`: x
+        holds the rank's rows of an H split over the spatial axis, and the
+        scores are the rank's rows of the layout (H, score_pad)."""
+        layout = spatial.Padded(x.shape[-2] * spatial.axis().size,
+                                self.pad) if sharded else False
+        y = lrelu(self.head.conv(_zero_pad(x, self.pad, layout), layout))
+        layout = self.head.conv.layout_after(layout)
         y, state = sn_blocks_apply([getattr(self.body, f"block{i}")
-                                    for i in range(self.num_layer)], y)
-        return self.tail(y), state
+                                    for i in range(self.num_layer)], y,
+                                   layout)
+        return self.tail(y, layout), state
 
 
 class BaselineStage(nn.Module):
@@ -144,15 +161,23 @@ class BaselineStage(nn.Module):
         if cout_tail is not None:
             self.tail = Conv(nfc, cout_tail, ker, 0, 3, bias=tail_bias)
 
-    def forward(self, x: torch.Tensor, bn: str,
-                commit: Commit = True) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, bn: str, commit: Commit = True,
+                sharded: spatial.Layout = False) -> torch.Tensor:
+        """`sharded`: x's padded layout (spatial.Padded) where the spatial
+        axis splits its height; each conv takes a row off it a side."""
         for block in self.blocks:
-            x = block(x, bn, commit)
-        return self.tail(x) if hasattr(self, "tail") else x
+            x = block(x, bn, commit, sharded=sharded)
+            sharded = block.conv.layout_after(sharded)
+        return self.tail(x, sharded) if hasattr(self, "tail") else x
 
 
-def _zero_pad(x: torch.Tensor, pad: int) -> torch.Tensor:
-    return F.pad(x, (pad,) * 6)
+def _zero_pad(x: torch.Tensor, pad: int,
+              sharded: spatial.Layout = False) -> torch.Tensor:
+    """x zero-padded by `pad` on T, H and W; where `sharded` (x the rank's
+    rows of a split H), H only at the global edges, into the layout (H,
+    pad)."""
+    top, bottom = spatial.edge_pads(pad) if sharded else (pad, pad)
+    return F.pad(x, (pad, pad, top, bottom, pad, pad))
 
 
 class _Baseline(nn.Module):
@@ -195,21 +220,30 @@ class _Baseline(nn.Module):
         446-450 there); `gen` is not drawn from."""
         self.body.append(copy.deepcopy(self.body[-1]))
 
+    def _layout(self, idx: int, p: int) -> spatial.Layout:
+        """The layout (H, p) of scale idx's height H where the spatial axis
+        splits it, else False."""
+        return spatial.layout(scale_height(self.cfg, idx), p)
+
     def _refine(self, idx: int, x_prev_out: torch.Tensor, amps,
                 noise: NoiseSource, is_random: bool, bn: str,
                 commit: Commit) -> torch.Tensor:
         cfg, p = self.cfg, self.pad
+        h_in, h = scale_height(cfg, idx - 1), scale_height(cfg, idx)
         x_up = upscale_3d(x_prev_out, idx, cfg.scale_factor, cfg.stop_scale,
                           cfg.img_size, cfg.stop_scale_time,
-                          cfg.sampling_rates, cfg.org_fps, cfg.fps_lcm, cfg.ar)
+                          cfg.sampling_rates, cfg.org_fps, cfg.fps_lcm, cfg.ar,
+                          h_in=h_in)
+        layout = self._layout(idx, p)
         if is_random:
-            t, h, w = x_up.shape[2:]
-            x2 = resize_trilinear(x_prev_out, (t + 2 * p, h + 2 * p, w + 2 * p))
-            z = noise.normal(x2.shape) * float(amps[idx])
+            t, w = x_up.shape[2], x_up.shape[4]
+            x2 = resize_trilinear_padded(x_prev_out, (t, h, w), p, h_in)
+            z = noise.draw_rows(h, "normal", x2.shape, pad=p) \
+                * float(amps[idx])
             x_in = x2 + z.to(x2.dtype)  # float32 noise, cast (JAX :420, :472)
         else:
-            x_in = _zero_pad(x_up, p)
-        return self.body[idx](x_in, bn, commit) + x_up
+            x_in = _zero_pad(x_up, p, layout)
+        return self.body[idx](x_in, bn, commit, layout) + x_up
 
     def forward(self, noise_init: torch.Tensor, amps, noise: NoiseSource, *,
                 bn: str = "batch", commit: Commit = True
@@ -227,7 +261,8 @@ class _Baseline(nn.Module):
         if self.z_init is None:
             raise RuntimeError("the baseline generator has no z_init; the "
                                "baselines trainer sets it")
-        z = self.z_init.expand((video.shape[0],) + tuple(self.z_init.shape[1:]))
+        z = spatial.shard_rows(self.z_init)  # the rank's rows of h0
+        z = z.expand((video.shape[0],) + tuple(z.shape[1:]))
         x = self._run(z, amps, noise, False, "batch", commit)
         return x, x, None, None
 
@@ -248,11 +283,14 @@ class GeneratorCSG(_Baseline):
         self.tail = Conv(n, cfg.nc_im, cfg.ker_size, 0, 3)
 
     def _run(self, z, amps, noise, is_random, bn, commit):
-        x = self.head(_zero_pad(z, 1), bn, commit)
-        x = self.body[0](_zero_pad(x, self.pad), bn, commit)
+        head = self._layout(0, 1)
+        x = self.head(_zero_pad(z, 1, head), bn, commit, sharded=head)
+        stage = self._layout(0, self.pad)
+        x = self.body[0](_zero_pad(x, self.pad, stage), bn, commit, stage)
         for idx in range(1, len(self.body)):
             x = self._refine(idx, x, amps, noise, is_random, bn, commit)
-        return torch.tanh(self.tail(_zero_pad(x, 1)))
+        tail = self._layout(len(self.body) - 1, 1)
+        return torch.tanh(self.tail(_zero_pad(x, 1, tail), tail))
 
 
 class GeneratorSG(_Baseline):
@@ -269,7 +307,8 @@ class GeneratorSG(_Baseline):
                                        tail_bias=False))
 
     def _run(self, z, amps, noise, is_random, bn, commit):
-        x = self.body[0](_zero_pad(z, self.pad), bn, commit)
+        stage = self._layout(0, self.pad)
+        x = self.body[0](_zero_pad(z, self.pad, stage), bn, commit, stage)
         for idx in range(1, len(self.body)):
             x = self._refine(idx, torch.tanh(x), amps, noise, is_random, bn,
                              commit)

@@ -16,7 +16,12 @@ axis, parallel/spatial.py): H is padded with the neighbours' rows
 (`spatial.halo`, k = padding) instead of zeros, the other axes with zeros
 as always, so the rank's output is exactly its rows of the global output;
 the height each such convolution ran on is counted in
-`spatial.conv_rows`.
+`spatial.conv_rows`. An input in a padded layout (`spatial.Padded`, the
+baselines' stages and critic) also takes a padding-0 convolution: the
+same halo of (ker - 1) / 2 rows, less the rows past the global edges
+(`spatial.drop_edges`), and no padding of H, so that the output is the
+rank's rows of the layout with (ker - 1) / 2 fewer pad rows a side
+(`spatial.conv_layout`).
 """
 
 from __future__ import annotations
@@ -29,15 +34,23 @@ import torch.nn.functional as F
 from ..parallel import spatial
 
 
-def _halo(x: torch.Tensor, weight: torch.Tensor, stride: int, padding: int):
+def _halo(x: torch.Tensor, weight: torch.Tensor, stride: int, padding: int,
+          sharded: spatial.Layout):
     """An H-sharded input with its halo rows, and the padding left to do:
     none on H, `padding` on the other spatial axes."""
-    if stride != 1 or 2 * padding != weight.shape[-2] - 1:
+    k = (weight.shape[-2] - 1) // 2
+    shrinks = (padding == 0 and isinstance(sharded, spatial.Padded)
+               and sharded.p >= k)
+    if stride != 1 or 2 * k + 1 != weight.shape[-2] \
+            or (padding != k and not shrinks):
         raise NotImplementedError(
             f"an H-sharded convolution keeps the height (stride 1, padding "
-            f"(ker - 1) / 2), not ker {weight.shape[-2]} stride {stride} "
-            f"padding {padding}")
-    x = spatial.halo(x, padding)
+            f"(ker - 1) / 2) or, in a padded layout of at least (ker - 1) "
+            f"/ 2 pad rows, has padding 0; not ker {weight.shape[-2]} "
+            f"stride {stride} padding {padding} in {sharded}")
+    x = spatial.halo(x, k)
+    if shrinks:
+        x = spatial.drop_edges(x, k)
     spatial.conv_rows[x.shape[-2]] += 1
     pads = [padding] * (x.ndim - 2)
     pads[-2] = 0
@@ -47,9 +60,9 @@ def _halo(x: torch.Tensor, weight: torch.Tensor, stride: int, padding: int):
 def _conv(fn, x: torch.Tensor, weight: torch.Tensor,
           bias: Optional[torch.Tensor], stride: int, padding: int,
           compute_dtype: Optional[torch.dtype],
-          sharded: bool = False) -> torch.Tensor:
+          sharded: spatial.Layout = False) -> torch.Tensor:
     if sharded:
-        x, padding = _halo(x, weight, stride, padding)
+        x, padding = _halo(x, weight, stride, padding, sharded)
     if compute_dtype is None:
         return fn(x, weight, bias, stride=stride, padding=padding)
     out = fn(x.to(compute_dtype), weight.to(compute_dtype), None,
@@ -63,7 +76,7 @@ def conv2d(x: torch.Tensor, weight: torch.Tensor,
            bias: Optional[torch.Tensor] = None, stride: int = 1,
            padding: int = 0,
            compute_dtype: Optional[torch.dtype] = None,
-           sharded: bool = False) -> torch.Tensor:
+           sharded: spatial.Layout = False) -> torch.Tensor:
     """Plain 2D convolution, zero padding (reference networks_2d.py:47-49)."""
     return _conv(F.conv2d, x, weight, bias, stride, padding, compute_dtype,
                  sharded)
@@ -73,7 +86,7 @@ def conv3d(x: torch.Tensor, weight: torch.Tensor,
            bias: Optional[torch.Tensor] = None, stride: int = 1,
            padding: int = 0,
            compute_dtype: Optional[torch.dtype] = None,
-           sharded: bool = False) -> torch.Tensor:
+           sharded: spatial.Layout = False) -> torch.Tensor:
     """Plain 3D convolution, zero padding (reference networks_3d.py:48-50)."""
     return _conv(F.conv3d, x, weight, bias, stride, padding, compute_dtype,
                  sharded)
@@ -83,7 +96,7 @@ def conv(x: torch.Tensor, weight: torch.Tensor,
          bias: Optional[torch.Tensor] = None, stride: int = 1,
          padding: int = 0,
          compute_dtype: Optional[torch.dtype] = None,
-         sharded: bool = False) -> torch.Tensor:
+         sharded: spatial.Layout = False) -> torch.Tensor:
     """conv2d or conv3d, by the weight's rank (OIHW or OIDHW)."""
     fn = conv2d if weight.ndim == 4 else conv3d
     return fn(x, weight, bias, stride=stride, padding=padding,

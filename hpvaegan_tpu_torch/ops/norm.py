@@ -27,8 +27,12 @@ the global batch does. An activation whose H is split over the spatial
 axis (`sharded`, parallel/spatial.py) sums over the spatial ranks too,
 with the sum handed over through `set_sharded_sum`; a replicated one holds
 all of H on every spatial rank and sums over the data axis alone, so its
-rows count once. "moving" needs no collective; "sample" (sampling only)
-refuses a sharded activation.
+rows count once. The sums are divided by the global number of elements:
+the rank's count times the number of ranks for the equal split, and for
+a padded layout (spatial.Padded (h, p), whose edge ranks hold p more rows)
+the rows of one column, h + 2p, times the rest of the rank's count, times
+the data ranks (`_elements`). "moving" needs no collective; "sample"
+(sampling only) refuses a sharded activation.
 
 Statistics are reduced in float32 whatever the activations' dtype, and the
 normalisation runs in the activations' dtype (bfloat16 under
@@ -68,17 +72,20 @@ def set_sharded_sum(sharded_sum: GroupSum) -> GroupSum:
     return before
 
 
-def batch_stats(x: torch.Tensor, groups: int = 1, sharded: bool = False
+def batch_stats(x: torch.Tensor, groups: int = 1, sharded=False
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Float32 mean and biased variance over (0, 2, ...) of each of `groups`
     equal parts of the batch: two (groups, C) tensors. Under a data group
     of several ranks, x is this rank's rows of each part and the statistics
-    are the global batch's; `sharded`: x holds the rank's rows of H, and
-    the statistics are those of all of H."""
+    are the global batch's; `sharded` (True or a spatial.Padded layout): x
+    holds the rank's rows of H, and the statistics are those of all of
+    H."""
     xf = x.float()
     group_sum = _SHARDED_SUM if sharded else _GROUP_SUM
     if group_sum is not None:
-        return _group_batch_stats(xf, groups, *group_sum)
+        fn, ranks = group_sum
+        return _group_batch_stats(xf, groups, fn,
+                                  _elements(xf, groups, ranks, sharded))
     if groups == 1:
         dims = (0,) + tuple(range(2, x.ndim))
         return (xf.mean(dim=dims).unsqueeze(0),
@@ -88,14 +95,28 @@ def batch_stats(x: torch.Tensor, groups: int = 1, sharded: bool = False
     return xg.mean(dim=dims), xg.var(dim=dims, unbiased=False)
 
 
-def _group_batch_stats(xf: torch.Tensor, groups: int, group_sum, ranks: int
+def _elements(xf: torch.Tensor, groups: int, ranks: int, sharded) -> int:
+    """The global number of elements of each channel of each part of the
+    batch, over `ranks` ranks that each hold xf's share: xf's count times
+    `ranks` where the shares are equal; for a padded layout (h, p) with
+    p > 0, the global rows h + 2p times the count of one of xf's rows,
+    times the data ranks."""
+    n = xf.numel() // (groups * xf.shape[1])
+    padded = getattr(sharded, "p", 0)
+    if not padded:
+        return n * ranks
+    data = _GROUP_SUM[1] if _GROUP_SUM is not None else 1
+    return n // xf.shape[-2] * (sharded.h + 2 * padded) * data
+
+
+def _group_batch_stats(xf: torch.Tensor, groups: int, group_sum, n: int
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """batch_stats over the data group, in two passes as the float32 JAX
     reduction: the global mean, then the global mean squared deviation
-    from it, each a `group_sum` of the ranks' sums."""
+    from it, each a `group_sum` of the ranks' sums divided by the global
+    count n."""
     xg = xf.reshape((groups, -1) + tuple(xf.shape[1:]))
     dims = (1,) + tuple(range(3, xg.ndim))
-    n = xg.numel() // (groups * xg.shape[2]) * ranks
     mean = group_sum(xg.sum(dim=dims)) / n
     shape = (groups, 1, -1) + (1,) * (xg.ndim - 3)
     dev = (xg - mean.reshape(shape)) ** 2
@@ -129,10 +150,11 @@ def normalize_batch(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
 def batchnorm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
               mean: torch.Tensor, var: torch.Tensor, mode: str,
               momentum: float = 0.9, eps: float = 1e-5, groups: int = 1,
-              sharded: bool = False
+              sharded=False
               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """x: (B, C, H, W) or (B, C, T, H, W), the rank's rows of H when
-    `sharded`. Returns (y, new_mean, new_var)."""
+    `sharded` (True or a spatial.Padded layout). Returns (y, new_mean,
+    new_var)."""
     shape = (1, -1) + (1,) * (x.ndim - 2)
     spatial = tuple(range(2, x.ndim))
     if mode == "batch":

@@ -20,7 +20,10 @@ The upscales between pyramid stages take an H split over the spatial axis
 input is gathered whole (the 3-channel stage output, `h_in` its global
 height), and a sharded output computes only the rank's rows, from the
 global tables cut to them. Each output element is the same gather and
-lerp as in one process, so the result is its rows bit for bit.
+lerp as in one process, so the result is its rows bit for bit. The
+baselines' random-mode stage input (`resize_trilinear_padded`) is a resize
+to a stage's size padded by p on every side, cut the same way to the
+rank's rows of the padded layout (h, p) (parallel/spatial.py::rows).
 """
 
 from __future__ import annotations
@@ -74,16 +77,19 @@ def _resize_axis(x: torch.Tensor, axis: int, n_out: int,
                                          x.device))
 
 
-def _resize_rows(x: torch.Tensor, h_in: int, h_out: int) -> torch.Tensor:
+def _resize_rows(x: torch.Tensor, h_in: int, h_out: int,
+                 pad: int = 0) -> torch.Tensor:
     """Align-corners resize of axis -2 (H) from global height h_in to
-    h_out: `x` holds the rank's rows of h_in where the spatial axis splits
-    it, and the result the rank's rows of h_out where it splits that."""
-    if h_in == h_out:
+    h_out + 2 pad: `x` holds the rank's rows of h_in where the spatial
+    axis splits it, and the result the rank's rows of the layout (h_out,
+    pad) where it splits h_out."""
+    total = h_out + 2 * pad
+    if h_in == h_out and not pad:
         return x
     x = spatial.gather_rows(x, h_in)
-    tables = interp_tables(h_in, h_out, True, x.device)
-    start, n = spatial.rows(h_out)
-    if n != h_out:
+    tables = interp_tables(h_in, total, True, x.device)
+    start, n = spatial.rows(h_out, pad)
+    if n != total:
         tables = tuple(t[start:start + n] for t in tables)
     return _lerp(x, x.ndim - 2, *tables)
 
@@ -125,6 +131,22 @@ def resize_trilinear(x: torch.Tensor, size_thw: Sequence[int],
     if x.ndim != 5:
         raise ValueError(f"resize_trilinear expects rank 5 NCDHW, got {x.ndim}")
     return resize_linear(x, (2, 3, 4), size_thw, align_corners)
+
+
+def resize_trilinear_padded(x: torch.Tensor, size_thw: Sequence[int],
+                            pad: int, h_in: int) -> torch.Tensor:
+    """resize_trilinear (align_corners=True) of `x` to (t + 2 pad, h + 2
+    pad, w + 2 pad), size_thw = (t, h, w): `x` holds the rank's rows of
+    its global height h_in where the spatial axis splits it, and the
+    result is the rank's rows of the layout (h, pad) where the axis splits
+    h, the whole resize cut to them bit for bit."""
+    if x.ndim != 5:
+        raise ValueError(f"resize_trilinear_padded expects rank 5 NCDHW, "
+                         f"got {x.ndim}")
+    t, h, w = (int(s) for s in size_thw)
+    x = _resize_axis(x, 2, t + 2 * pad, True)
+    x = _resize_rows(x, h_in, h, pad)
+    return _resize_axis(x, 4, w + 2 * pad, True)
 
 
 def upscale_2d(x: torch.Tensor, index: int, scale_factor: float,

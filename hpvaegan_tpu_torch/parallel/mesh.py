@@ -34,7 +34,8 @@ both axes (the gradients, the metrics, the statistics of an H-sharded
 activation) run over all D x S ranks in one collective (`sum_all`,
 `mean_`). Each rank's losses are means over its own shard, and shards are
 equal (H is split only where it divides by S), so the mean over all ranks
-is the global mean.
+is the global mean; the baselines' padded layouts, whose edge ranks hold
+more rows, weigh their means (parallel/spatial.py::mean).
 
 The group in force is set by `data_parallel(group)` for the extent of a
 run, and every helper here, the draws (utils/noise.py), BatchNorm and the
@@ -56,9 +57,6 @@ import torch.distributed as dist
 
 from ..ops import norm
 from . import multihost
-
-SPATIAL_BASELINES = "spatial mesh baselines"
-
 
 class Axis(NamedTuple):
     """This rank's place on one axis of the mesh: index `rank` of `size`

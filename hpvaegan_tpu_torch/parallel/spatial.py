@@ -18,6 +18,22 @@ A module learns whether its activation is sharded from its pyramid height
 (utils/pyramid.py::scale_height): a rank's shape alone cannot tell 9 rows
 of 18 from a whole 9.
 
+Padded layouts (the CSG/SG baselines, models/networks_3d.py). A baseline
+stage zero-pads its input by p rows on every side and runs padding-0
+convolutions, each of which takes a row off the top and the bottom of the
+global tensor; the baselines' critic pads by num_layer + 2. An activation
+of unpadded height H that carries p pad rows on each side is held in the
+layout (H, p) (`Padded`): rank s holds its H / S rows, and rank 0 the p
+rows above them, rank S - 1 the p rows below (`rows(h, p)`). The shards
+are unequal for p > 0 and S > 2: the edge ranks hold H / S + p rows, the
+middle ones H / S. The zero pad is local (`edge_pads`). A padding-0
+convolution takes the same 1-row halo as a padding-1 one, less the zero
+row past the global edge on rank 0 and on rank S - 1 (`drop_edges`, a
+local slice: every rank still exchanges), and pads H no further, so that
+its output, one row shorter a side on the edge ranks, is in the layout
+(H, p - 1); a padding-1 convolution keeps the layout (`conv_layout`).
+(H, 0) is the equal split.
+
 The exchanges, each a `torch.autograd.Function` whose backward is its
 exact adjoint, itself built from these functions, so that the gradient
 penalty's double backward runs through them:
@@ -41,13 +57,16 @@ tensor's device's one autograd thread; bfloat16 travels as its bytes.
 Gradients (training/steps.py, losses.py): each rank's losses are means
 over its own rows, and the gradients are averaged over all D x S ranks,
 which is the global mean's gradient because the shards are equal and a
-replicated term is the same on every rank. Parameters are replicated.
+replicated term is the same on every rank; a mean over a padded layout's
+unequal shards is weighted to make it so (`mean`), and BatchNorm counts a
+padded layout's elements globally (ops/norm.py). Parameters are
+replicated.
 """
 
 from __future__ import annotations
 
 import collections
-from typing import List, Tuple
+from typing import List, NamedTuple, Tuple, Union
 
 import torch
 import torch.distributed as dist
@@ -71,14 +90,71 @@ def sharded(h: int) -> bool:
     return s > 1 and h % s == 0
 
 
-def rows(h: int) -> Tuple[int, int]:
-    """(first row, number of rows) of this rank's share of global height
-    h: (0, h) where h is not split."""
+class Padded(NamedTuple):
+    """The layout (h, p): an activation of unpadded global height h, split
+    over the axis, with p pad rows above and below it held by the edge
+    ranks (module docstring). Padded(h, 0) is the equal split."""
+    h: int
+    p: int
+
+
+# what a module's `sharded` argument holds: False (all of H on every
+# rank), True (the equal split of its height) or a Padded layout
+Layout = Union[bool, Padded]
+
+
+def layout(h: int, p: int) -> Layout:
+    """The layout (h, p) where the axis splits h, else False."""
+    return Padded(h, p) if sharded(h) else False
+
+
+def rows(h: int, p: int = 0) -> Tuple[int, int]:
+    """(first row, number of rows) of this rank's share of the global
+    height h + 2p of the layout (h, p): its h / S rows, with the p rows
+    above them on rank 0 and the p rows below on rank S - 1; (0, h + 2p)
+    where h is not split."""
     if not sharded(h):
-        return 0, h
+        return 0, h + 2 * p
     ax = axis()
     n = h // ax.size
-    return ax.rank * n, n
+    first, last = ax.rank == 0, ax.rank == ax.size - 1
+    return (0 if first else p + ax.rank * n), n + p * first + p * last
+
+
+def edge_pads(p: int) -> Tuple[int, int]:
+    """(rows above, rows below) of this rank's share of a zero pad of p
+    rows on each side of a split height: p and 0 on rank 0, 0 and p on
+    rank S - 1, none on the others."""
+    ax = axis()
+    return p * (ax.rank == 0), p * (ax.rank == ax.size - 1)
+
+
+def drop_edges(x: torch.Tensor, k: int) -> torch.Tensor:
+    """x without its first k rows on rank 0 and its last k rows on rank
+    S - 1: a halo's zero rows past the global edges, which a padding-0
+    convolution does not read."""
+    top, bottom = edge_pads(k)
+    return x.narrow(-2, top, x.shape[-2] - top - bottom)
+
+
+def conv_layout(sharded: Layout, ker: int, padding: int) -> Layout:
+    """The layout of a stride-1 convolution's output from its input's: a
+    padded layout loses (ker - 1) / 2 - padding pad rows a side; the other
+    layouts are kept."""
+    if isinstance(sharded, Padded):
+        return sharded._replace(p=sharded.p + padding - (ker - 1) // 2)
+    return sharded
+
+
+def mean(t: torch.Tensor, sharded: Layout) -> torch.Tensor:
+    """torch.mean(t) of the rank's share of a tensor in layout `sharded`,
+    weighted by S * n / N (n the rank's rows, N = h + 2p the global ones)
+    where the shards are unequal, so that the mean over the axis's ranks
+    is the global mean; the plain mean otherwise."""
+    if not isinstance(sharded, Padded) or not sharded.p:
+        return torch.mean(t)
+    n, total = t.shape[-2], sharded.h + 2 * sharded.p
+    return torch.mean(t) * (axis().size * n / total)
 
 
 def local_h(h: int) -> int:

@@ -174,16 +174,13 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
-def unported(args, ndim: int = 2, baselines: bool = False) -> list:
+def unported(args, ndim: int = 2) -> list:
     """(flag, ROADMAP.md queue 1 item) of every flag set to a value this
-    port does not run: the REFUSED generators, and the baselines' spatial
-    mesh."""
+    port does not run: the REFUSED generators."""
     checks = [
         ("--generator " + args.generator,
          (args.generator, ndim) in models.REFUSED,
          models.REFUSED.get((args.generator, ndim))),
-        ("--mesh-sp", baselines and args.mesh_sp > 1,
-         mesh.SPATIAL_BASELINES),
     ]
     return [(flag, item) for flag, is_set, item in checks if is_set]
 
@@ -209,7 +206,7 @@ def cfg_from_args(args: argparse.Namespace, ndim: int = 2,
         raise SystemExit("--netG and --intermediate go together: a resume "
                          "needs the checkpoint and its experiment's "
                          "intermediate.json")
-    bad = unported(args, ndim, baselines)
+    bad = unported(args, ndim)
     if bad:
         raise NotImplementedError("not ported yet: " + "; ".join(
             f"{flag} (ROADMAP.md queue 1: {item})" for flag, item in bad))

@@ -15,9 +15,11 @@ Z_init.npy, intermediate.json), which the eval_video CLI of either package
 evaluates. --netG / --intermediate / --ckpt-interval resume as in
 train_image; --compute-dtype bfloat16, --fused-dg, --flat-opt and
 --profile-dir work as there (--paired-g and --visualize change nothing, as
-in the JAX baselines trainer), and so do --dist-* and --mesh-data.
---mesh-sp > 1 raises NotImplementedError (ROADMAP.md queue 1: spatial mesh
-baselines).
+in the JAX baselines trainer), and so do --dist-*, --mesh-data and
+--mesh-sp: with --mesh-sp S each data rank is S ranks that split H
+wherever a scale's height divides by S (the padded stages' edge ranks
+hold their pad rows, models/networks_3d.py), and D x S ranks train what
+one process trains at --batch-size D.
 """
 
 from . import train_image, train_video

@@ -29,12 +29,17 @@ finalized port marker continues at k + 1 with netD_<k> copied; any other
 marker (the JAX package's) retrains scale k from its k + 1 stages with D
 warm from --netG's directory.
 
-Multi-process and data-parallel runs as in training/trainer.py: the
-warm start's `agree_minmax` (trainer.make_discriminator, JAX :124), a
-barrier after each scale's checkpoints (JAX :258), the primary-only resume
-netD copy (JAX :337-341), args.txt and Z_init.npy, and a barrier at the
-end (JAX :393). Not ported: the scan chunks and `run_scale_with_retry`,
-which exist for XLA.
+Multi-process, data-parallel and spatial-mesh runs (--mesh-data D x
+--mesh-sp S ranks, the JAX trainer's ('data', 'sp') mesh, JAX :288-293)
+as in training/trainer.py: the warm start's `agree_minmax`
+(trainer.make_discriminator, JAX :124), a barrier after each scale's
+checkpoints (JAX :258), the primary-only resume netD copy (JAX :337-341),
+args.txt and Z_init.npy, and a barrier at the end (JAX :393). Under the
+spatial axis H is split wherever a scale's unpadded height divides by S
+(the JAX package's rule, steps.py:52 there), the stages run in padded
+layouts (models/networks_3d.py), and every rank keeps the whole of the
+replicated state, Z_init too, so the checkpoints need no gather. Not
+ported: the scan chunks and `run_scale_with_retry`, which exist for XLA.
 """
 
 from __future__ import annotations
@@ -118,12 +123,8 @@ def run_training(cfg, saver: DataSaver, device="cuda",
     if cfg.generator not in models.BASELINES:
         raise ValueError(f"{cfg.generator} is not a baseline generator "
                          f"({', '.join(models.BASELINES)})")
-    if cfg.mesh_sp > 1:
-        raise NotImplementedError(
-            f"--mesh-sp {cfg.mesh_sp}: not ported yet for the baselines "
-            f"(ROADMAP.md queue 1: {mesh.SPATIAL_BASELINES})")
     device = resolve_device(device)
-    group = mesh.make_data_group(cfg.mesh_data)
+    group = mesh.make_data_group(cfg.mesh_data, cfg.mesh_sp)
     dataset = SingleVideoDataset(cfg, device)
     if multihost.is_primary():
         cfg.write_args_txt(os.path.join(saver.experiment_dir, "args.txt"))

@@ -45,13 +45,17 @@ ranks, each holding its rows of H of every activation whose height
 divides by S. The discriminator runs `sharded` by the scale's height
 (`_d_apply`), the losses are each rank's means (losses.py), and
 `_set_grads`, the metrics and the calibration's MSE average over all
-D x S ranks, in one collective over both axes.
+D x S ranks, in one collective over both axes. The baselines' critic
+scores in a padded layout whose edge ranks hold more rows: `_d_apply`
+hands the losses the mean that weighs each rank's share by its rows
+(spatial.mean), so that the average over the ranks is still the global
+mean.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Callable, Dict, List
+from typing import Callable, Dict, List, Tuple
 
 import torch
 
@@ -75,12 +79,18 @@ def _set_grads(params: List[torch.Tensor], loss: torch.Tensor) -> None:
         p.grad = g
 
 
-def _d_apply(cfg, D) -> Callable:
-    """D's forward at scale cfg.scale_idx: on the rank's rows of H where
-    the spatial axis splits the scale's height."""
-    if spatial.sharded(scale_height(cfg, cfg.scale_idx)):
-        return functools.partial(D, sharded=True)
-    return D
+def _d_apply(cfg, D) -> Tuple[Callable, Callable]:
+    """D's forward at scale cfg.scale_idx, and the mean the losses take of
+    its scores: on the rank's rows of H where the spatial axis splits the
+    scale's height, whose scores are the rank's rows of the layout (H,
+    D.score_pad) (0 but for the baselines' critic), weighted by
+    spatial.mean."""
+    h = scale_height(cfg, cfg.scale_idx)
+    if not spatial.sharded(h):
+        return D, torch.mean
+    layout = spatial.Padded(h, getattr(D, "score_pad", 0))
+    return (functools.partial(D, sharded=True),
+            lambda t: spatial.mean(t, layout))
 
 
 def _detached(loss: torch.Tensor, name: str, aux: Metrics) -> Metrics:
@@ -99,7 +109,7 @@ def d_step(cfg, st: ScaleTrainState, real, noise_init, amps,
     # one alpha per step; bug_compat freezes it (reference losses.py:26)
     alpha = 0.5 if cfg.bug_compat else st.noise.uniform()
     kept = []
-    d_apply = _d_apply(cfg, st.D)
+    d_apply, score_mean = _d_apply(cfg, st.D)
 
     def d_fn(x):
         y, sn_state = d_apply(x)
@@ -107,7 +117,7 @@ def d_step(cfg, st: ScaleTrainState, real, noise_init, amps,
             kept.append(sn_state)
         return y
 
-    loss, aux = d_loss_fn(cfg, d_fn, real, fake.detach(), alpha)
+    loss, aux = d_loss_fn(cfg, d_fn, real, fake.detach(), alpha, score_mean)
     _set_grads(list(st.D.parameters()), loss)
     st.opt_d.step()
     assign_sn_state(st.D, kept[0])
@@ -127,11 +137,11 @@ def g_step(cfg, st: ScaleTrainState, real, real_zero, noise_init, amps,
     has one."""
     pair = None if vae_phase or not cfg.paired_g \
         else getattr(st.G, "reconstruct_pair", None)
-    d_apply = _d_apply(cfg, st.D)
+    d_apply, score_mean = _d_apply(cfg, st.D)
     if pair is not None:
         gen, fake = pair(real_zero, noise_init, amps, st.noise)[:2]
         return _g_update(st, *g_gan_loss_fn(
-            cfg, lambda x: d_apply(x)[0], gen, real, fake))
+            cfg, lambda x: d_apply(x)[0], gen, real, fake, score_mean))
     gen, gen_vae, mu, logvar = st.G.reconstruct(real_zero, amps, st.noise)
     if vae_phase:
         loss, aux = g_vae_loss_fn(cfg, gen, gen_vae, real, real_zero, mu,
@@ -139,7 +149,7 @@ def g_step(cfg, st: ScaleTrainState, real, real_zero, noise_init, amps,
     else:
         fake = st.G(noise_init, amps, st.noise, bn="batch")[0]
         loss, aux = g_gan_loss_fn(cfg, lambda x: d_apply(x)[0], gen, real,
-                                  fake)
+                                  fake, score_mean)
     return _g_update(st, loss, aux)
 
 
@@ -155,9 +165,9 @@ def fused_dg_iteration(cfg, st: ScaleTrainState, real, real_zero,
     metrics = d_step(cfg, st, real, noise_init, amps, fake=fake)
     gen = st.G.reconstruct(real_zero, amps, st.noise)[0]
     folds.apply()
-    d_apply = _d_apply(cfg, st.D)
+    d_apply, score_mean = _d_apply(cfg, st.D)
     metrics.update(_g_update(st, *g_gan_loss_fn(
-        cfg, lambda x: d_apply(x)[0], gen, real, fake)))
+        cfg, lambda x: d_apply(x)[0], gen, real, fake, score_mean)))
     return metrics
 
 

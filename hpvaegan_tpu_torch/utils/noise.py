@@ -13,7 +13,7 @@ uninterrupted one would have. `KeyedNoise` draws from the JAX seed stream
 instead (utils/jax_prng.py), for the exported sampler. Under a data
 group of several ranks a NoiseSource draws the rank's rows of the global
 batch's draws, and under a spatial axis (`draw_rows`) the rank's rows of
-H of the draw at the global height.
+H of the draw at the global height (of a padded layout's, too).
 """
 
 from __future__ import annotations
@@ -106,21 +106,23 @@ class NoiseSource:
         return self._sharded(
             lambda s: generate_noise(self.gen, s, "normal"), shape)
 
-    def draw_rows(self, h: int, kind: str, shape: Sequence[int], *args
-                  ) -> torch.Tensor:
+    def draw_rows(self, h: int, kind: str, shape: Sequence[int], *args,
+                  pad: int = 0) -> torch.Tensor:
         """self.<kind>(shape, *args) of a tensor whose axis -2 has global
-        height h, `shape` this rank's: where the spatial axis splits h
-        (parallel/spatial.py), the draw at height h, cut to the rank's
-        rows, so that S ranks draw what one process draws; else the draw
-        itself."""
+        height h + 2 pad, in the layout (h, pad), `shape` this rank's:
+        where the spatial axis splits h (parallel/spatial.py), the draw at
+        height h + 2 pad, cut to the rank's rows of the layout, so that S
+        ranks draw what one process draws; else the draw itself."""
         draw = getattr(self, kind)
         if not spatial.sharded(h):
             return draw(shape, *args)
         shape = tuple(int(s) for s in shape)
-        start, n = spatial.rows(h)
+        start, n = spatial.rows(h, pad)
         if shape[-2] != n:
-            raise ValueError(f"a draw of {shape} for {n} rows of height {h}")
-        return draw(shape[:-2] + (h, shape[-1]), *args).narrow(-2, start, n)
+            raise ValueError(f"a draw of {shape} for {n} rows of height {h} "
+                             f"padded by {pad}")
+        return draw(shape[:-2] + (h + 2 * pad, shape[-1]), *args).narrow(
+            -2, start, n)
 
     def grouped_normal(self, shape: Sequence[int], groups: int
                        ) -> torch.Tensor:

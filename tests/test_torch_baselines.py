@@ -458,13 +458,10 @@ def _setup(name, scale_idx, seed=0):
     return cj, ct, plan, g_apply, (jst, opt_g, opt_d), tst, batch
 
 
-@pytest.fixture
-def float64_bn_statistics(monkeypatch):
-    """The JAX package's train-mode BatchNorm with its batch statistics
-    reduced in float64 (its formula otherwise, ops/norm.py:62-75 there),
-    returning float32."""
-    orig = jblocks.batchnorm_apply
-
+def float64_batchnorm(orig):
+    """The JAX package's train-mode BatchNorm `orig` with its batch
+    statistics reduced in float64 (its formula otherwise, ops/norm.py:62-75
+    there), returning float32."""
     def bn(params, state, x, train, momentum=0.9, eps=1e-5, groups=1):
         if not train or groups != 1:
             return orig(params, state, x, train, momentum, eps, groups)
@@ -478,7 +475,14 @@ def float64_bn_statistics(monkeypatch):
             y = ((xf - mean) * inv + params["beta"]).astype(x.dtype)
         return y, new_state
 
-    monkeypatch.setattr(jblocks, "batchnorm_apply", bn)
+    return bn
+
+
+@pytest.fixture
+def float64_bn_statistics(monkeypatch):
+    """float64_batchnorm in place of the JAX package's BatchNorm."""
+    monkeypatch.setattr(jblocks, "batchnorm_apply",
+                        float64_batchnorm(jblocks.batchnorm_apply))
 
 
 def _metrics_match(got, want):

@@ -19,8 +19,9 @@ gloo ranks on the CPU, held against one process at the same global batch.
       from its inflight checkpoint ends bit for bit as the uninterrupted
       run over the same ranks: the state is replicated, so the checkpoint
       needs no gather.
-  (e) train_video_baselines refuses --mesh-sp 2 ("spatial mesh
-      baselines").
+
+The baselines CLI's cases (`baselines`, `baselines-sg`, and the resume's
+`kind`) run from tests/test_torch_spatial_baselines_cli.py.
 
 Ranks run this file as a script (test_torch_multihost.py::run_ranks).
 """
@@ -40,7 +41,8 @@ if __name__ == "__main__":
 
 from hpvaegan_tpu_torch import train_image, train_video  # noqa: E402
 from hpvaegan_tpu_torch import train_video_baselines  # noqa: E402
-from hpvaegan_tpu_torch.training import trainer  # noqa: E402
+from hpvaegan_tpu_torch.training import (baselines_trainer,  # noqa: E402
+                                         trainer)
 
 from test_torch_data_parallel import (MULTI_SCALE_TOL,  # noqa: E402
                                       _bias_fed_batchnorm, _samples)
@@ -59,6 +61,13 @@ VIDEO = ["--video-path", os.path.join(DATA, "vids", "synthetic.avi"),
          "--latent-dim", "8", "--num-layer", "1", "--enc-blocks", "1",
          "--niter", "2", "--img-size", "32", "--min-size", "16",
          "--max-size", "32", "--vae-levels", "2"]
+# the baselines on the video's pyramid: heights 12 15 17 20 24, of which
+# 12, 20 and 24 split at S = 4 and at S = 2; num_layer 1: CSG's stages
+# pad by 2, SG's by 3, the critic by 3
+BASELINES = ["--video-path", os.path.join(DATA, "vids", "synthetic.avi"),
+             "--sampling-rates", "2", "1", "--max-frames", "5", "--nfc", "8",
+             "--num-layer", "1", "--niter", "2", "--img-size", "32",
+             "--min-size", "16", "--max-size", "32"]
 CLI_ARGS = {
     "image": IMAGE,
     "image-paired-flat": IMAGE + ["--paired-g", "--flat-opt"],
@@ -67,15 +76,24 @@ CLI_ARGS = {
                             "2"],
     "image-vae-nb": IMAGE + ["--generator", "GeneratorVAE_nb"],
     "video": VIDEO,
+    "baselines": BASELINES,
+    "baselines-sg": BASELINES + ["--generator", "GeneratorSG"],
 }
 COMMON = ["--checkname", "sp", "--print-interval", "1", "--manualSeed", "1",
           "--device", "cpu", "--batch-size", "2"]
 
 
+def _cli(kind):
+    """The `kind` CLI and the trainer module it runs."""
+    if kind.startswith("baselines"):
+        return train_video_baselines, baselines_trainer
+    return (train_video if kind == "video" else train_image), trainer
+
+
 def _train(kind, run_dir, extra=(), step_callback=None):
     """The `kind` CLI in this process; the trained G's state_dict, its
     amps, the saver's type and experiment dir."""
-    cli = train_video if kind == "video" else train_image
+    cli, trainer = _cli(kind)
     seen = {}
     run = trainer.run_training
 
@@ -98,13 +116,20 @@ def _train(kind, run_dir, extra=(), step_callback=None):
     return seen
 
 
+def _batch(kind, data_ranks):
+    """The baselines run at --batch-size D; the others at COMMON's 2."""
+    return ["--batch-size", str(data_ranks)] if kind.startswith(
+        "baselines") else []
+
+
 def _case_cli(rank, world, out_dir, kind, data_ranks):
     """One rank of the `kind` CLI on the mesh (it joins the ranks itself,
     from its --dist-* flags)."""
     return _train(kind, os.path.join(out_dir, "sp"), [
         "--mesh-data", data_ranks, "--mesh-sp", str(world // int(data_ranks)),
         "--dist-coordinator", f"127.0.0.1:{_case_cli.port}",
-        "--dist-nprocs", str(world), "--dist-procid", str(rank)])
+        "--dist-nprocs", str(world), "--dist-procid", str(rank)]
+        + _batch(kind, data_ranks))
 
 
 _case_cli.joins_itself = True
@@ -158,25 +183,27 @@ class Killed(Exception):
     """What the resume test's step_callback raises to stop a run."""
 
 
-def _case_resume(rank, world, out_dir):
-    """On S = 2 ranks (joined by the worker): the uninterrupted run, the
-    run killed after iteration 2 of 4 at the last scale (every rank stops
-    at the same point), and its resume from inflight_4.ckpt."""
-    extra = ["--mesh-sp", str(world), "--niter", "4", "--ckpt-interval", "2"]
-    whole = _train("image", os.path.join(out_dir, "a"), extra)
+def _case_resume(rank, world, out_dir, kind="image"):
+    """On S = world ranks (joined by the worker): the uninterrupted run of
+    the `kind` CLI, the run killed after iteration 2 of 4 at the last
+    scale (every rank stops at the same point), and its resume from
+    inflight_4.ckpt."""
+    extra = ["--mesh-sp", str(world), "--niter", "4", "--ckpt-interval",
+             "2"] + _batch(kind, 1)
+    whole = _train(kind, os.path.join(out_dir, "a"), extra)
 
     def kill(done, st, metrics):
-        if len(st.G.body) == 4 and done == 2:
+        if len(st.G.body) == 4 + st.G.body_offset and done == 2:
             raise Killed
 
     made = []
     try:
-        _train("image", os.path.join(out_dir, "b"), extra, kill)
+        _train(kind, os.path.join(out_dir, "b"), extra, kill)
     except Killed:
         made = glob.glob(os.path.join(out_dir, "b", "**", "experiment_*"),
                          recursive=True)
     assert len(made) == 1, made
-    resumed = _train("image", os.path.join(out_dir, "c"), extra + [
+    resumed = _train(kind, os.path.join(out_dir, "c"), extra + [
         "--netG", os.path.join(made[0], "inflight_4.ckpt"),
         "--intermediate", os.path.join(made[0], "intermediate.json")])
     return dict(whole=whole, resumed=resumed)
@@ -192,21 +219,6 @@ def test_spatial_inflight_resume_is_exact(tmp_path, restore_logging):
         for k, v in out["whole"]["sd"].items():
             assert torch.equal(out["resumed"]["sd"][k], v), k
             assert torch.equal(outs[0]["whole"]["sd"][k], v), k
-
-
-def test_baselines_refuse_the_spatial_mesh(tmp_path, restore_logging):
-    """The CSG/SG baselines wait for their own slice: --mesh-sp 2 is
-    refused before anything is written, as is a direct run_training."""
-    from hpvaegan_tpu_torch.config import Config
-    from hpvaegan_tpu_torch.training import baselines_trainer
-
-    with pytest.raises(NotImplementedError, match="spatial mesh baselines"):
-        train_video_baselines.main(VIDEO + COMMON + [
-            "--run-dir", str(tmp_path), "--mesh-sp", "2"])
-    assert not os.listdir(tmp_path)
-    with pytest.raises(NotImplementedError, match="spatial mesh baselines"):
-        baselines_trainer.run_training(
-            Config(generator="GeneratorCSG", mesh_sp=2), None, device="cpu")
 
 
 CASES = {"cli": _case_cli, "resume": _case_resume}
