@@ -217,6 +217,17 @@ Phases, each of which exits non-zero on a failed check:
              middle ranks'), K1 launches 0; and the first CSG iteration
              with BatchNorm of a padded layout counted as equal shards,
              which DP_TRAIN_REL must catch
+ 21. VAE_nb 3D  the 3D GeneratorVAE_nb at full width: (a) one tiny
+             VAE-scale G step and one GAN-scale iteration (phase 10's
+             config) card vs CPU, TF32 off (atol 1e-4); (b)
+             generate_samples(ndim=3) of 64 clips at phase 8's full-width
+             video config from a numpy-seed JAX-format netG_9 (the gate at
+             the eval time depth 13): shape, range, sub-batches, videos/s
+             beside phase 8's GeneratorHPVAEGAN rate, peak GB, K1 launches
+             0; (c) train_video --generator GeneratorVAE_nb at full width,
+             10 scales x 2 iterations, TF32 off and deterministic cuDNN
+             (phase 11's checks, seconds per scale), then eval_video
+             (finite SVFID)
 Then it prints the kernels' JSON line, the card's name and power limit as
 nvidia-smi gives them, and last {"ok": true, "device": {...}}.
 
@@ -1136,10 +1147,10 @@ def timed_scales(trainer, main, args):
         trainer.train_scale = train_scale
 
 
-def phase_video_train_cli(torch, k1, run):
+def phase_video_train_cli(torch, k1, run, *extra):
     """The video training CLI at full width (TF32 off, deterministic cuDNN:
-    phase 13 resumes against it), then eval_video on its output. The
-    experiment stays in `run`."""
+    phase 13 resumes against it), with `extra` flags, then eval_video on
+    its output. The experiment stays in `run`."""
     import numpy as np
 
     from hpvaegan_tpu_torch import eval_video, train_video
@@ -1148,7 +1159,7 @@ def phase_video_train_cli(torch, k1, run):
     k1.fused_upscale_noise_2d.launches = 0
     with exact_math(torch):
         exp, train_s, scale_s = timed_scales(trainer, train_video.main,
-                                             video_train_args(run))
+                                             video_train_args(run, *extra))
     check(len(scale_s) == 10, f"{len(scale_s)} scales timed")
     launches = k1.fused_upscale_noise_2d.launches
     check(launches == 0, f"video training launched K1 {launches} times")
@@ -1185,7 +1196,8 @@ def phase_video_train_cli(torch, k1, run):
     samples = np.load(os.path.join(exp, "eval", "random_samples.npy"))
     check(samples.shape == (10, 3, 13, 192, 257), f"npy {samples.shape}")
     check(bool(np.isfinite(samples).all()), "non-finite samples")
-    print(f"  trained 10 scales x 2 iterations in {train_s:.1f} s (TF32 off, "
+    print(f"  {' '.join(('train_video',) + extra) + ': ' if extra else ''}"
+          f"trained 10 scales x 2 iterations in {train_s:.1f} s (TF32 off, "
           f"deterministic cuDNN; seconds per scale {scale_s}), amps "
           f"{[round(a, 5) for a in amps]}, last losses {logged[-1]}; K1 "
           f"launches {launches}; eval_video CLI SVFID: {svfid} "
@@ -3529,6 +3541,80 @@ def phase_spatial(torch, k1):
     return out
 
 
+def phase_vae_nb_3d(torch, k1, hpvaegan_videos_per_s):
+    """GeneratorVAE_nb 3D at full width (module doc, phase 21): (a) card vs
+    CPU, (b) the 64-clip sampler, (c) train_video then eval_video. K1's
+    count is set to 0 before (b) and (c) and read after each."""
+    import numpy as np
+
+    from hpvaegan_tpu_torch.data.video import SingleVideoDataset
+    from hpvaegan_tpu_torch.evaluation import eval_z_tail, generate_samples
+    from hpvaegan_tpu_torch.parallel import sampling
+
+    out = {}
+    tiny = tiny_config(video_path=os.path.join(HERE, "data", "vids",
+                                               "synthetic.avi"),
+                       max_frames=5, sampling_rates=[2, 1], hflip=True,
+                       batch_size=2, generator="GeneratorVAE_nb")
+    SingleVideoDataset(tiny, "cpu")  # sets org_fps, ar, fps_lcm
+    print("  (a) one tiny 3D GeneratorVAE_nb iteration", flush=True)
+    out["steps"] = phase_step_parity(torch, tiny, ndim=3,
+                                     generator="GeneratorVAE_nb")
+
+    cfg, _ = video_config(generator="GeneratorVAE_nb")
+    gen = load_port_generator(cfg, random_jax_checkpoint(cfg, SEED + 5,
+                                                         ndim=3),
+                              "cuda", ndim=3)
+    check(type(gen).__module__.endswith("networks_3d")
+          and type(gen).__name__ == "GeneratorVAE_nb", f"built {type(gen)}")
+    shape = (BATCH,) + tuple(video_sizes(cfg)[-1]) + (3,)
+    z_tail = eval_z_tail(cfg, 3)
+    parts = sampling.sub_batches(BATCH, sampling.generator_elements(
+        cfg, gen, 3, z_tail))
+    generate_samples(cfg, gen, ndim=3, seed=SEED)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    k1.fused_upscale_noise_2d.launches = 0
+    secs = []
+    for r in range(2):
+        t0 = time.perf_counter()
+        samples = generate_samples(cfg, gen, ndim=3, seed=SEED + 1 + r)
+        secs.append(time.perf_counter() - t0)
+    launches = k1.fused_upscale_noise_2d.launches
+    check(launches == 0, f"the 3D VAE_nb sampler launched K1 {launches} "
+          "times")
+    check(samples.shape == shape, f"samples {samples.shape}, want {shape}")
+    check(bool(np.isfinite(samples).all())
+          and float(np.abs(samples).max()) <= 1.0,
+          f"samples in [{samples.min()}, {samples.max()}]")
+    sec = sum(secs) / len(secs)
+    out["sampler"] = {
+        "z": [BATCH] + list(z_tail), "samples": list(shape),
+        "sub_batches": [b - a for a, b in parts],
+        "s": [round(t, 4) for t in secs],
+        "videos_per_s": round(BATCH / sec, 3),
+        "GeneratorHPVAEGAN_videos_per_s_phase8": hpvaegan_videos_per_s,
+        "peak_gb": round(torch.cuda.max_memory_allocated() / 1e9, 3),
+        "std": round(float(samples.std()), 4), "k1_launches": launches}
+    print("  (b) 64-clip per-sample-BN sampler, main path: "
+          + json.dumps(out["sampler"]), flush=True)
+    del gen, samples
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory(prefix="hpv_nb3d_") as run:
+        k1.fused_upscale_noise_2d.launches = 0
+        out["train"] = phase_video_train_cli(torch, k1, run, "--generator",
+                                             "GeneratorVAE_nb")
+        with open(os.path.join(out["train"]["exp"], "args.txt")) as f:
+            check("generator: GeneratorVAE_nb" in f.read().splitlines(),
+                  "args.txt does not name GeneratorVAE_nb")
+        out["train"]["k1_launches"] = k1.fused_upscale_noise_2d.launches
+    check(out["train"]["k1_launches"] == 0, "VAE_nb 3D training or eval "
+          f"launched K1 {out['train']['k1_launches']} times")
+    out["k1_launches"] = launches + out["train"]["k1_launches"]
+    return out
+
+
 def main():
     if len(sys.argv) > 1 and sys.argv[1] == "--dp-worker":
         dp_worker(int(sys.argv[2]), sys.argv[3], sys.argv[4],
@@ -3611,7 +3697,7 @@ def main():
     print(f"phase 8: video sampler, {BATCH} samples at full width, scales "
           f"(T, H, W) {vsizes}, z td {vcfg.td}", flush=True)
     vckpt = random_jax_checkpoint(vcfg, SEED, ndim=3)
-    phase_video_sampler(torch, k1, vcfg, vckpt)
+    video = phase_video_sampler(torch, k1, vcfg, vckpt)
 
     print("phase 9: eval_video CLI on a JAX-format experiment dir",
           flush=True)
@@ -3680,6 +3766,12 @@ def main():
     phase_spatial(torch, k1)
     print(f"  phase 20 took {time.perf_counter() - t0:.1f} s", flush=True)
 
+    print("phase 21: GeneratorVAE_nb (3D) at full width", flush=True)
+    t0 = time.perf_counter()
+    nb3 = phase_vae_nb_3d(torch, k1,
+                          video["per_sample_bn"]["videos_per_s"])
+    print(f"  phase 21 took {time.perf_counter() - t0:.1f} s", flush=True)
+
     kernels = [{
         "name": "fused_upscale_noise_2d",
         "route": "cuda",
@@ -3695,6 +3787,7 @@ def main():
                      else "operations"),
         "library_ms": sum(r["library_ms"] for r in rows),
         "launches_per_rank_sharded": dp["sampler"]["k1_launches_per_rank"],
+        "launches_vae_nb_3d": nb3["k1_launches"],
     }]
     print("  times are sums over the 9 stage shapes of one 64-sample forward;"
           f" launches: phase 3's GeneratorHPVAEGAN forward ({launches}), "
@@ -3704,7 +3797,7 @@ def main():
           "serving (0), phase 19's training (0) and sharded sampler "
           f"({dp['sampler']['k1_launches_per_rank']} per rank), phase 20's "
           "spatial-mesh training (0) and (d)'s baselines on 4 ranks (0 in "
-          "each)",
+          f"each), phase 21's 3D GeneratorVAE_nb ({nb3['k1_launches']})",
           flush=True)
     print(f"  total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

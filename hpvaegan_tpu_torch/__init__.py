@@ -16,7 +16,7 @@ serving, and multi-process and data-parallel runs of all five CLIs.
   ops/            resize, conv, batchnorm, spectral norm, the fused
                   upscale+noise kernel
   csrc/           hand-written CUDA kernels (built by ops/cuda_build.py)
-  models/         GeneratorHPVAEGAN (2D and 3D), GeneratorVAE_nb (2D),
+  models/         GeneratorHPVAEGAN and GeneratorVAE_nb (2D and 3D),
                   GeneratorCSG, GeneratorSG, their critics
   data/           single-image and single-video data
   parallel/       batched sampling; multi-process helpers (multihost.py)

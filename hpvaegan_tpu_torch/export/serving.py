@@ -68,8 +68,9 @@ class ServingModule(nn.Module):
         if generator.cfg.generator in models.BASELINES:
             raise ValueError(BASELINE_REFUSAL)
         self.generator = generator
-        # GeneratorVAE_nb splits its key in three (networks_2d.py:195
-        # there), GeneratorHPVAEGAN in two
+        # GeneratorVAE_nb (2D, and 3D, which subclasses it) splits its key
+        # in three (networks_2d.py:344, networks_3d.py:300 there),
+        # GeneratorHPVAEGAN in two
         self.gated = isinstance(generator, GeneratorVAE_nb)
         # the normal draws' shapes of a forward at each batch size, from the
         # first one: later forwards draw them all up front, through one

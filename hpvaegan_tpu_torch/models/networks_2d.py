@@ -97,7 +97,8 @@ class Encode2DVAE(nn.Module):
 class Encode2DVAE_nb(Encode2DVAE):
     """Encode2DVAE_nb (JAX networks_2d.py:55-86): the encoder with a third
     head, a Bernoulli gate bern = sigmoid(conv(feats)) that scales the
-    features, and mu and logvar averaged over space."""
+    features, and mu and logvar averaged over space. models/networks_3d.py
+    subclasses it for video (`ndim`; the mean is then over (T, H, W))."""
 
     def __init__(self, cfg, out_dim: int, num_blocks: int):
         super().__init__(cfg, out_dim, num_blocks)
@@ -105,23 +106,25 @@ class Encode2DVAE_nb(Encode2DVAE):
 
     def forward(self, x: torch.Tensor, sharded: bool = False):
         """Returns ((mu, logvar, bern), the SN blocks' new (u, v)): mu and
-        logvar (B, out_dim, 1, 1), bern (B, 1, H', W')."""
+        logvar (B, out_dim, 1, 1), bern (B, 1, H', W'); in 3D (B, out_dim,
+        1, 1, 1) and (B, 1, T', H', W')."""
         feats, state = self.features_apply(x, sharded)
         bern = torch.sigmoid(self.bern.conv(feats, sharded))
         feats = bern * feats
-        mu = _mean_hw(self.mu.conv(feats, sharded), sharded)
-        logvar = _mean_hw(self.logvar.conv(feats, sharded), sharded)
+        mu = _spatial_mean(self.mu.conv(feats, sharded), sharded)
+        logvar = _spatial_mean(self.logvar.conv(feats, sharded), sharded)
         return (mu.float(), logvar.float(), bern.float()), state
 
 
-def _mean_hw(t: torch.Tensor, sharded: bool) -> torch.Tensor:
-    """The mean over (H, W), keeping them as size 1; of all of H where t
-    holds the rank's rows of it (in float32, then t's dtype)."""
+def _spatial_mean(t: torch.Tensor, sharded: bool) -> torch.Tensor:
+    """The mean over every axis after the channels, (H, W) or (T, H, W),
+    keeping them as size 1; of all of H (axis -2) where t holds the rank's
+    rows of it (in float32, then t's dtype)."""
+    dims = tuple(range(2, t.ndim))
     if not sharded:
-        return t.mean(dim=(2, 3), keepdim=True)
-    total = spatial.sum_sp(t.float().sum(dim=(2, 3), keepdim=True))
-    return (total / (t.shape[2] * spatial.axis().size * t.shape[3])).to(
-        t.dtype)
+        return t.mean(dim=dims, keepdim=True)
+    total = spatial.sum_sp(t.float().sum(dim=dims, keepdim=True))
+    return (total / (t[0, 0].numel() * spatial.axis().size)).to(t.dtype)
 
 
 class WDiscriminator2D(nn.Module):
@@ -338,7 +341,8 @@ class GeneratorVAE_nb(GeneratorHPVAEGAN):
         z_bern = log(bern + 1e-20) - log(-log(u + 1e-20) + 1e-20).
     Growth deep-copies the last stage, as GeneratorHPVAEGAN's does (the
     reference shares one stage object between scales; the JAX package
-    copies)."""
+    copies). models/networks_3d.py subclasses it for video (the gate is
+    then (B, 1, td, h0, w0))."""
 
     encoder_cls = Encode2DVAE_nb
     reconstruct_pair = None  # the JAX package pairs GeneratorHPVAEGAN only

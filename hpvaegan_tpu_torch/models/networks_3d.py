@@ -1,18 +1,21 @@
-"""3D networks as `nn.Module`s: the video VAE encoder, the WGAN critics
-WDiscriminator3D and WDiscriminatorBaselines, the hierarchical generator
-GeneratorHPVAEGAN and the SinGAN-style baselines GeneratorCSG and
-GeneratorSG.
+"""3D networks as `nn.Module`s: the video VAE encoders, the WGAN critics
+WDiscriminator3D and WDiscriminatorBaselines, the hierarchical generators
+GeneratorHPVAEGAN and GeneratorVAE_nb, and the SinGAN-style baselines
+GeneratorCSG and GeneratorSG.
 
-The port of the JAX package's `models/networks_3d.py:44-66, 126-282,
-345-480` (reference src/modules/networks_3d.py:89-112, 170-351, 354-451).
-All are the 2D classes of networks_2d.py with 3D convolutions (OIDHW
-weights, NCDHW tensors), and the generator has one difference in the
-refinement chain: noise is added only at
-stages with vae_levels <= idx + 1 (networks_3d.py:227-228 there, reference
-networks_3d.py:443), so the VAE stages below vae_levels refine without it.
-Each upscale grows the time depth with the pyramid (trilinear,
-align_corners=True, ops/resize.py::upscale_3d). There is no fused kernel on
-this path: `cfg.pallas_fused_sampling` is ignored, as in the JAX package.
+The port of the JAX package's `models/networks_3d.py` (reference
+src/modules/networks_3d.py:89-144, 170-551). The HP-VAE-GAN classes are
+the 2D classes of networks_2d.py with 3D convolutions (OIDHW weights,
+NCDHW tensors), and GeneratorHPVAEGAN has one difference in the
+refinement chain: noise is added only at stages with vae_levels <= idx +
+1 (networks_3d.py:227-228 there, reference networks_3d.py:443), so the
+VAE stages below vae_levels refine without it. GeneratorVAE_nb adds it at
+every stage and, as in 2D, stops the gradient at the VAE boundary
+whatever cfg.train_all says (`refinement_layers_3d`'s two flags). Each
+upscale grows the time depth with the pyramid (trilinear,
+align_corners=True, ops/resize.py::upscale_3d). There is no fused kernel
+on this path: `cfg.pallas_fused_sampling` is ignored, as in the JAX
+package.
 
 The baselines (see `_Baseline`) are a GAN at every scale: no encoder, a
 growing body of padding-0 stages fed through explicit zero pads, and a
@@ -61,22 +64,37 @@ class Encode3DVAE(networks_2d.Encode2DVAE):
     ndim = 3
 
 
+class Encode3DVAE_nb(networks_2d.Encode2DVAE_nb):
+    """Encode3DVAE_nb (networks_3d.py:69-100): Encode3DVAE with the
+    Bernoulli gate's head, mu and logvar averaged over (T, H, W)."""
+
+    ndim = 3
+
+
 def refinement_layers_3d(cfg, body: Sequence[nn.Module], x: torch.Tensor,
                          amps, noise: NoiseSource, *, is_random: bool,
-                         bn: str, commit: Commit = True) -> torch.Tensor:
+                         bn: str, commit: Commit = True,
+                         gate_noise_on_vae_levels: bool = True,
+                         train_all_escape: bool = True) -> torch.Tensor:
     """Residual refinement chain (networks_3d.py:214-240 of the JAX
-    package). amps: (stop_scale + 2,) per-scale noise amplitudes. Under a
-    spatial axis, each activation as in networks_2d.refinement_layers."""
+    package). amps: (stop_scale + 2,) per-scale noise amplitudes.
+    gate_noise_on_vae_levels: random mode adds noise only from stage
+    vae_levels - 1 on (GeneratorHPVAEGAN); GeneratorVAE_nb passes False and
+    adds it at every stage (:217, :227-228). train_all_escape: as
+    networks_2d.refinement_layers'. Under a spatial axis, each activation
+    as in networks_2d.refinement_layers."""
     h_in = scale_height(cfg, 0)
     for idx in range(len(body)):
-        if cfg.vae_levels == idx + 1 and not cfg.train_all:
+        if cfg.vae_levels == idx + 1 \
+                and not (cfg.train_all and train_all_escape):
             x = x.detach()  # the VAE boundary (networks_3d.py:224-225)
         h = scale_height(cfg, idx + 1)
         x_up = upscale_3d(x, idx + 1, cfg.scale_factor, cfg.stop_scale,
                           cfg.img_size, cfg.stop_scale_time,
                           cfg.sampling_rates, cfg.org_fps, cfg.fps_lcm, cfg.ar,
                           h_in=h_in)
-        if is_random and cfg.vae_levels <= idx + 1:
+        if is_random and (not gate_noise_on_vae_levels
+                          or cfg.vae_levels <= idx + 1):
             z = noise.draw_rows(h, "normal", x_up.shape) \
                 * networks_2d.stage_amp(amps, idx + 1)
             x_in = x_up + z.to(x_up.dtype)  # float32 noise, cast (JAX :232)
@@ -107,6 +125,24 @@ class GeneratorHPVAEGAN(networks_2d.GeneratorHPVAEGAN):
                 is_random: bool, bn: str, commit: Commit) -> torch.Tensor:
         return refinement_layers_3d(self.cfg, self.body, x, amps, noise,
                                     is_random=is_random, bn=bn, commit=commit)
+
+
+class GeneratorVAE_nb(networks_2d.GeneratorVAE_nb):
+    """GeneratorVAE_nb 3D (networks_3d.py:285-342): the 2D class's gate and
+    Gumbel latent (`_random_z`, `_latent`: the gate (B, 1, td, h0, w0),
+    drawn before the refinement noise; eps, then u) on the 3D encoder,
+    decoder and refinement chain, with noise at every stage and the
+    VAE-boundary detach whatever cfg.train_all says. No paired forward."""
+
+    ndim = 3
+    encoder_cls = Encode3DVAE_nb
+
+    def _refine(self, x: torch.Tensor, amps, noise: NoiseSource, *,
+                is_random: bool, bn: str, commit: Commit) -> torch.Tensor:
+        return refinement_layers_3d(self.cfg, self.body, x, amps, noise,
+                                    is_random=is_random, bn=bn, commit=commit,
+                                    gate_noise_on_vae_levels=False,
+                                    train_all_escape=False)
 
 
 class WDiscriminatorBaselines(nn.Module):

@@ -174,22 +174,9 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
-def unported(args, ndim: int = 2) -> list:
-    """(flag, ROADMAP.md queue 1 item) of every flag set to a value this
-    port does not run: the REFUSED generators."""
-    checks = [
-        ("--generator " + args.generator,
-         (args.generator, ndim) in models.REFUSED,
-         models.REFUSED.get((args.generator, ndim))),
-    ]
-    return [(flag, item) for flag, is_set, item in checks if is_set]
-
-
 def check_generator(name: str, ndim: int, baselines: bool) -> None:
     """The HP-VAE-GAN CLIs train the registry's other generators, the
-    baselines CLI its BASELINES (unported names are unported()'s)."""
-    if (name, ndim) in models.REFUSED:
-        return
+    baselines CLI its BASELINES."""
     if name in models.BASELINES and not baselines:
         raise ValueError(f"--generator {name}: a video baseline; python -m "
                          "hpvaegan_tpu_torch.train_video_baselines trains it")
@@ -206,10 +193,6 @@ def cfg_from_args(args: argparse.Namespace, ndim: int = 2,
         raise SystemExit("--netG and --intermediate go together: a resume "
                          "needs the checkpoint and its experiment's "
                          "intermediate.json")
-    bad = unported(args, ndim)
-    if bad:
-        raise NotImplementedError("not ported yet: " + "; ".join(
-            f"{flag} (ROADMAP.md queue 1: {item})" for flag, item in bad))
     check_generator(args.generator, ndim, baselines)
     cfg = Config()
     for k, v in vars(args).items():

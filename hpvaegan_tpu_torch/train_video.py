@@ -15,11 +15,10 @@ and the JAX CLI's video defaults (WDiscriminator3D, 50000 iterations,
 checkname DEBUG). Resume and the training flags work as in train_image;
 `--visualize` is accepted and writes nothing, and `--paired-g` changes
 nothing (the JAX package pairs only the 2D generator), as in the JAX
-package. GeneratorVAE_nb (the JAX package's 3D one cannot run, so there is
-nothing to port it from) raises NotImplementedError; multi-process,
-data-parallel and spatial-mesh training (--dist-*, --mesh-data, --mesh-sp,
-which splits H, never T) run as in train_image. The CSG/SG baselines train with
-train_video_baselines.
+package. --generator GeneratorVAE_nb trains the 3D GeneratorVAE_nb;
+multi-process, data-parallel and spatial-mesh training (--dist-*,
+--mesh-data, --mesh-sp, which splits H, never T) run as in train_image.
+The CSG/SG baselines train with train_video_baselines.
 """
 
 import argparse

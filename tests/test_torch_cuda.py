@@ -155,6 +155,25 @@ def test_vae_nb_iteration_matches_cpu(cuda, scale_idx):
     assert errs["grads_abs"] <= 1e-4 and errs["state_abs"] <= 1e-4, errs
 
 
+@pytest.mark.parametrize("scale_idx", [1, 3])
+def test_video_vae_nb_iteration_matches_cpu(cuda, scale_idx):
+    """test_video_training_iteration_matches_cpu for the 3D GeneratorVAE_nb
+    (its gate at every fake, eps and the Gumbel u come from the same
+    recorded draws; noise at every refinement stage)."""
+    cfg = Config(nfc=8, latent_dim=8, num_layer=2, enc_blocks=1, img_size=32,
+                 min_size=16, max_size=32, vae_levels=2, max_frames=5,
+                 sampling_rates=[2, 1], hflip=True, batch_size=2,
+                 generator="GeneratorVAE_nb").finalize()
+    cfg.org_fps, cfg.ar, cfg.fps_lcm = 24.0, 0.75, 2  # synthetic.avi's
+    k1.fused_upscale_noise_2d.launches = 0
+    errs = compare_devices(cfg, scale_idx, seed=0, device=cuda, ndim=3,
+                           generator="GeneratorVAE_nb")
+    assert errs["finite"], errs
+    assert errs["metrics_rel"] <= 1e-4, errs
+    assert errs["grads_abs"] <= 1e-4 and errs["state_abs"] <= 1e-4, errs
+    assert k1.fused_upscale_noise_2d.launches == 0
+
+
 @pytest.mark.parametrize("name", ["GeneratorCSG", "GeneratorSG"])
 def test_baseline_iteration_matches_cpu(cuda, name):
     """One iteration of a CSG/SG baseline against WDiscriminatorBaselines

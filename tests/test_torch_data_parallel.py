@@ -79,6 +79,9 @@ COMMON = ["--checkname", "dp", "--print-interval", "1", "--manualSeed", "1",
 CLI_ARGS["image-paired-flat"] = CLI_ARGS["image"] + ["--paired-g",
                                                      "--flat-opt"]
 CLI_ARGS["image-fused"] = CLI_ARGS["image"] + ["--fused-dg"]
+# the 3D GeneratorVAE_nb: each rank draws its rows of the global gate
+CLI_ARGS["video-vae-nb"] = CLI_ARGS["video"] + ["--generator",
+                                                "GeneratorVAE_nb"]
 
 
 # ------------------------------------------------------ one D + G step ---
@@ -271,7 +274,7 @@ def _cli(kind):
 
     if kind.startswith("image"):
         return train_image, trainer
-    if kind == "video":
+    if kind.startswith("video"):
         return train_video, trainer
     return train_video_baselines, baselines_trainer
 
@@ -368,7 +371,8 @@ _case_cli.joins_itself = True
 
 
 @pytest.mark.parametrize("kind", ["image", "video", "baselines",
-                                  "image-paired-flat", "image-fused"])
+                                  "image-paired-flat", "image-fused",
+                                  "video-vae-nb"])
 def test_data_parallel_cli_equals_one_process(tmp_path, kind,
                                               restore_logging):
     """Two ranks of the `kind` CLI with --mesh-data 2 --batch-size 2 against

@@ -6,7 +6,9 @@ gloo ranks on the CPU, held against one process at the same global batch.
       replicated stages), also with --paired-g --flat-opt, with --fused-dg
       --visualize (the same images as one process's) and with --generator
       GeneratorVAE_nb; train_video on heights 12, 15,
-      17, 20, 24 (every transition between the layouts); all with
+      17, 20, 24 (every transition between the layouts), also with
+      --generator GeneratorVAE_nb (its encoder's mean over (T, H, W) and
+      its gate over the spatial ranks); all with
       --mesh-sp 2 on 2 ranks, and train_image with --mesh-data 2
       --mesh-sp 2 on 4 ranks, each at --batch-size 2. Every rank ends with
       bit-equal parameters, rank 0 owns the one experiment dir and the
@@ -76,6 +78,7 @@ CLI_ARGS = {
                             "2"],
     "image-vae-nb": IMAGE + ["--generator", "GeneratorVAE_nb"],
     "video": VIDEO,
+    "video-vae-nb": VIDEO + ["--generator", "GeneratorVAE_nb"],
     "baselines": BASELINES,
     "baselines-sg": BASELINES + ["--generator", "GeneratorSG"],
 }
@@ -87,7 +90,8 @@ def _cli(kind):
     """The `kind` CLI and the trainer module it runs."""
     if kind.startswith("baselines"):
         return train_video_baselines, baselines_trainer
-    return (train_video if kind == "video" else train_image), trainer
+    return (train_video if kind.startswith("video") else train_image), \
+        trainer
 
 
 def _train(kind, run_dir, extra=(), step_callback=None):
@@ -137,7 +141,7 @@ _case_cli.joins_itself = True
 
 @pytest.mark.parametrize("kind,data_ranks", [
     ("image", 1), ("image-paired-flat", 1), ("image-fused", 1),
-    ("image-vae-nb", 1), ("video", 1), ("image", 2)])
+    ("image-vae-nb", 1), ("video", 1), ("video-vae-nb", 1), ("image", 2)])
 def test_spatial_cli_equals_one_process(tmp_path, kind, data_ranks,
                                         restore_logging):
     """--mesh-data D --mesh-sp 2 over D x 2 ranks against one process at
@@ -173,7 +177,7 @@ def test_spatial_cli_equals_one_process(tmp_path, kind, data_ranks,
                          "generated_3.jpg", "generated_vae_3.jpg",
                          "real_3.jpg"]
         assert names == sorted(os.listdir(os.path.join(one["exp"], "img")))
-    sample_kind = "video" if kind == "video" else "image"
+    sample_kind = "video" if kind.startswith("video") else "image"
     np.testing.assert_allclose(_samples(sample_kind, r0["exp"]),
                                _samples(sample_kind, one["exp"]),
                                **MULTI_SCALE_TOL)

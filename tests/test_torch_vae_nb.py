@@ -271,15 +271,24 @@ def test_vae_boundary_detach_ignores_train_all(train_all):
     assert (decoder_grad(GeneratorHPVAEGAN) > 0.0) == train_all
 
 
-def test_registry_and_video_cli_refuse_the_3d_generator(tmp_path):
+def test_registry_and_video_cli_refuse_the_3d_generator(tmp_path,
+                                                        restore_logging):
+    """The registry returns the 2D class and the 3D one (a subclass: the
+    gate and the Gumbel latent are the 2D class's), and the video CLI
+    trains the 3D one (tests/test_torch_vae_nb_3d*.py hold it against the
+    JAX package)."""
+    from hpvaegan_tpu_torch.models import networks_3d
+
     assert tmodels.get_generator("GeneratorVAE_nb") is GeneratorVAE_nb
-    with pytest.raises(NotImplementedError, match="refinement_layers_3d"):
-        tmodels.get_generator("GeneratorVAE_nb", 3)
+    cls = tmodels.get_generator("GeneratorVAE_nb", 3)
+    assert cls is networks_3d.GeneratorVAE_nb and cls.ndim == 3
+    assert issubclass(cls, GeneratorVAE_nb) and cls.reconstruct_pair is None
     from test_torch_video_training import TINY as VTINY
-    with pytest.raises(NotImplementedError, match="refinement_layers_3d"):
-        tvideo_cli.main(VTINY + ["--run-dir", str(tmp_path), "--generator",
-                                 "GeneratorVAE_nb"])
-    assert not os.listdir(tmp_path)
+    exp = tvideo_cli.main(VTINY + ["--run-dir", str(tmp_path), "--generator",
+                                   "GeneratorVAE_nb", "--niter", "1"])
+    assert {f"netG_{k}.ckpt" for k in range(5)} <= set(os.listdir(exp))
+    with open(os.path.join(exp, "args.txt")) as f:
+        assert "generator: GeneratorVAE_nb" in f.read().splitlines()
 
 
 def test_train_cli_writes_an_experiment_both_packages_read(

@@ -325,11 +325,12 @@ def test_converter_refuses_a_checkpoint_of_the_other_rank():
 # ------------------------------------------------------------- models ---
 
 def test_registry_has_the_3d_generator():
+    from hpvaegan_tpu_torch.models.networks_3d import GeneratorVAE_nb
+
     assert tmodels.get_generator("GeneratorHPVAEGAN", 3) is GeneratorHPVAEGAN
+    assert tmodels.get_generator("GeneratorVAE_nb", 3) is GeneratorVAE_nb
     assert tmodels.get_discriminator("WDiscriminator3D", 3) is \
         WDiscriminator3D
-    with pytest.raises(NotImplementedError):
-        tmodels.get_generator("GeneratorVAE_nb", 3)
 
 
 def test_encoder_3d_matches_jax():

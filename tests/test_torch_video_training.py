@@ -578,13 +578,13 @@ def test_train_video_cli_on_cpu_writes_a_jax_experiment(tmp_path, capsys,
 
 
 @pytest.mark.parametrize("flag", [
-    ["--generator", "GeneratorVAE_nb"], ["--mesh-data", "2"],
+    ["--generator", "GeneratorCSG"], ["--mesh-data", "2"],
     ["--dist-nprocs", "2"]])
 def test_unported_video_flags_raise(flag, tmp_path):
-    """GeneratorVAE_nb is not ported in 3D; a data axis or a process count
-    that one process cannot run is refused with a message naming it."""
-    error = NotImplementedError if flag[0] == "--generator" else ValueError
-    with pytest.raises(error, match=flag[0]):
+    """A generator that train_video does not train (a baseline, which
+    train_video_baselines trains), or a data axis or a process count that
+    one process cannot run, is refused with a ValueError naming it."""
+    with pytest.raises(ValueError, match=flag[0]):
         tvideo_cli.main(TINY + ["--run-dir", str(tmp_path)] + flag)
     assert not os.listdir(tmp_path)  # nothing written
 
