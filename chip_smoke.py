@@ -31,7 +31,7 @@ Phases, each of which exits non-zero on a failed check:
              the eval CLI scores the experiment (finite SIFID). Training
              runs no kernel: K1's count stays 0 over the run
   7. timing  train iterations at scale 9 (GAN, 192x257) and scale 2 (VAE)
-             at full width, batch 1: steps/s over 20 iterations after 3
+             at full width, batch 1: steps/s over 10 iterations after 3
              warm-up ones, D-step and G-step ms (synchronised), and one
              profiled iteration (device busy ms, idle share, ms by group,
              top 8 kernels, top 8 operators with their input shapes); then
@@ -64,7 +64,7 @@ Phases, each of which exits non-zero on a failed check:
              scale 9 (GAN, 13x192x257) and scale 2 (VAE, 4x38x51), batch
              1, with the device time of the GP double backward's
              convolutions by shape; iteration counts cut where one
-             iteration takes over 2 s; then scale 9 with TF32 off and
+             iteration takes over 1 s; then scale 9 with TF32 off and
              deterministic cuDNN
  13. resume  phase 6's and phase 11's runs (which run with TF32 off and
              deterministic cuDNN) are the uninterrupted ones: the same CLI
@@ -103,7 +103,7 @@ Phases, each of which exits non-zero on a failed check:
              at atol 1e-4, bf16 in 2D and 3D within BF16_CARD_TOL; (b) scale
              9 at full width, batch 1, 2D and 3D, with PyTorch's defaults:
              f32, bf16, fused-dg, bf16+fused-dg (2D also paired-g,
-             flat-opt; 2D twice, in order and reversed, being host-bound):
+             flat-opt):
              steps/s, D and G (or fused-iteration) ms, peak GB,
              and for bf16 one profiled iteration's GP image-sized
              convolutions with their kernels and TFLOP/s; (c) the main path
@@ -154,7 +154,9 @@ Phases, each of which exits non-zero on a failed check:
              its draws at three seeds to utils/jax_prng.py's numpy path
              (XLA:CPU's arithmetic) bit for bit (that process starts
              with the export CLIs and is joined before anything is
-             timed after them; no phase before 18 runs beside it)
+             timed after them; no phase before 18 runs beside it, and
+             phase 22 (a)'s two device-bound scale-9 cases run in this
+             process while the CLIs compile)
  19. data parallel  (a) the multi-process helpers and the data group's
              collectives under NCCL as one rank on the card: agree_*,
              broadcast_str (raising for a long string), to_host, sync,
@@ -228,6 +230,33 @@ Phases, each of which exits non-zero on a failed check:
              10 scales x 2 iterations, TF32 off and deterministic cuDNN
              (phase 11's checks, seconds per scale), then eval_video
              (finite SVFID)
+ 22. chunk  the training chunk (training/chunk.py, --steps-per-call):
+             (a) graph against eager at full width, batch 1, TF32 off and
+             deterministic cuDNN, from the same weights and seed: 2D and
+             3D GeneratorHPVAEGAN at scales 2 (VAE) and 9 (GAN),
+             GeneratorCSG at scale 9 and 2D bf16 + --fused-dg + --flat-opt
+             at scale 9, each 16 iterations as --steps-per-call 8 (the
+             first chunk eager on the capture stream, then 8 replays of
+             the captured iteration) and as --split-step eager iterations
+             (the first 8 run once, the eager run continues from a copy
+             of their end): G's and D's parameters and buffers, both
+             optimizers' states and the NoiseSource's state (atol 1e-4;
+             equal bit for bit expected), steps/s and the idle share of
+             each mode, capture seconds, the graph pool's GB, peak GB
+             (the 3D and CSG scale-9 cases, device-bound, run beside
+             phase 18's export CLIs, when this process would only wait);
+             (b) the main path, train_image at full width, 10 scales x 16
+             iterations, --steps-per-call 8 --ckpt-interval 8
+             --print-interval 4, TF32 off and deterministic cuDNN: 10
+             captures and 80 replays, the logbook at the JAX trainer's
+             iterations (8 and 16 of every scale); a second run resumed
+             from the first one's finalized scale-8 marker, killed after
+             the first chunk of scale 9 and resumed from inflight_9.ckpt
+             (netG_9 against the uninterrupted run's, atol 1e-4; 0
+             expected), and a resume at --steps-per-call 3 refused; K1
+             launches 0
+The train CLIs of phases 6-21 run with --split-step: one eager iteration a
+chunk, the per-iteration loop that those phases measured and hold.
 Then it prints the kernels' JSON line, the card's name and power limit as
 nvidia-smi gives them, and last {"ok": true, "device": {...}}.
 
@@ -626,22 +655,26 @@ def phase_step_parity(torch, cfg, ndim=2, generator="GeneratorHPVAEGAN",
     return out
 
 
-def image_train_args(run, *extra):
-    """Phase 6's train_image flags (full width, 10 scales x 4 iterations)."""
+def image_train_args(run, *extra, graph=False):
+    """Phase 6's train_image flags (full width, 10 scales x 4 iterations),
+    one eager iteration a chunk (--split-step, the per-iteration loop that
+    phases 6-21 hold) unless `graph`."""
     return ["--image-path", os.path.join(HERE, "data", "imgs",
                                          "air_balloons.jpg"),
             "--niter", "4", "--print-interval", "2", "--run-dir", run,
-            "--checkname", "smoke", "--manualSeed", "1", *extra]
+            "--checkname", "smoke", "--manualSeed", "1",
+            *(() if graph else ("--split-step",)), *extra]
 
 
 def video_train_args(run, *extra):
     """Phase 11's train_video flags (full width, 10 scales x 2
-    iterations)."""
+    iterations), one eager iteration a chunk (--split-step)."""
     return ["--video-path", os.path.join(HERE, "data", "vids",
                                          "balloons_pan.avi"),
             "--max-frames", "13", "--sampling-rates", "4", "3", "2", "1",
             "--niter", "2", "--print-interval", "1", "--run-dir", run,
-            "--checkname", "smoke", "--manualSeed", "1", *extra]
+            "--checkname", "smoke", "--manualSeed", "1", "--split-step",
+            *extra]
 
 
 @contextlib.contextmanager
@@ -749,8 +782,10 @@ def device_summary(prof, wall_ms, what):
 
 def time_scale(torch, cfg, dataset, scale_idx, amps, ndim=2):
     """Steps/s, D and G ms and one profiled iteration at one scale of a 2D
-    or 3D run: 3 warm-up and 20 timed iterations, cut to 2 and 3 when the
-    second warm-up takes over 2 s."""
+    or 3D run: 3 warm-up and 10 timed iterations, cut to 2 and 3 when the
+    second warm-up takes over 1 s (the 3D scale-9 runs). Until phase 22
+    came, which measures the TF32-off scale-2 and scale-9 iterations
+    again, these were 20 timed iterations and the cut came at 2 s."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -777,8 +812,8 @@ def time_scale(torch, cfg, dataset, scale_idx, amps, ndim=2):
     iteration()
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
-    cut = warm_s > 2.0
-    reps = 3 if cut else 20
+    cut = warm_s > 1.0
+    reps = 3 if cut else 10
     if not cut:
         iteration()
     torch.cuda.synchronize()
@@ -831,7 +866,7 @@ def time_scale(torch, cfg, dataset, scale_idx, amps, ndim=2):
     return {
         "phase": "vae" if vae else "gan", "size": size,
         "timed_iterations": reps,
-        "cut": f"second warm-up took {warm_s:.2f} s > 2 s: 2 warm-up, "
+        "cut": f"second warm-up took {warm_s:.2f} s > 1 s: 2 warm-up, "
                f"{reps} timed iterations" if cut else None,
         "steps_per_s": round(1.0 / step_s, 3),
         "d_step_ms": round(d_ms, 3) if not vae else None,
@@ -1854,9 +1889,13 @@ def time_flag_variant(torch, cfg, dataset, ndim, warm, reps, split_reps,
 def flags_timing(torch):
     """Phase 16 (b): scale 9 at full width, batch 1, 2D (192x257) and 3D
     (13x192x257), each FLAG_VARIANTS entry in one call (3D: the first four,
-    iteration counts cut as phase 12 cuts them); the bf16 variant
-    profiled. 2D is host-bound, so its variants run twice, in order and
-    then in reverse, and both rates are kept."""
+    iteration counts cut as phase 12 cuts them; 2D 5 timed iterations
+    after 3 warm-up ones, 3D 1 after 1, cut from 10 and 2 to keep the
+    script in its time limit with phase 22); the bf16 variant
+    profiled. 2D is host-bound here, and its rates move between calls;
+    phase 22 measures the host-bound 2D iteration as CUDA-graph replays
+    (until then each 2D variant also ran a second time, in reverse
+    order)."""
     from hpvaegan_tpu_torch.data.image import SingleImageDataset
 
     out = {}
@@ -1865,23 +1904,16 @@ def flags_timing(torch):
         if ndim == 2:
             base = full_width_config(image_path=image, batch_size=1)
             dataset = SingleImageDataset(base, "cuda")
-            variants, counts = FLAG_VARIANTS, (3, 10, 3)
+            variants, counts = FLAG_VARIANTS, (3, 5, 3)
         else:
             base, dataset = video_config(batch_size=1)
-            variants, counts = FLAG_VARIANTS[:4], (1, 2, 1)
-        order = list(variants)
-        if ndim == 2:
-            order += order[::-1]
-        for name, flags in order:
+            variants, counts = FLAG_VARIANTS[:4], (1, 1, 1)
+        for name, flags in variants:
             cfg = dataclasses.replace(base, **flags)
             key = f"{ndim}D {name}"
-            res = time_flag_variant(torch, cfg, dataset, ndim, *counts,
-                                    profiled=name == "bf16" and key not in out)
-            if key in out:
-                out[key]["steps_per_s_again"] = res["steps_per_s"]
-                key += " again"
-            else:
-                out[key] = res
+            res = out[key] = time_flag_variant(torch, cfg, dataset, ndim,
+                                               *counts,
+                                               profiled=name == "bf16")
             print(f"  (b) scale 9 {key} (PyTorch's defaults): "
                   + json.dumps(res), flush=True)
         del dataset
@@ -2334,12 +2366,13 @@ def runner_latency(stdout):
     return float(words[5]), int(words[-1])
 
 
-def export_experiments(exps):
+def export_experiments(exps, meanwhile=None):
     """Phase 18 (b): `python -m hpvaegan_tpu_torch.export` on each
     experiment, 8 noise bins each, the processes side by side (their
-    AOTInductor compiles are builds, run together as the kernels' are).
-    Returns each one's {export_s, aoti_compile_s, export_peak_gb} as the
-    CLI prints them."""
+    AOTInductor compiles are builds, run together as the kernels' are);
+    `meanwhile()` runs in this process while they work. Returns each
+    one's {export_s, aoti_compile_s, export_peak_gb} as the CLI prints
+    them."""
     import re
 
     procs = [subprocess.Popen(
@@ -2349,6 +2382,8 @@ def export_experiments(exps):
         for exp in exps]
     out = []
     try:
+        if meanwhile is not None:
+            meanwhile()
         for proc in procs:
             stdout, stderr = proc.communicate(timeout=1000)
             check(proc.returncode == 0, f"export CLI exit {proc.returncode}:"
@@ -2665,8 +2700,8 @@ def serving_draws_worker(out_dir):
         json.dump(out, f)
 
 
-def phase_serving(torch, k1, ckpt, runner_build):
-    """Phase 18 (module doc)."""
+def phase_serving(torch, k1, ckpt, runner_build, meanwhile=None):
+    """Phase 18 (module doc); `meanwhile()` runs beside the export CLIs."""
     from PIL import Image
 
     out = {"card_vs_cpu": serving_card_vs_cpu(torch)}
@@ -2687,10 +2722,11 @@ def phase_serving(torch, k1, ckpt, runner_build):
                              random_jax_checkpoint(c, SEED, ndim=ndim))
         t0 = time.perf_counter()
         draws_check = DrawsCheck()
-        info = export_experiments(exps)
+        info = export_experiments(exps, meanwhile)
         print(f"  (b) export CLI on the three experiments side by side "
-              f"(beside (c)'s compile): {time.perf_counter() - t0:.1f} s",
-              flush=True)
+              f"(beside (c)'s compile"
+              f"{' and phase 22 (a) at scale 9' if meanwhile else ''}): "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
         out["draws"] = draws_check.result()
         print("  (c) the AOTInductor package's normals against the numpy "
               "path (compiled beside the export CLIs; joined "
@@ -3615,6 +3651,328 @@ def phase_vae_nb_3d(torch, k1, hpvaegan_videos_per_s):
     return out
 
 
+def module_state(torch, st):
+    """Every tensor of a training state by name: G's and D's parameters and
+    buffers, both optimizers' states and the NoiseSource's generators."""
+    out = {}
+    for part in ("G", "D"):
+        for k, v in getattr(st, part).state_dict().items():
+            out[f"{part}.{k}"] = v
+    for part in ("opt_g", "opt_d"):
+        for i, s in getattr(st, part).state_dict()["state"].items():
+            for k, v in s.items():
+                out[f"{part}.{i}.{k}"] = v
+    for k, v in st.noise.get_state().items():
+        out[f"noise.{k}"] = v
+    return out
+
+
+def state_diff(torch, a, b):
+    """(max |a - b| over every tensor of two module_state dicts, whether
+    all are equal bit for bit, the first name that differs)."""
+    check(sorted(a) == sorted(b), f"state keys {sorted(a)} vs {sorted(b)}")
+    worst, first = 0.0, None
+    for k in sorted(a):
+        x, y = a[k], b[k]
+        if torch.equal(x.cpu(), y.cpu()):
+            continue
+        first = first or k
+        if x.is_floating_point():
+            worst = max(worst, float((x.double() - y.double()).abs().max()))
+        else:
+            worst = float("inf")
+    return worst, first is None, first
+
+
+@contextlib.contextmanager
+def profiled(torch):
+    """A profiler window of the card's activity alone over the body: the
+    idle share needs the kernels' spans, and without the host's operators
+    a window of thousands of kernels is read in a fraction of the time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        yield prof
+
+
+def idle_share(torch, prof, wall_s):
+    """(device busy ms, idle share) of a profiled window of `wall_s` host
+    seconds; (None, None) where the profiler saw no device time (which a
+    CUDA graph's kernels may not show)."""
+    from torch.autograd import DeviceType
+
+    busy = sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == DeviceType.CUDA) / 1e3
+    if busy <= 0:
+        return None, None
+    return round(busy, 3), round(1 - busy / (wall_s * 1e3), 4)
+
+
+def graph_vs_eager(torch, name, cfg, data, scale_idx, ndim,
+                   generator="GeneratorHPVAEGAN", discriminator=""):
+    """Phase 22 (a), one case: 16 iterations as --steps-per-call 8 (the
+    first chunk eager on the capture stream, then 8 replays of the
+    captured iteration) against 16 --split-step eager iterations, from the
+    same weights and seed, TF32 off and deterministic cuDNN. The first 8
+    iterations are the same eager code in both runs: they run once, and
+    the eager run starts from a copy of their end state. Steps/s over the
+    last 7 iterations of each mode (after the capture and one replay, and
+    one eager iteration), the idle share of each mode over 4 more
+    profiled iterations (1 where an iteration takes over half a second),
+    capture seconds, the graph pool's GB and the peak GB."""
+    import copy
+
+    from hpvaegan_tpu_torch import models
+    from hpvaegan_tpu_torch.tools.step_parity import build_state
+    from hpvaegan_tpu_torch.training import chunk as tchunk
+    from hpvaegan_tpu_torch.training.steps import batch_former
+    from hpvaegan_tpu_torch.utils.noise import NoiseSource
+
+    vae = cfg.vae_levels >= scale_idx + 1
+    amps = [1.0] + [0.05] * (cfg.stop_scale + 1)
+    former = batch_former(ndim, scale_idx,
+                          baseline=generator in models.BASELINES)
+
+    def make(split):
+        c = dataclasses.replace(cfg, niter=16, steps_per_call=8,
+                                split_step=split, scale_idx=scale_idx)
+        st = build_state(c, scale_idx, SEED, "cuda", ndim, generator,
+                         discriminator)
+        st.noise = NoiseSource(SEED, "cuda")
+        return st, tchunk.TrainChunk(c, st, data, amps, vae, former)
+
+    out = {"scale": scale_idx, "phase": "vae" if vae else "gan"}
+    t_case = time.perf_counter()
+    with exact_math(torch):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        graph_st, graph = make(False)
+        check(graph.mode == "graph", f"{name}: chunk mode {graph.mode}")
+        t0 = time.perf_counter()
+        graph.run(8)  # the first chunk: eager, on the capture stream
+        torch.cuda.synchronize()
+        slow = (time.perf_counter() - t0) / 8 > 0.5
+        eager_st, eager = make(True)
+        check(eager.mode == "eager (split-step)", f"{name}: {eager.mode}")
+        eager_st.G.load_state_dict(graph_st.G.state_dict())
+        eager_st.D.load_state_dict(graph_st.D.state_dict())
+        for part in ("opt_g", "opt_d"):
+            getattr(eager_st, part).load_state_dict(
+                copy.deepcopy(getattr(graph_st, part).state_dict()))
+        eager_st.noise.set_state(graph_st.noise.get_state())
+
+        eager.run(1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(7):
+            metrics_e = eager.run(1)
+        torch.cuda.synchronize()
+        eager_s = time.perf_counter() - t0
+        replays = tchunk.replays
+        graph.run(1)  # the capture, then one replay
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics_g = graph.run(7)
+        torch.cuda.synchronize()
+        graph_s = time.perf_counter() - t0
+        check(tchunk.replays - replays == 8, f"{name}: replays")
+        diff, equal, first = state_diff(torch, module_state(torch, graph_st),
+                                        module_state(torch, eager_st))
+        mdiff = max(abs(float(metrics_g[k]) - float(metrics_e[k]))
+                    for k in metrics_e)
+        check(diff <= 1e-4 and mdiff <= 1e-4, f"{name}: graph vs eager "
+              f"state {diff} (first {first}), metrics {mdiff}")
+        check(all(math.isfinite(float(v)) for v in metrics_g.values()),
+              f"{name}: metrics {metrics_g}")
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        idle, reps = {}, 1 if slow else 4
+        for mode, chunk in (("eager", eager), ("graph", graph)):
+            with profiled(torch) as prof:
+                t0 = time.perf_counter()
+                if mode == "graph":
+                    chunk.run(reps)
+                else:
+                    for _ in range(reps):
+                        chunk.run(1)
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t0
+            idle[mode] = idle_share(torch, prof, secs)
+        graph.close()
+    out.update({
+        "bit_equal": equal, "max_abs_diff": diff, "metrics_max_abs_diff":
+        mdiff, "first_differing": first,
+        "eager_steps_per_s": round(7 / eager_s, 3),
+        "graph_steps_per_s": round(7 / graph_s, 3),
+        "eager_idle_share": idle["eager"][1],
+        "graph_idle_share": idle["graph"][1],
+        "eager_busy_ms": idle["eager"][0], "graph_busy_ms": idle["graph"][0],
+        "idle_window_iterations": reps,
+        "capture_s": round(graph.capture_s, 3),
+        "graph_pool_gb": round(graph.pool_bytes / 1e9, 3),
+        "peak_gb": round(peak_gb, 3),
+        "case_s": round(time.perf_counter() - t_case, 1)})
+    print(f"  (a) {name}, scale {scale_idx}: " + json.dumps(out), flush=True)
+    return out
+
+
+def chunked_main_path(torch, k1, run):
+    """Phase 22 (b): train_image at full width, 10 scales x 16 iterations,
+    --steps-per-call 8 --ckpt-interval 8 --print-interval 4, TF32 off and
+    deterministic cuDNN: one capture a scale, the JAX trainer's logbook
+    iterations. A second run, resumed from the first run's finalized
+    marker of scale 8 (netG_8, netD_8, torch_rng_8.pt and
+    intermediate.json as they stood when scale 8 ended: exact, phase 13),
+    is killed after the first chunk of scale 9 and resumed from its
+    inflight_9.ckpt (netG_9 against the uninterrupted run's); a resume
+    with a --steps-per-call that does not divide the inflight iteration is
+    refused."""
+    from hpvaegan_tpu_torch import train_image
+    from hpvaegan_tpu_torch.training import chunk as tchunk
+    from hpvaegan_tpu_torch.training import trainer
+    from hpvaegan_tpu_torch.utils.saver import DataSaver
+
+    flags = ("--niter", "16", "--steps-per-call", "8", "--ckpt-interval", "8",
+             "--print-interval", "4")
+    scale8 = os.path.join(run, "scale8")
+    finalize = DataSaver.finalize_scale
+
+    def keep_scale8(self, scale_idx, *a, **kw):
+        finalize(self, scale_idx, *a, **kw)
+        if scale_idx == 8:
+            os.makedirs(scale8)
+            for name in ("netG_8.ckpt", "netD_8.ckpt", "torch_rng_8.pt",
+                         "intermediate.json"):
+                shutil.copy(os.path.join(self.experiment_dir, name), scale8)
+
+    k1.fused_upscale_noise_2d.launches = 0
+    tchunk.captures = tchunk.replays = 0
+    DataSaver.finalize_scale = keep_scale8
+    try:
+        with exact_math(torch):
+            exp, train_s, scale_s = timed_scales(
+                trainer, train_image.main,
+                image_train_args(os.path.join(run, "ref"), *flags,
+                                 graph=True))
+    finally:
+        DataSaver.finalize_scale = finalize
+    captures, replays = tchunk.captures, tchunk.replays
+    check(captures == 10 and replays == 80,
+          f"captures {captures}, replays {replays}: want 10 and 80")
+    with open(os.path.join(exp, "logbook.txt")) as f:
+        logged = [ln.split("[Scale ", 1)[1].split("]", 1)[0]
+                  for ln in f.read().splitlines() if "[Scale " in ln]
+    # the JAX trainer logs where done % print_interval < steps_per_call:
+    # at done 8 and 16 of every scale
+    want = [f"{s}/Iter {i}" for s in range(1, 11) for i in (8, 16)]
+    check(logged == want, f"logbook iterations {logged}, want {want}")
+
+    t0 = time.perf_counter()
+    with exact_math(torch):
+        killed = killed_run(trainer, train_image.main, image_train_args(
+            os.path.join(run, "kill"), *flags, "--netG",
+            os.path.join(scale8, "netG_8.ckpt"), "--intermediate",
+            os.path.join(scale8, "intermediate.json"), graph=True), 9, 8)
+    kill_s = time.perf_counter() - t0
+    with open(os.path.join(killed, "intermediate.json")) as f:
+        inter = json.load(f)
+    check(inter.get("inflight") == "inflight_9.ckpt"
+          and inter["inflight_iter"] == 8, f"killed marker {inter}")
+    resume = ["--netG", os.path.join(killed, "inflight_9.ckpt"),
+              "--intermediate", os.path.join(killed, "intermediate.json")]
+    try:
+        train_image.main(image_train_args(
+            os.path.join(run, "misaligned"), *flags, "--steps-per-call", "3",
+            *resume, graph=True))
+        fail("a resume at --steps-per-call 3 from iteration 8 ran")
+    except ValueError as e:
+        refused = str(e)
+    check("inflight iteration 8 is not a multiple of steps_per_call=3"
+          in refused, f"misaligned resume: {refused}")
+    tchunk.captures = tchunk.replays = 0
+    diff, tail_s = resume_and_compare(
+        torch, train_image.main, exp,
+        image_train_args(os.path.join(run, "resumed"), *flags,
+                         "--manualSeed", "7", graph=True),
+        killed, "inflight_9.ckpt")
+    out = {"train_s": round(train_s, 2), "scale_s": scale_s,
+           "captures": captures, "replays": replays,
+           "logbook_iterations_per_scale": [8, 16],
+           "killed_run_s": round(kill_s, 2),
+           "resumed_netG_9_max_abs_diff": diff, "bit_equal": diff == 0,
+           "resumed_tail_s": round(tail_s, 2),
+           "resumed_captures": tchunk.captures,
+           "resumed_replays": tchunk.replays,
+           "misaligned_resume_refused": refused,
+           "k1_launches": k1.fused_upscale_noise_2d.launches}
+    print("  (b) train_image --niter 16 --steps-per-call 8 --ckpt-interval 8 "
+          "--print-interval 4; resumed from its scale-8 marker, killed "
+          "after the first chunk of scale 9 and resumed: " + json.dumps(out),
+          flush=True)
+    return out
+
+
+def chunk_scale9_video(torch):
+    """Phase 22 (a)'s device-bound cases: the 3D GeneratorHPVAEGAN and
+    GeneratorCSG at scale 9 (13x192x257). The full script runs them while
+    phase 18's export CLIs compile, when the main process would only wait:
+    the card is otherwise idle then, and these iterations keep it busy,
+    so the compiles' load on the host barely sets their rate (on an H100
+    the eager 3D iterations ran up to 7% slower beside them, the graph
+    replays not)."""
+    vcfg, vdata = video_config()
+    data = vdata.scale_frames(9), vdata.scale_frames(0)
+    out = {"3d_9": graph_vs_eager(torch, "3D GeneratorHPVAEGAN", vcfg, data,
+                                  9, 3)}
+    out["csg_9"] = graph_vs_eager(
+        torch, "GeneratorCSG", dataclasses.replace(
+            vcfg, generator="GeneratorCSG",
+            discriminator="WDiscriminatorBaselines"), data, 9, 3,
+        "GeneratorCSG", "WDiscriminatorBaselines")
+    return out
+
+
+def phase_chunk(torch, k1, scale9_video=None):
+    """Phase 22 (module doc); `scale9_video`: chunk_scale9_video's result
+    where it already ran (beside phase 18), else it runs here."""
+    from hpvaegan_tpu_torch.data.image import SingleImageDataset
+
+    out = {}
+    image = os.path.join(HERE, "data", "imgs", "air_balloons.jpg")
+    cfg = full_width_config(image_path=image, batch_size=1)
+    dataset = SingleImageDataset(cfg, "cuda")
+    for scale_idx in (2, 9):
+        out[f"2d_{scale_idx}"] = graph_vs_eager(
+            torch, "2D GeneratorHPVAEGAN", cfg,
+            (dataset.scale_image(scale_idx), dataset.scale_image(0)),
+            scale_idx, 2)
+    bf16 = dataclasses.replace(cfg, compute_dtype="bfloat16", fused_dg=True,
+                               flat_opt=True)
+    out["2d_bf16_fused_flat_9"] = graph_vs_eager(
+        torch, "2D bf16 --fused-dg --flat-opt", bf16,
+        (dataset.scale_image(9), dataset.scale_image(0)), 9, 2)
+    vcfg, vdata = video_config()
+    out["3d_2"] = graph_vs_eager(
+        torch, "3D GeneratorHPVAEGAN", video_at(vcfg, 2),
+        (vdata.scale_frames(2), vdata.scale_frames(0)), 2, 3)
+    del dataset, vdata
+    out.update(scale9_video or chunk_scale9_video(torch))
+    with tempfile.TemporaryDirectory(prefix="hpv_chunk_") as run:
+        out["main"] = chunked_main_path(torch, k1, run)
+    return out
+
+
+def video_at(cfg, scale_idx):
+    """A copy of the video config at `scale_idx`: its fps, time depth and
+    rate index."""
+    from hpvaegan_tpu_torch.utils import pyramid
+
+    fps, td, fps_index = pyramid.get_fps_td_by_index(
+        scale_idx, cfg.stop_scale_time, cfg.sampling_rates, cfg.org_fps,
+        cfg.fps_lcm)
+    return dataclasses.replace(cfg, scale_idx=scale_idx, fps=fps, td=td,
+                               fps_index=fps_index)
+
+
 def main():
     if len(sys.argv) > 1 and sys.argv[1] == "--dp-worker":
         dp_worker(int(sys.argv[2]), sys.argv[3], sys.argv[4],
@@ -3751,7 +4109,17 @@ def main():
 
     print("phase 18: export and native serving", flush=True)
     t0 = time.perf_counter()
-    phase_serving(torch, k1, ckpt, runner_build)
+    scale9_video = {}
+
+    def beside_export():
+        t1 = time.perf_counter()
+        print("  phase 22 (a) at scale 9, 3D and CSG (device-bound), while "
+              "the export CLIs compile", flush=True)
+        scale9_video.update(chunk_scale9_video(torch))
+        print(f"  phase 22 (a) at scale 9 took {time.perf_counter() - t1:.1f}"
+              " s", flush=True)
+
+    phase_serving(torch, k1, ckpt, runner_build, beside_export)
     print(f"  phase 18 took {time.perf_counter() - t0:.1f} s", flush=True)
 
     print("phase 19: multi-process and data-parallel training and eval",
@@ -3772,6 +4140,12 @@ def main():
                           video["per_sample_bn"]["videos_per_s"])
     print(f"  phase 21 took {time.perf_counter() - t0:.1f} s", flush=True)
 
+    print("phase 22: the training chunk (--steps-per-call: CUDA-graph "
+          "replays of the iteration) against --split-step", flush=True)
+    t0 = time.perf_counter()
+    chunked = phase_chunk(torch, k1, scale9_video)
+    print(f"  phase 22 took {time.perf_counter() - t0:.1f} s", flush=True)
+
     kernels = [{
         "name": "fused_upscale_noise_2d",
         "route": "cuda",
@@ -3788,6 +4162,7 @@ def main():
         "library_ms": sum(r["library_ms"] for r in rows),
         "launches_per_rank_sharded": dp["sampler"]["k1_launches_per_rank"],
         "launches_vae_nb_3d": nb3["k1_launches"],
+        "launches_chunked_training": chunked["main"]["k1_launches"],
     }]
     print("  times are sums over the 9 stage shapes of one 64-sample forward;"
           f" launches: phase 3's GeneratorHPVAEGAN forward ({launches}), "
@@ -3797,7 +4172,9 @@ def main():
           "serving (0), phase 19's training (0) and sharded sampler "
           f"({dp['sampler']['k1_launches_per_rank']} per rank), phase 20's "
           "spatial-mesh training (0) and (d)'s baselines on 4 ranks (0 in "
-          f"each), phase 21's 3D GeneratorVAE_nb ({nb3['k1_launches']})",
+          f"each), phase 21's 3D GeneratorVAE_nb ({nb3['k1_launches']}), "
+          "phase 22's graph-captured training "
+          f"({chunked['main']['k1_launches']})",
           flush=True)
     print(f"  total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

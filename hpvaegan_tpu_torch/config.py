@@ -4,8 +4,9 @@ The port's own copy of the JAX package's `config.py`: the same
 fields with the same defaults, the same derived pyramid state and the same
 args.txt round-trip, so an experiment written by either package re-hydrates
 field for field in the other. Fields that only the JAX package acts on
-(`steps_per_call`, `xla_options`, ...) are kept so that args.txt round-trips
-whole.
+(`scan_unroll`, `compile_ahead`, `xla_options`) are kept so that args.txt
+round-trips whole; `steps_per_call` and `split_step` set the port's
+training chunk too (training/chunk.py).
 """
 
 from __future__ import annotations
@@ -86,10 +87,12 @@ class Config:
 
     # --- Additions of the JAX package (no reference equivalent) ---
     compute_dtype: str = "float32"  # 'float32' | 'bfloat16' for conv compute
-    steps_per_call: int = 8  # JAX: training iterations fused per dispatch
+    steps_per_call: int = 8  # training iterations per chunk (JAX: per
+    #                          dispatch; here CUDA-graph replays)
     scan_unroll: int = 1  # JAX: unroll factor of the iteration scan
     paired_g: bool = False  # GAN-phase G step: recon+fake in one forward
-    split_step: bool = False  # JAX: compile D/G updates as separate programs
+    split_step: bool = False  # one iteration a chunk (JAX: D/G updates as
+    #                           separate programs; here an eager loop)
     compile_ahead: bool = True  # JAX: overlap training with the next compile
     pallas_fused_sampling: bool = False  # no-grad moving-stat random-mode
     #                          sampling runs upscale+noise as ONE kernel

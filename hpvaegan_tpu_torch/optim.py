@@ -14,6 +14,13 @@ the same clip and Adam on one flat float32 buffer: `FlatAdam` keeps m and v
 as one tensor each, takes every per-tensor clip norm in one call and
 updates them all at once. Its state_dict marks its param groups "flat", and
 `load_optimizer_state` refuses to load one layout into the other.
+
+Every optimizer here keeps its step count, and the bias corrections made
+from it, on the parameters' device when they live on a card (Adam's
+`capturable`), so that one captured step replays as the next step
+(training/chunk.py); the eager iterations of a run on the card take the
+same update, so a graph run and an eager one agree bit for bit. On the
+CPU the step count stays a host tensor, as `torch.optim.Adam` wants it.
 """
 
 from __future__ import annotations
@@ -33,6 +40,11 @@ def _clip_scales(grads: List[torch.Tensor], clip: float) -> torch.Tensor:
     return torch.clamp(clip / torch.clamp_min(norms, 1e-12), max=1.0)
 
 
+def _on_card(params: List[torch.Tensor]) -> bool:
+    """Whether Adam keeps its step on the parameters' device (capturable)."""
+    return params[0].device.type == "cuda"
+
+
 class ClippedAdam(torch.optim.Adam):
     """G optimizer: Adam after clipping each parameter's gradient to norm
     `grad_clip`, one param group per learning rate of the plan
@@ -41,7 +53,9 @@ class ClippedAdam(torch.optim.Adam):
 
     def __init__(self, param_groups: Iterable[Dict], beta1: float,
                  grad_clip: float = 5.0):
-        super().__init__(param_groups, betas=(beta1, BETA2), eps=EPS)
+        param_groups = list(param_groups)
+        super().__init__(param_groups, betas=(beta1, BETA2), eps=EPS,
+                         capturable=_on_card(param_groups[0]["params"]))
         self.grad_clip = float(grad_clip)
 
     @torch.no_grad()
@@ -62,7 +76,9 @@ class ClippedAdam(torch.optim.Adam):
 
 def adam(params, lr: float, beta1: float) -> torch.optim.Adam:
     """D optimizer (reference nn.Adam, train_image.py:42)."""
-    return torch.optim.Adam(params, lr=lr, betas=(beta1, BETA2), eps=EPS)
+    params = list(params)
+    return torch.optim.Adam(params, lr=lr, betas=(beta1, BETA2), eps=EPS,
+                            capturable=_on_card(params))
 
 
 class FlatAdam(torch.optim.Optimizer):
@@ -72,7 +88,9 @@ class FlatAdam(torch.optim.Optimizer):
     `torch.optim.Adam`'s operation order runs over the whole buffer with
     each element's group learning rate. m and v are the state of the first
     parameter ("m", "v", "step"), so that state_dict / load_state_dict
-    round-trip them. Every parameter must have a gradient at each step."""
+    round-trip them; the step count and the bias corrections are tensors on
+    the parameters' device, so that the step reads nothing from the host.
+    Every parameter must have a gradient at each step."""
 
     def __init__(self, param_groups, beta1: float, grad_clip: float = 5.0,
                  lr: float = 0.0):
@@ -112,17 +130,18 @@ class FlatAdam(torch.optim.Optimizer):
             flat.mul_(_clip_scales(grads, self.grad_clip)[self._tensor_index])
         state = self.state[params[0]]
         if not state:
-            state["step"] = torch.tensor(0.0)
+            state["step"] = torch.zeros((), device=flat.device)
             state["m"] = torch.zeros_like(flat)
             state["v"] = torch.zeros_like(flat)
         state["step"] += 1
-        step = float(state["step"])
+        # float64, as the host numbers they replace
+        step = state["step"].double()
         m, v = state["m"], state["v"]
         m.lerp_(flat, 1 - self.beta1)
         v.mul_(BETA2).addcmul_(flat, flat, value=1 - BETA2)
-        bias_correction1 = 1 - self.beta1 ** step
-        bias_correction2_sqrt = (1 - BETA2 ** step) ** 0.5
-        denom = (v.sqrt() / bias_correction2_sqrt).add_(EPS)
+        bias_correction1 = 1 - torch.pow(self.beta1, step)
+        bias_correction2_sqrt = torch.sqrt(1 - torch.pow(BETA2, step))
+        denom = (v.sqrt() / bias_correction2_sqrt.float()).add_(EPS)
         step_size = (self._neg_lr / bias_correction1).float()
         update = (m / denom).mul_(step_size[self._group_index])
         torch._foreach_add_(params, [u.view_as(p) for u, p in
@@ -137,7 +156,10 @@ def is_flat_state(state_dict: Dict) -> bool:
 def load_optimizer_state(opt: torch.optim.Optimizer, state_dict: Dict
                          ) -> None:
     """opt.load_state_dict, refusing a state of the other layout (per-tensor
-    Adam into FlatAdam, or the reverse)."""
+    Adam into FlatAdam, or the reverse). The step counts go where `opt`
+    keeps them (a state written on the CPU, or before they moved to the
+    card, keeps them on the host), and each Adam group keeps `opt`'s
+    `capturable`, which load_state_dict would take from the checkpoint."""
     flat = isinstance(opt, FlatAdam)
     if is_flat_state(state_dict) != flat:
         raise ValueError(
@@ -145,4 +167,13 @@ def load_optimizer_state(opt: torch.optim.Optimizer, state_dict: Dict
             f"{'without' if flat else 'with'} --flat-opt; resume "
             f"{'without' if flat else 'with'} --flat-opt, as the run was "
             "started")
+    capturable = [g.get("capturable", flat) for g in opt.param_groups]
     opt.load_state_dict(state_dict)
+    for group, on_device in zip(opt.param_groups, capturable):
+        if not flat:
+            group["capturable"] = on_device
+        for p in group["params"]:
+            state = opt.state.get(p, {})
+            if "step" in state:
+                state["step"] = state["step"].to(
+                    p.device if on_device else "cpu", torch.float32)

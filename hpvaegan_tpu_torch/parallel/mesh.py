@@ -139,6 +139,12 @@ def active() -> DataGroup:
     return _ACTIVE
 
 
+def everyone():
+    """(the process group of all D x S ranks in force, None without one;
+    their number)."""
+    return _everyone(_ACTIVE)
+
+
 def _everyone(group: DataGroup):
     """(the process group of all D x S ranks, their number)."""
     if group.sp.group is None:

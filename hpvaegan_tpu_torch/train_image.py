@@ -133,12 +133,17 @@ def build_parser() -> argparse.ArgumentParser:
                         help='dtype of the convolutions and activations; '
                              'statistics, latents, losses, parameters and '
                              'checkpoints stay float32')
-    parser.add_argument('--steps-per-call', type=int, default=8, help=_NO_EFFECT)
+    parser.add_argument('--steps-per-call', type=int, default=8,
+                        help='training iterations per chunk: the logbook, '
+                             '--visualize and --ckpt-interval act at chunk '
+                             'boundaries, as in the JAX trainer; on one card '
+                             'a chunk replays a CUDA graph of the iteration')
     parser.add_argument('--scan-unroll', type=int, default=1, help=_NO_EFFECT)
     parser.add_argument('--compile-ahead', action=argparse.BooleanOptionalAction,
                         default=True, help=_NO_EFFECT)
     parser.add_argument('--split-step', action='store_true', default=False,
-                        help=_NO_EFFECT)
+                        help='one iteration a chunk, run eagerly (no CUDA '
+                             'graph)')
     parser.add_argument('--xla-option', dest='xla_options', action='append',
                         default=None, metavar='KEY=VALUE', help=_NO_EFFECT)
     parser.add_argument('--profile-dir', type=str, default='',

@@ -38,8 +38,10 @@ args.txt and Z_init.npy, and a barrier at the end (JAX :393). Under the
 spatial axis H is split wherever a scale's unpadded height divides by S
 (the JAX package's rule, steps.py:52 there), the stages run in padded
 layouts (models/networks_3d.py), and every rank keeps the whole of the
-replicated state, Z_init too, so the checkpoints need no gather. Not
-ported: the scan chunks and `run_scale_with_retry`, which exist for XLA.
+replicated state, Z_init too, so the checkpoints need no gather. The JAX
+trainer's scan chunks are trainer.run_scale's (training/chunk.py), with
+its cadence (JAX :201-241); not ported: `run_scale_with_retry`, which
+exists for XLA.
 """
 
 from __future__ import annotations

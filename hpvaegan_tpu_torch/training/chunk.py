@@ -1,0 +1,168 @@
+"""The fused training chunk: k iterations of a scale with no host work
+between them.
+
+The port of the JAX package's `training/steps.py::make_train_chunk`
+(steps.py:194-253 there), which scans `steps_per_call` iterations (batch
+forming, the D step, the G step, or the fused-dg iteration) in one XLA
+program and returns the metrics of its last iteration, because host
+dispatch was the bottleneck at small scales. PyTorch's counterpart of one
+device program per chunk is a CUDA graph of the iteration
+(training/steps.py::train_iteration), captured once per scale and replayed
+k times per chunk:
+
+  * the first chunk of a scale runs its iterations eagerly on a side
+    stream, PyTorch's whole-network capture recipe: they are real
+    iterations of the run, and they settle what capture must not do
+    itself (the optimizers' lazily made state, cuDNN's algorithm choice,
+    the libraries' workspaces);
+  * the second chunk captures one iteration on that stream, with the
+    NoiseSource's device generator registered with the graph, so that each
+    replay advances its Philox offset as the eager iteration would; the
+    host does nothing between the replays (no metric is read);
+  * `close` releases the graph and its private memory pool at the end of
+    the scale, before the next scale grows the model.
+
+A captured iteration must read and write the same tensors on every replay:
+the modules' buffers and the optimizers' state are updated in place, the
+optimizers keep their step counts on the device (optim.py), `amps` (host
+floats) and cfg are constant within a scale, and nothing in it draws from
+the host generator (checked after capture) or reads a value to the host
+(capture then fails). The gradients `_set_grads` binds to `.grad` live in
+the graph's pool: nothing outside the graph reads them.
+
+On the CPU, under --split-step and in a group of several ranks (whose
+collectives and halo exchanges are not captured), the chunk runs its k
+iterations as an eager loop; the chunk boundaries, and with them the
+trainer's logbook, images and inflight checkpoints, are the same. On a
+single-rank CUDA run a failed capture or replay raises; nothing falls back
+to eager.
+"""
+
+from __future__ import annotations
+
+import logging
+import time
+from typing import Callable, Optional
+
+import torch
+
+from ..parallel import mesh
+from .state import ScaleTrainState
+from .steps import Metrics, train_iteration
+
+# graph captures and replays, over the process (as K1's `launches`)
+captures = 0
+replays = 0
+
+
+def steps_per_call(cfg) -> int:
+    """The chunk length of the JAX trainer (trainer.py:158-170 there): 1
+    under --split-step, else --steps-per-call cut to [1, niter]."""
+    if cfg.split_step:
+        return 1
+    return max(1, min(int(cfg.steps_per_call), int(cfg.niter)))
+
+
+class TrainChunk:
+    """Scale cfg.scale_idx's iterations of `st` on `data` (data_scale,
+    data_zero) at `amps`, in chunks: `run(k)` runs k iterations and
+    returns the last one's metrics (device tensors). `mode` is "graph",
+    or why the chunk runs eagerly."""
+
+    def __init__(self, cfg, st: ScaleTrainState, data, amps,
+                 vae_phase: bool, former: Callable):
+        self.cfg, self.st, self.data = cfg, st, data
+        self.amps, self.vae_phase, self.former = amps, vae_phase, former
+        self.device = next(st.G.parameters()).device
+        group, ranks = mesh.everyone()
+        if self.device.type != "cuda":
+            self.mode = f"eager ({self.device.type})"
+        elif group is not None:
+            self.mode = f"eager ({ranks} ranks)"
+        elif cfg.split_step:
+            self.mode = "eager (split-step)"
+        else:
+            self.mode = "graph"
+        self.stream: Optional[torch.cuda.Stream] = None
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.outputs: Optional[Metrics] = None
+        self.capture_s = 0.0
+        self.pool_bytes = 0
+
+    def iteration(self) -> Metrics:
+        return train_iteration(self.cfg, self.st, self.data[0], self.data[1],
+                               self.amps, self.vae_phase, self.former)
+
+    def run(self, k: int) -> Metrics:
+        if self.mode != "graph":
+            for _ in range(k):
+                metrics = self.iteration()
+            return metrics
+        if self.stream is None:
+            return self._warm_up(k)
+        if self.graph is None:
+            self._capture()
+        global replays
+        try:
+            for _ in range(k):
+                self.graph.replay()
+        except RuntimeError as e:
+            raise RuntimeError(f"scale {self.cfg.scale_idx}: replaying the "
+                               f"training iteration's CUDA graph failed: {e}"
+                               ) from e
+        replays += k
+        # the graph's outputs are overwritten by the next replay
+        return {name: v.clone() for name, v in self.outputs.items()}
+
+    def _warm_up(self, k: int) -> Metrics:
+        """The first chunk, eagerly on the stream that captures next."""
+        self.stream = torch.cuda.Stream(self.device)
+        self.stream.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(self.stream):
+            for _ in range(k):
+                metrics = self.iteration()
+        torch.cuda.current_stream(self.device).wait_stream(self.stream)
+        return metrics
+
+    def _capture(self) -> None:
+        global captures
+        noise = self.st.noise
+        host_before = noise.host_gen.get_state()
+        graph = torch.cuda.CUDAGraph()
+        graph.register_generator_state(noise.gen)
+        torch.cuda.synchronize(self.device)
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(self.device)
+        t0 = time.perf_counter()
+        try:
+            with torch.cuda.graph(graph, stream=self.stream):
+                outputs = self.iteration()
+        except RuntimeError as e:
+            raise RuntimeError(f"scale {self.cfg.scale_idx}: capturing the "
+                               f"training iteration into a CUDA graph "
+                               f"failed: {e}") from e
+        torch.cuda.synchronize(self.device)
+        self.capture_s = time.perf_counter() - t0
+        self.pool_bytes = torch.cuda.memory_reserved(self.device) - reserved
+        if not torch.equal(noise.host_gen.get_state(), host_before):
+            raise RuntimeError(f"scale {self.cfg.scale_idx}: the captured "
+                               "iteration drew from the host generator, "
+                               "whose draws a replay would repeat")
+        self.graph, self.outputs = graph, outputs
+        captures += 1
+        logging.info("scale %d: captured the iteration in %.2f s (graph pool "
+                     "%.3f GB)", self.cfg.scale_idx, self.capture_s,
+                     self.pool_bytes / 1e9)
+
+    def close(self) -> None:
+        """Release the graph, its pool and the gradients that live there."""
+        if self.graph is None:
+            return
+        torch.cuda.synchronize(self.device)
+        for module in (self.st.G, self.st.D):
+            for p in module.parameters():
+                p.grad = None
+        self.outputs = None
+        self.graph.reset()
+        self.graph = None
+        torch.cuda.empty_cache()

@@ -1,12 +1,13 @@
 """One training iteration: batch, D update (GAN scales), G update.
 
 The port of the JAX package's `training/steps.py` (`_d_step_core`,
-`_g_step_core`, `make_calibration`, and the body of `make_train_chunk`) as a
-plain loop body: no scan, no iterations fused per call, and the state is
-updated in place. Gradients come from `torch.autograd.grad` on the
-trainable parameters only (D's weights get none in the G step) and are left
-in `.grad` for the optimizer, and for a test to read (G's after the
-optimizer's per-tensor clip, which scales them in place).
+`_g_step_core`, `make_calibration`, and the body of `make_train_chunk`) as
+the body of a loop whose state is updated in place: training/chunk.py runs
+it k times per chunk, replayed from a CUDA graph on one card, so nothing
+here reads a value to the host. Gradients come from `torch.autograd.grad`
+on the trainable parameters only (D's weights get none in the G step) and
+are left in `.grad` for the optimizer, and for a test to read (G's after
+the optimizer's per-tensor clip, which scales them in place).
 
 What each forward keeps of its state, as in the JAX package:
   D step      G's fake under no_grad keeps nothing (steps.py:160); D runs on

@@ -15,11 +15,16 @@ or "video" (3D). Per scale:
   * the noise amp: 1.0 at scale 0 and under const_amp, else
     noise_amp_init * RMSE of a reconstruction (divided by batch_size again
     only under bug_compat, the reference's bug #3);
-  * niter iterations of training/steps.py::train_iteration, a logbook line
-    every print_interval iterations, an abort on non-finite metrics, an
-    inflight checkpoint every ckpt_interval iterations (not after the last),
-    then `step_callback(done, st, metrics)`, in the JAX trainer's order
-    (trainer.py:283-294 there);
+  * niter iterations of training/steps.py::train_iteration in chunks of
+    steps_per_call (training/chunk.py: CUDA-graph replays on one card, an
+    eager loop elsewhere; one iteration a chunk under --split-step), and
+    at each chunk boundary `done`, in the JAX trainer's order and cadence
+    (trainer.py:243-294 there): a logbook line of the chunk's last
+    metrics and the abort on non-finite ones when done % print_interval <
+    steps_per_call, the images of cfg.visualize when done %
+    image_interval < steps_per_call, an inflight checkpoint when done is
+    a multiple of steps_per_call, done % ckpt_interval < steps_per_call
+    and done < niter, then `step_callback(done, st, metrics)`;
   * netG_<k>, netD_<k> (GAN scales), torch_rng_<k>.pt and intermediate.json,
     in crash order (utils/saver.py).
 The video mode differs only in its dataset (data/video.py: all frames per
@@ -64,19 +69,25 @@ trainer's mesh None). The state is replicated on every rank, so the
 inflight checkpoints and resume need no gather; `visualize` gathers H
 before the primary writes its images.
 
-What the JAX trainer adds for XLA and the TPU has no counterpart here: the
-scan of `steps_per_call` iterations per dispatch, the compile-ahead
-pipeline (training/pipeline.py) and the retry of a scale after a runtime
-error (`run_scale_with_retry`).
+The JAX trainer's scan of `steps_per_call` iterations per dispatch is
+training/chunk.py's chunk, and a resume from an inflight iteration that is
+not a multiple of it is refused, as there (trainer.py:220-227). What the
+JAX trainer adds for XLA alone has no counterpart here: the compile-ahead
+pipeline (training/pipeline.py, which hides the minutes XLA takes to
+compile the next scale's chunk; a scale's graph is captured in under a
+second on an H100) and the retry of a scale after a runtime error
+(`run_scale_with_retry`, whose retry splits a chunk that the TPU compiler
+failed on; a failed capture here raises with its scale).
 
 The training flags of the JAX trainer: cfg.compute_dtype sets G's and D's
 convolutions' dtype for the scale (`scale_state`); cfg.flat_opt builds
 FlatAdam optimizers (`make_optimizers`, trainer.py:116-119 there), and an
 inflight checkpoint of the other layout is refused; cfg.paired_g and
 cfg.fused_dg are the steps' (training/steps.py); cfg.visualize (2D only,
-trainer.py:236-240, 277-281 there) writes `visualize`'s images every
-image_interval iterations, after the logbook line and before the inflight
-checkpoint, whose generator state then holds the images' draws.
+trainer.py:236-240, 277-281 there) writes `visualize`'s images, drawn
+eagerly between chunks from the same NoiseSource, after the logbook line
+and before the inflight checkpoint, whose generator state then holds the
+images' draws.
 """
 
 from __future__ import annotations
@@ -110,7 +121,8 @@ from ..utils.progress import Progress
 from ..utils.saver import DataSaver, load_inflight, load_pytree
 from .partition import apply_lr_plan, make_lr_plan
 from .state import ScaleTrainState
-from .steps import batch_former, calibrate, train_iteration
+from .chunk import TrainChunk, steps_per_call
+from .steps import batch_former, calibrate
 
 
 def amps_list(noise_amps: List[float], stop_scale: int) -> List[float]:
@@ -273,43 +285,61 @@ def run_scale(cfg, st: ScaleTrainState, saver: DataSaver, data,
               noise_amps: List[float], vae_phase: bool, former,
               init_gen: torch.Generator, step_callback=None,
               inflight: Optional[Dict] = None) -> None:
-    """The scale's iterations (after the inflight payload's, when given),
-    the images of cfg.visualize (2D), and the scale's checkpoints: netG,
-    netD (GAN scales) and torch_rng_<k>.pt."""
+    """The scale's iterations (after the inflight payload's, when given) in
+    chunks of steps_per_call (training/chunk.py), with the JAX trainer's
+    cadence at the chunk boundaries (trainer.py:243-294 there), the images
+    of cfg.visualize (2D), and the scale's checkpoints: netG, netD (GAN
+    scales) and torch_rng_<k>.pt."""
     scale_idx = cfg.scale_idx
     G, D = st.G, st.D
     amps = amps_list(noise_amps, cfg.stop_scale)
+    spc = steps_per_call(cfg)
     start = int(inflight["iter"]) if inflight is not None else 0
+    if start % spc != 0:
+        # the JAX trainer's refusal (trainer.py:220-227 there)
+        raise ValueError(
+            f"inflight iteration {start} is not a multiple of "
+            f"steps_per_call={spc}; resume with the original "
+            f"--steps-per-call (or one that divides {start})")
+    chunk = TrainChunk(cfg, st, data, amps, vae_phase, former)
+    logging.info("scale %d: chunks of %d iterations, %s", scale_idx, spc,
+                 chunk.mode)
     bar = Progress(cfg.niter, "Training scale [{}/{}]".format(
         scale_idx + 1, cfg.stop_scale + 1), initial=start,
         disable=not multihost.is_primary())
-    for done in range(start + 1, cfg.niter + 1):
-        metrics = train_iteration(cfg, st, data[0], data[1], amps,
-                                  vae_phase, former)
-        bar.update()
-        if done % cfg.print_interval == 0:
-            vals = {k: float(v) for k, v in metrics.items()}
-            bad = [k for k, v in vals.items() if not math.isfinite(v)]
-            if bad:
-                raise RuntimeError(
-                    f"non-finite training metrics {bad} at scale "
-                    f"{scale_idx} iter {done} (amps={noise_amps})")
-            logbook("[Scale {}/Iter {}] Noise amp: {:.5f}, {}".format(
-                scale_idx + 1, done, noise_amps[-1],
-                ", ".join(f"{k}: {v:.5f}" for k, v in sorted(vals.items()))))
-        if cfg.visualize and G.ndim == 2 and done % cfg.image_interval == 0:
-            real, real_zero, noise_init = former(cfg, data[0], data[1],
-                                                 st.noise)
-            visualize(G, saver, real, real_zero, noise_init, amps, st.noise,
-                      done)
-        if cfg.ckpt_interval and done < cfg.niter \
-                and done % cfg.ckpt_interval == 0 and multihost.is_primary():
-            saver.save_inflight(scale_idx, {
-                "G": G.state_dict(), "D": D.state_dict(),
-                "opt_g": st.opt_g.state_dict(), "opt_d": st.opt_d.state_dict(),
-                "rng": rng_state(init_gen, st.noise)}, done, noise_amps)
-        if step_callback is not None:
-            step_callback(done, st, metrics)
+    try:
+        for it in range(start, cfg.niter, spc):
+            done = min(it + spc, cfg.niter)
+            metrics = chunk.run(done - it)
+            bar.update(done - it)
+            if done % cfg.print_interval < spc:
+                vals = {k: float(v) for k, v in metrics.items()}
+                bad = [k for k, v in vals.items() if not math.isfinite(v)]
+                if bad:
+                    raise RuntimeError(
+                        f"non-finite training metrics {bad} at scale "
+                        f"{scale_idx} iter {done} (amps={noise_amps})")
+                logbook("[Scale {}/Iter {}] Noise amp: {:.5f}, {}".format(
+                    scale_idx + 1, done, noise_amps[-1], ", ".join(
+                        f"{k}: {v:.5f}" for k, v in sorted(vals.items()))))
+            if cfg.visualize and G.ndim == 2 \
+                    and done % cfg.image_interval < spc:
+                real, real_zero, noise_init = former(cfg, data[0], data[1],
+                                                     st.noise)
+                visualize(G, saver, real, real_zero, noise_init, amps,
+                          st.noise, done)
+            if cfg.ckpt_interval and done < cfg.niter and done % spc == 0 \
+                    and done % cfg.ckpt_interval < spc \
+                    and multihost.is_primary():
+                saver.save_inflight(scale_idx, {
+                    "G": G.state_dict(), "D": D.state_dict(),
+                    "opt_g": st.opt_g.state_dict(),
+                    "opt_d": st.opt_d.state_dict(),
+                    "rng": rng_state(init_gen, st.noise)}, done, noise_amps)
+            if step_callback is not None:
+                step_callback(done, st, metrics)
+    finally:
+        chunk.close()
     bar.close()
 
     params, state = to_jax(G.state_dict(), G.ndim)
@@ -429,7 +459,7 @@ def run_training(cfg, saver: DataSaver, device="cuda",
     image (`mode` "image") or one video ("video"), resumed when cfg.netG is
     set. Weights are drawn from a host generator seeded `seed` (default
     cfg.manualSeed), every training draw from a NoiseSource on `device`.
-    `step_callback(done, st, metrics)` runs after every iteration. Returns
+    `step_callback(done, st, metrics)` runs after every chunk. Returns
     (G, noise_amps)."""
     if mode not in ("image", "video"):
         raise ValueError(f"mode {mode!r}: 'image' or 'video'")

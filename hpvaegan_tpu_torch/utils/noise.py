@@ -50,7 +50,11 @@ class NoiseSource:
 
     Tensor draws come from a generator on the tensors' device. Kernel seeds
     are host integers and come from a second generator on the host, so that
-    drawing one never waits for the device.
+    drawing one never waits for the device. A CUDA graph that draws from
+    `gen` registers it with itself (training/chunk.py): every replay then
+    advances it as the eager draws would, and get_state / set_state and
+    eager draws between replays see and continue that one stream; a host
+    draw inside the graph would not be drawn again, and is refused there.
 
     Under a data group of several ranks (parallel/mesh.py, the group in
     force) every rank holds the same generator states, and each batched

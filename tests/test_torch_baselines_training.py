@@ -40,11 +40,12 @@ from test_torch_video_training import TINY as VIDEO_TINY
 
 torch.set_num_threads(1)
 
+# one iteration a chunk, the per-iteration cadence these tests hold
 TINY = ["--video-path", SYNTHETIC, "--sampling-rates", "2", "1",
         "--max-frames", "5", "--checkname", "smoke", "--nfc", "8",
         "--num-layer", "2", "--niter", "2", "--img-size", "32",
         "--min-size", "16", "--max-size", "32", "--print-interval", "1",
-        "--manualSeed", "1", "--device", "cpu"]
+        "--manualSeed", "1", "--device", "cpu", "--steps-per-call", "1"]
 GENS = ["GeneratorCSG", "GeneratorSG"]
 
 

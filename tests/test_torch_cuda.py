@@ -7,6 +7,7 @@ also runs where JAX is not installed:
 (`--noconftest`: tests/conftest.py sets up JAX's CPU platform.)
 """
 
+import dataclasses
 import json
 import os
 import pickle
@@ -228,13 +229,18 @@ def _kill_at(scale_idx, at_iter):
 def test_resume_matches_uninterrupted(cuda, tmp_path, monkeypatch):
     """A tiny run on the card killed after the inflight checkpoint of its
     last scale and resumed from it ends as the uninterrupted run (TF32
-    off, deterministic cuDNN): netG within 1e-6, the amps equal."""
+    off, deterministic cuDNN): netG within 1e-6, the amps equal. Chunks of
+    one iteration (the per-iteration cadence, inflight at 2, killed at 3):
+    on the card each chunk after the first replays the captured
+    iteration once."""
     from hpvaegan_tpu_torch import train_image
+
+    tiny = TINY + ["--steps-per-call", "1"]
 
     monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
     monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
-    ref = train_image.main(TINY + ["--run-dir", str(tmp_path / "a")])
+    ref = train_image.main(tiny + ["--run-dir", str(tmp_path / "a")])
     made = []
     run_training = trainer.run_training
 
@@ -245,9 +251,9 @@ def test_resume_matches_uninterrupted(cuda, tmp_path, monkeypatch):
 
     monkeypatch.setattr(trainer, "run_training", killed)
     with pytest.raises(_Killed):
-        train_image.main(TINY + ["--run-dir", str(tmp_path / "b")])
+        train_image.main(tiny + ["--run-dir", str(tmp_path / "b")])
     monkeypatch.setattr(trainer, "run_training", run_training)
-    resumed = train_image.main(TINY + [
+    resumed = train_image.main(tiny + [
         "--run-dir", str(tmp_path / "c"),
         "--netG", os.path.join(made[0], "inflight_4.ckpt"),
         "--intermediate", os.path.join(made[0], "intermediate.json")])
@@ -365,3 +371,207 @@ def test_sampled_fid_matches_cpu(cuda, ndim):
         4, ReplayedNoise(rec.drawn, "cpu"), return_samples=2)
     assert np.abs(card[1] - host[1]).max() <= 1e-5
     np.testing.assert_allclose(card[0], host[0], rtol=1e-3)
+
+
+# ------------------------------------------------- the training chunk ---
+
+def _chunk(cfg, ndim, split, device, generator="GeneratorHPVAEGAN",
+           discriminator=""):
+    """A scale-3 training chunk of a tiny config: --split-step (eager) or
+    not (a CUDA graph on the card), from seed 0's weights and draws."""
+    from hpvaegan_tpu_torch import models
+    from hpvaegan_tpu_torch.tools.step_parity import build_state
+    from hpvaegan_tpu_torch.training.chunk import TrainChunk
+    from hpvaegan_tpu_torch.training.steps import batch_former
+    from hpvaegan_tpu_torch.utils.noise import NoiseSource
+    from hpvaegan_tpu_torch.utils.pyramid import scale_size_2d
+
+    cfg = dataclasses.replace(cfg, split_step=split, scale_idx=3)
+    st = build_state(cfg, 3, 0, device, ndim, generator, discriminator)
+    st.noise = NoiseSource(0, device)
+    gen = torch.Generator().manual_seed(1)
+    frames = (cfg.max_frames,) if ndim == 3 else ()
+    data = [torch.rand((1, cfg.nc_im) + frames + tuple(scale_size_2d(
+        k, cfg.scale_factor, cfg.stop_scale, cfg.img_size, cfg.ar)),
+        generator=gen).to(device) for k in (3, 0)]
+    former = batch_former(ndim, 3, baseline=generator in models.BASELINES)
+    amps = [1.0] + [0.05] * (cfg.stop_scale + 1)
+    return st, TrainChunk(cfg, st, data, amps, False, former)
+
+
+def _state(st):
+    out = {f"G.{k}": v for k, v in st.G.state_dict().items()}
+    out.update({f"D.{k}": v for k, v in st.D.state_dict().items()})
+    for part in ("opt_g", "opt_d"):
+        for i, s in getattr(st, part).state_dict()["state"].items():
+            out.update({f"{part}.{i}.{k}": v for k, v in s.items()})
+    out.update({f"noise.{k}": v for k, v in st.noise.get_state().items()})
+    return out
+
+
+@pytest.mark.parametrize("ndim,generator,flags", [
+    (2, "GeneratorHPVAEGAN", {}),
+    (3, "GeneratorHPVAEGAN", {}),
+    (3, "GeneratorCSG", {}),
+    (2, "GeneratorHPVAEGAN", dict(compute_dtype="bfloat16", fused_dg=True,
+                                  flat_opt=True))])
+def test_graph_chunk_equals_eager_iterations(cuda, monkeypatch, ndim,
+                                             generator, flags):
+    """Chunks of 3 and 4 iterations (the first eager on the capture
+    stream, then 4 replays of the captured iteration) end bit for bit as
+    7 --split-step eager iterations from the same weights and seed (TF32
+    off, deterministic cuDNN): G's and D's parameters and buffers, both
+    optimizers' states (the step counts on the card) and the
+    NoiseSource's state, whose device generator the replays advance."""
+    from hpvaegan_tpu_torch.training import chunk
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    cfg = _flag_cfg(ndim, generator, **flags)
+    disc = cfg.discriminator if generator == "GeneratorCSG" else ""
+    graph_st, graph = _chunk(cfg, ndim, False, cuda, generator, disc)
+    eager_st, eager = _chunk(cfg, ndim, True, cuda, generator, disc)
+    assert (graph.mode, eager.mode) == ("graph", "eager (split-step)")
+    captures, replays = chunk.captures, chunk.replays
+    graph.run(3)
+    got = graph.run(4)
+    for _ in range(7):
+        want = eager.run(1)
+    assert (chunk.captures - captures, chunk.replays - replays) == (1, 4)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+    a, b = _state(graph_st), _state(eager_st)
+    assert sorted(a) == sorted(b)
+    for k in a:
+        assert torch.equal(a[k].cpu(), b[k].cpu()), k
+    steps = [s["step"] for s in graph_st.opt_g.state.values()]
+    assert steps and all(t.device.type == "cuda" and float(t) == 7
+                         for t in steps)
+    graph.close()
+
+
+def test_graph_run_with_images_equals_eager_run(cuda, tmp_path, monkeypatch):
+    """train_image --steps-per-call 2 --visualize --image-interval 2 on the
+    card as graph replays ends bit for bit as the same run with every
+    chunk an eager loop (TF32 off, deterministic cuDNN): netG_4, the
+    generators' states in torch_rng_4.pt and every image. The images are
+    drawn eagerly between the replays, so they continue the stream that
+    the replays advanced, and the chunks after them draw on from there."""
+    from hpvaegan_tpu_torch import train_image
+    from hpvaegan_tpu_torch.training import chunk
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    args = TINY + ["--steps-per-call", "2", "--visualize",
+                   "--image-interval", "2"]
+    captures = chunk.captures
+    graph = train_image.main(args + ["--run-dir", str(tmp_path / "g")])
+    assert chunk.captures - captures == 5  # one a scale
+
+    def eager(self, k):
+        for _ in range(k):
+            metrics = self.iteration()
+        return metrics
+
+    monkeypatch.setattr(chunk.TrainChunk, "run", eager)
+    ref = train_image.main(args + ["--run-dir", str(tmp_path / "e")])
+
+    def load(exp, name):
+        with open(os.path.join(exp, name), "rb") as f:
+            return pickle.load(f) if name.endswith(".ckpt") else f.read()
+
+    assert _max_diff(load(graph, "netG_4.ckpt"), load(ref, "netG_4.ckpt")) \
+        == 0
+    rng_g = torch.load(os.path.join(graph, "torch_rng_4.pt"))
+    rng_e = torch.load(os.path.join(ref, "torch_rng_4.pt"))
+    for k in ("device", "host"):
+        assert torch.equal(rng_g["noise"][k], rng_e["noise"][k]), k
+    names = sorted(os.listdir(os.path.join(graph, "img")))
+    assert names and names == sorted(os.listdir(os.path.join(ref, "img")))
+    for name in names:
+        assert load(os.path.join(graph, "img"), name) == \
+            load(os.path.join(ref, "img"), name), name
+
+
+@pytest.mark.parametrize("fault", ["host_read", "host_draw"])
+def test_failed_capture_raises(cuda, monkeypatch, fault):
+    """An iteration that reads a value to the host (which capture cannot
+    record) or draws from the host generator (which a replay would not
+    draw again) makes the second chunk raise, naming the scale; nothing
+    continues eagerly."""
+    from hpvaegan_tpu_torch.training import chunk
+
+    iteration = chunk.train_iteration
+
+    def faulty(cfg, st, *a, **kw):
+        metrics = iteration(cfg, st, *a, **kw)
+        if fault == "host_read":
+            float(metrics["g_loss"])
+        else:
+            st.noise.seed()
+        return metrics
+
+    monkeypatch.setattr(chunk, "train_iteration", faulty)
+    _, graph = _chunk(_flag_cfg(2), 2, False, cuda)
+    graph.run(2)
+    with pytest.raises(RuntimeError, match="scale 3: (capturing the "
+                       "training iteration|the captured iteration drew)"):
+        graph.run(2)
+    assert graph.graph is None
+    torch.cuda.synchronize()
+
+
+def test_optimizers_keep_the_step_on_the_card(cuda):
+    """On the card every optimizer is capturable, its step count a float32
+    tensor on the card, and 5 steps equal the CPU's (host step count) to
+    1e-6; a state written with the step on the host loads onto the card."""
+    import copy
+
+    from hpvaegan_tpu_torch import optim
+
+    rng = np.random.RandomState(0)
+    start = [rng.randn(*s).astype(np.float32)
+             for s in ((4, 3, 3, 3), (5,), (2, 6))]
+    grads = [[(rng.randn(*a.shape) * 40).astype(np.float32) for a in start]
+             for _ in range(5)]
+
+    def build(kind, device):
+        p = [torch.nn.Parameter(torch.from_numpy(a.copy()).to(device))
+             for a in start]
+        if kind == "clipped":
+            return p, optim.ClippedAdam([{"params": p, "lr": 5e-4}], 0.5)
+        if kind == "plain":
+            return p, optim.adam(p, 5e-4, 0.5)
+        return p, optim.FlatAdam(p, 0.5, grad_clip=5.0, lr=5e-4)
+
+    def steps(p, opt, gs):
+        for g in gs:
+            for t, a in zip(p, g):
+                t.grad = torch.from_numpy(a.copy()).to(t.device)
+            opt.step()
+
+    for kind in ("clipped", "plain", "flat"):
+        (pc, oc), (ph, oh) = build(kind, cuda), build(kind, "cpu")
+        steps(pc, oc, grads[:2])
+        steps(ph, oh, grads[:2])
+        loaded_p, loaded = build(kind, cuda)
+        with torch.no_grad():
+            for t, h in zip(loaded_p, ph):
+                t.copy_(h)
+        optim.load_optimizer_state(loaded, copy.deepcopy(oh.state_dict()))
+        for p, opt in ((pc, oc), (loaded_p, loaded)):
+            steps(p, opt, grads[2:])
+            assert all(s["step"].device.type == "cuda"
+                       and s["step"].dtype == torch.float32
+                       and float(s["step"]) == 5
+                       for s in opt.state.values())
+            if kind != "flat":
+                assert all(g["capturable"] for g in opt.param_groups)
+        steps(ph, oh, grads[2:])
+        for a, b, h in zip(pc, loaded_p, ph):
+            np.testing.assert_allclose(a.detach().cpu().numpy(),
+                                       h.detach().numpy(), rtol=0, atol=1e-6)
+            np.testing.assert_allclose(b.detach().cpu().numpy(),
+                                       h.detach().numpy(), rtol=0, atol=1e-6)

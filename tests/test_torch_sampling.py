@@ -346,7 +346,7 @@ def test_port_imports_no_jax(tmp_path):
         "    'cpu', '--nfc', '4', '--latent-dim', '4', '--num-layer', '1',\n"
         "    '--enc-blocks', '1', '--niter', '2', '--img-size', '24',\n"
         "    '--min-size', '16', '--max-size', '24', '--vae-levels', '1',\n"
-        "    '--ckpt-interval', '1']\n"
+        "    '--ckpt-interval', '1', '--steps-per-call', '1']\n"
         "killed = os.path.join(sys.argv[1], 'k')\n"
         "try:\n"
         "    train_image.main(tiny + ['--run-dir', killed])\n"

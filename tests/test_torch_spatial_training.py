@@ -190,10 +190,11 @@ class Killed(Exception):
 def _case_resume(rank, world, out_dir, kind="image"):
     """On S = world ranks (joined by the worker): the uninterrupted run of
     the `kind` CLI, the run killed after iteration 2 of 4 at the last
-    scale (every rank stops at the same point), and its resume from
+    scale (every rank stops at the same point; chunks of 2 iterations,
+    whose first ends at the inflight checkpoint), and its resume from
     inflight_4.ckpt."""
     extra = ["--mesh-sp", str(world), "--niter", "4", "--ckpt-interval",
-             "2"] + _batch(kind, 1)
+             "2", "--steps-per-call", "2"] + _batch(kind, 1)
     whole = _train(kind, os.path.join(out_dir, "a"), extra)
 
     def kill(done, st, metrics):

@@ -36,6 +36,7 @@ from hpvaegan_tpu.utils import saver as jsaver
 from hpvaegan_tpu_torch import optim as toptim
 from hpvaegan_tpu_torch import train_image as ttrain_cli
 from hpvaegan_tpu_torch.tools.convert import to_jax, to_jax_discriminator
+from hpvaegan_tpu_torch.training import chunk as tchunk
 from hpvaegan_tpu_torch.training import partition as tpart
 from hpvaegan_tpu_torch.training import steps as tsteps
 from hpvaegan_tpu_torch.training import trainer as ttrainer
@@ -270,7 +271,7 @@ def test_trainer_amps_and_d_warm_start(tmp_path, monkeypatch, mode):
 def test_trainer_aborts_on_non_finite_metrics(tmp_path, monkeypatch):
     _, ct = cfgs(image_path=IMAGE, run_dir=str(tmp_path), niter=2,
                  print_interval=2)
-    monkeypatch.setattr(ttrainer, "train_iteration",
+    monkeypatch.setattr(tchunk, "train_iteration",
                         lambda *args: {"g_loss": torch.tensor(float("nan"))})
     saver = DataSaver(ct, create=True)
     with pytest.raises(RuntimeError, match="non-finite.*g_loss"):
@@ -281,11 +282,14 @@ def test_trainer_aborts_on_non_finite_metrics(tmp_path, monkeypatch):
 
 # ----------------------------------------------------------------- CLI ---
 
+# one iteration a chunk: the per-iteration cadence of the logbook, images
+# and inflight checkpoints that these tests and the ones that import TINY
+# hold (tests/test_torch_train_chunk.py holds the default chunks)
 TINY = ["--image-path", IMAGE, "--checkname", "smoke", "--nfc", "8",
         "--latent-dim", "8", "--num-layer", "1", "--enc-blocks", "1",
         "--niter", "4", "--img-size", "32", "--min-size", "16",
         "--max-size", "32", "--vae-levels", "2", "--print-interval", "2",
-        "--manualSeed", "1", "--device", "cpu"]
+        "--manualSeed", "1", "--device", "cpu", "--steps-per-call", "1"]
 
 
 @pytest.fixture
@@ -411,7 +415,12 @@ def test_train_cli_refuses_a_missing_card(tmp_path):
 
 
 def test_xla_knobs_are_accepted_and_kept():
-    args = ttrain_cli.build_parser().parse_args(
+    """The JAX trainer's five dispatch flags parse and stay in cfg;
+    --scan-unroll, --compile-ahead and --xla-option say that they have no
+    effect, and --steps-per-call and --split-step, which set the training
+    chunk (training/chunk.py), do not."""
+    parser = ttrain_cli.build_parser()
+    args = parser.parse_args(
         TINY + ["--steps-per-call", "3", "--scan-unroll", "2",
                 "--no-compile-ahead", "--split-step",
                 "--xla-option", "a=1"])
@@ -419,4 +428,8 @@ def test_xla_knobs_are_accepted_and_kept():
     assert (cfg.steps_per_call, cfg.scan_unroll, cfg.compile_ahead,
             cfg.split_step, cfg.xla_options) == (3, 2, False, True,
                                                  {"a": "1"})
-    assert "no effect" in ttrain_cli.build_parser().format_help()
+    helps = {a.dest: a.help for a in parser._actions}
+    for dest in ("scan_unroll", "compile_ahead", "xla_options"):
+        assert "no effect" in helps[dest], dest
+    for dest in ("steps_per_call", "split_step"):
+        assert "no effect" not in helps[dest], dest

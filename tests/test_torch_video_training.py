@@ -497,12 +497,15 @@ def test_saver_names_the_clip_after_the_video():
 
 # ----------------------------------------------------------------- CLI ---
 
+# one iteration a chunk: the per-iteration cadence that these tests and
+# the ones that import TINY hold (tests/test_torch_train_chunk.py holds
+# the default chunks)
 TINY = ["--video-path", SYNTHETIC, "--sampling-rates", "2", "1",
         "--max-frames", "5", "--checkname", "smoke", "--nfc", "8",
         "--latent-dim", "8", "--num-layer", "2", "--enc-blocks", "1",
         "--niter", "2", "--img-size", "32", "--min-size", "16",
         "--max-size", "32", "--vae-levels", "2", "--print-interval", "1",
-        "--manualSeed", "1", "--device", "cpu"]
+        "--manualSeed", "1", "--device", "cpu", "--steps-per-call", "1"]
 VIDEO_KEYS = ("org_fps", "fps_lcm", "ar", "sampling_rates", "max_frames",
               "start_frame", "video_path", "discriminator", "niter")
 
