@@ -167,7 +167,12 @@ Phases, each of which exits non-zero on a failed check:
              parameters and running statistics after 4 reported: Adam's
              first update turns a gradient that is zero up to rounding
              into +-lr, and the random full-width model amplifies
-             rounding);
+             rounding); then, in the same one-rank NCCL group, phase 22
+             (a)'s graph against eager at full-width 2D scale 9 and 3D
+             scale 2 (16 iterations at --steps-per-call 8): the chunk a
+             graph ("graph (1 NCCL rank)") whose capture issued as many
+             of the group's collectives as an eager iteration and no host
+             sync, equal to the eager run bit for bit;
              (b) two ranks on the card over gloo (NCCL takes one card per
              rank), each a `chip_smoke.py --dp-worker` process, against
              this process at the same global batch, TF32 off: 4
@@ -259,6 +264,56 @@ The train CLIs of phases 6-21 run with --split-step: one eager iteration a
 chunk, the per-iteration loop that those phases measured and hold.
 Then it prints the kernels' JSON line, the card's name and power limit as
 nvidia-smi gives them, and last {"ok": true, "device": {...}}.
+
+    python3 chip_smoke.py --cards 4    # four cards of one host
+
+runs the mesh as it is deployed instead, and nothing else: four NCCL
+ranks, one card each (`chip_smoke.py --cards-worker` processes, one
+process group), against this process on card 0 at the same global batch,
+TF32 off and deterministic cuDNN; on fewer cards it fails. Each training
+case builds the full-width model at scale 9 twice from one seed and runs
+chunks of 8 (2D) or 2 (3D) iterations: iteration 1 eagerly on the capture
+stream (its metrics and gradients within DP_TRAIN_REL of one process's,
+the ranks bit-equal), then, the state set back in place, the capture and
+replay of iteration 1 (bit-equal to the eager one: what (f) reads), the
+graph's other iterations against as many --split-step iterations of the
+second state (bit for bit), steps/s of both modes and of one process,
+the collectives captured and those of an eager iteration, no host sync
+in the capture, each mode's share in NCCL's kernels from a profiler
+window, peak GB per rank and the heights the sharded convolutions ran
+on. Graph and eager must be equal bit for bit under NCCL's defaults.
+  (a) 2D scale 9 (192x257) at --mesh-data 4 (batch 4), --mesh-sp 4
+      (batch 1, 48 + 2 rows a convolution) and --mesh-data 2 --mesh-sp 2
+      (batch 2, 96 + 2)
+  (b) the same for the 3D model at scale 9 (13x192x257); one process
+      runs it eagerly (at batch 4 a graph's pool beside the eager state
+      would not fit the card)
+  (c) GeneratorCSG against WDiscriminatorBaselines at --mesh-sp 4, batch
+      1, in unequal padded shards (the edge ranks' heights differ from
+      the middle ranks')
+  (d) train_image --mesh-data 2 --mesh-sp 2 --batch-size 2 under
+      torchrun (10 scales x 16 iterations, --steps-per-call 8) and
+      train_video_baselines --mesh-sp 4 with explicit --dist-* flags and
+      no --device-id (10 scales x 4, --steps-per-call 2): one experiment
+      dir, "graph (4 NCCL ranks)" at every scale, bit for bit the same
+      run under --split-step (every amp, every scale's G and D on every
+      rank), the ranks bit-equal at every scale's end, scale 1's amp
+      within DP_TRAIN_REL of one process's; the later amps and netGs
+      reported against one process beside one process whose inputs are
+      one ulp up; train_image with the gradients not averaged must fail
+      a bar
+  (e) eval_image and eval_video --mesh-data 4 --on-device-fid at 64
+      samples (the same score on every rank, rtol 1e-3 of one process),
+      and the moving-stat sampler with pallas_fused_sampling, 4 x 16
+      against 1 x 64 (K1 launching 9 times on each rank; max abs err
+      1e-4)
+  (f) faults planted in graph mode: the gradients not averaged and
+      BatchNorm not reduced (--mesh-data 4), a halo taken from the wrong
+      neighbour (--mesh-sp 4): the graph's iteration 1 must exceed
+      DP_TRAIN_REL
+It prints one JSON line a case, the cards' names and power limits, and
+last the same {"ok": true, ...} line. `--cards 4 --clis-only` runs (d)
+alone.
 
 Weights are random (numpy seed), He-normal convs so activations keep unit
 scale through the stacks. Nothing here imports JAX or the JAX package.
@@ -2575,10 +2630,17 @@ CHILDREN = []  # the processes this script starts, ended at its exit
 
 @atexit.register
 def end_children():
+    import signal
+
     for proc in CHILDREN:
+        if getattr(proc, "own_group", False):
+            try:  # its children too: torchrun's ranks
+                os.killpg(proc.pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
         if proc.poll() is None:
             proc.kill()
-            proc.wait()
+        proc.wait()
 
 
 class DrawsCheck:
@@ -2761,6 +2823,8 @@ DP_DEVICE = "cuda"
 # 0.210 (another rank's draws) there, so the bar sits 5x above the sound
 # runs and 15x below the faults; (c) fails if a fault reads under it.
 DP_TRAIN_REL = 1e-2
+# seconds the rank processes of one launch may take (join_in_group)
+RANKS_TIMEOUT = 600
 
 
 def param_diffs(a, b):
@@ -3061,9 +3125,34 @@ def nccl_one_rank(torch):
                "train_steps_per_s_nccl": round(nccl["steps_per_s"], 3),
                "train_steps_per_s_no_group": round(one["steps_per_s"], 3),
                "collective_share_nccl": round(nccl["collective_share"], 4)}
+        print("  (a) NCCL, one rank (TF32 off): " + json.dumps(out),
+              flush=True)
+        with mesh.data_parallel(group):
+            out["chunk"] = nccl_one_rank_chunks(torch)
     finally:
         dist.destroy_process_group()
-    print("  (a) NCCL, one rank (TF32 off): " + json.dumps(out), flush=True)
+    return out
+
+
+def nccl_one_rank_chunks(torch):
+    """Phase 19 (a), the chunk in the one-rank NCCL group in force: phase
+    22's graph against eager (16 iterations at --steps-per-call 8), the
+    collectives in the graph, at full-width 2D scale 9 and 3D scale 2."""
+    from hpvaegan_tpu_torch.data.image import SingleImageDataset
+
+    image = os.path.join(HERE, "data", "imgs", "air_balloons.jpg")
+    cfg = full_width_config(image_path=image, batch_size=1)
+    dataset = SingleImageDataset(cfg, "cuda")
+    mode = "graph (1 NCCL rank)"
+    out = {"2d_9": graph_vs_eager(
+        torch, "2D GeneratorHPVAEGAN in a one-rank NCCL group", cfg,
+        (dataset.scale_image(9), dataset.scale_image(0)), 9, 2,
+        want_mode=mode)}
+    vcfg, vdata = video_config()
+    out["3d_2"] = graph_vs_eager(
+        torch, "3D GeneratorHPVAEGAN in a one-rank NCCL group",
+        video_at(vcfg, 2), (vdata.scale_frames(2), vdata.scale_frames(0)), 2,
+        3, want_mode=mode)
     return out
 
 
@@ -3077,39 +3166,76 @@ def free_port():
     return port
 
 
-def start_dp_ranks(work, fault=None, kind="dp", ranks=DP_RANKS):
-    """The two rank processes of phase 19 (`--dp-worker`) or, with kind
-    "sp", of phase 20 (`--sp-worker`), or `ranks` of them with kind "spb"
-    (phase 20 (d), `--spb-worker`), with `fault` planted in each when
-    given."""
+def start_ranks(work, fault=None, kind="dp", ranks=DP_RANKS):
+    """`ranks` processes of `chip_smoke.py --<kind>-worker <rank> <port>
+    <work> [fault]`: the two of phase 19 ("dp") or phase 20 ("sp"), the
+    four of phase 20 (d) ("spb") or of --cards ("cards"), with `fault`
+    planted in each when given; each in a session of its own, its output
+    in <work>/<kind>_<fault or sound>_<rank>.log."""
     port = free_port()
-    procs = [subprocess.Popen(
+    return [start_in_group(
         [sys.executable, os.path.abspath(__file__), f"--{kind}-worker",
-         str(r), str(port), work] + ([fault] if fault else []), cwd=HERE,
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for r in range(ranks)]
-    CHILDREN.extend(procs)
-    return procs
+         str(r), str(port), work] + ([fault] if fault else []),
+        rank_log(work, kind, fault, r)) for r in range(ranks)]
 
 
-def join_dp_ranks(torch, procs, work, fault=None, kind="dp",
-                  ranks=DP_RANKS):
-    """The results of start_dp_ranks' processes, one per rank."""
-    logs = []
-    try:
-        for proc in procs:
-            logs.append(proc.communicate(timeout=600)[0])
-    finally:
-        for proc in procs:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-    for r, (proc, log) in enumerate(zip(procs, logs)):
-        check(proc.returncode == 0, f"rank {r} ({fault or 'sound'}) exit "
-              f"{proc.returncode}: {log[-3000:]}")
+def rank_log(work, kind, fault, rank):
+    return os.path.join(work, f"{kind}_{fault or 'sound'}_{rank}.log")
+
+
+def join_ranks(torch, procs, work, fault=None, kind="dp", ranks=DP_RANKS):
+    """The results of start_ranks' processes, one per rank (join_in_group:
+    a failed or late rank fails the run with every rank's log)."""
+    join_in_group(procs, [rank_log(work, kind, fault, r)
+                          for r in range(ranks)],
+                  f"{kind} ranks ({fault or 'sound'})")
     return [torch.load(os.path.join(work, f"{kind}_{fault or 'sound'}_{r}"
                                     ".pt"), weights_only=False)
             for r in range(ranks)]
+
+
+def start_in_group(cmd, log_path):
+    """A process in a session of its own (its children with it), output
+    to `log_path`; ended, with its children, at this script's exit."""
+    log = open(log_path, "w")
+    proc = subprocess.Popen(cmd, cwd=HERE, stdout=log,
+                            stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    proc.own_group = True
+    CHILDREN.append(proc)
+    return proc
+
+
+def join_in_group(procs, logs, what):
+    """Wait for `procs` (RANKS_TIMEOUT s in all). Past the limit, or once
+    one of them fails: SIGUSR1 to every process (a rank that registered
+    the stack dump prints its stacks), then end them all and fail, with
+    each one's log's tail."""
+    import signal
+
+    deadline = time.monotonic() + RANKS_TIMEOUT
+    while any(p.poll() is None for p in procs) \
+            and not any(p.poll() for p in procs) \
+            and time.monotonic() < deadline:
+        time.sleep(0.5)
+    if all(p.poll() == 0 for p in procs):
+        return
+    for p in procs:
+        if p.poll() is None:
+            os.killpg(p.pid, signal.SIGUSR1)
+    time.sleep(5)
+    for p in procs:
+        if p.poll() is None:
+            os.killpg(p.pid, signal.SIGKILL)
+        p.wait()
+    tails = []
+    for r, path in enumerate(logs):
+        with open(path) as f:
+            tails.append(f"--- {what} process {r} (exit {procs[r].returncode})"
+                         f":\n{f.read()[-4000:]}")
+    fail(f"{what}: " + ("timed out after " f"{RANKS_TIMEOUT} s" if any(
+        p.returncode == -9 for p in procs) else "a process failed")
+        + "\n" + "\n".join(tails))
 
 
 def phase_data_parallel(torch, k1, ckpt):
@@ -3138,11 +3264,11 @@ def phase_data_parallel(torch, k1, ckpt):
                                          os.path.join(work, "video"))}
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
-        ranks = join_dp_ranks(torch, start_dp_ranks(work), work)
+        ranks = join_ranks(torch, start_ranks(work), work)
         ranks_s = time.perf_counter() - t0
         t0 = time.perf_counter()
-        started = [(f, start_dp_ranks(work, f)) for f in DP_FAULTS]
-        faults = {f: join_dp_ranks(torch, procs, work, f)
+        started = [(f, start_ranks(work, f)) for f in DP_FAULTS]
+        faults = {f: join_ranks(torch, procs, work, f)
                   for f, procs in started}
         faults_s = time.perf_counter() - t0
     r0, r1 = ranks
@@ -3426,12 +3552,12 @@ def spatial_baselines(torch, k1):
     one_launches = k1.fused_upscale_noise_2d.launches
     with tempfile.TemporaryDirectory(prefix="hpv_spb_") as work:
         t0 = time.perf_counter()
-        ranks = join_dp_ranks(torch, start_dp_ranks(
+        ranks = join_ranks(torch, start_ranks(
             work, kind="spb", ranks=SPB_RANKS), work, kind="spb",
             ranks=SPB_RANKS)
         ranks_s = time.perf_counter() - t0
         t0 = time.perf_counter()
-        faulty = join_dp_ranks(torch, start_dp_ranks(
+        faulty = join_ranks(torch, start_ranks(
             work, SPB_FAULT, kind="spb", ranks=SPB_RANKS), work, SPB_FAULT,
             kind="spb", ranks=SPB_RANKS)
         fault_s = time.perf_counter() - t0
@@ -3513,13 +3639,13 @@ def phase_spatial(torch, k1):
           "training")
     with tempfile.TemporaryDirectory(prefix="hpv_sp_") as work:
         t0 = time.perf_counter()
-        ranks = join_dp_ranks(torch, start_dp_ranks(work, kind="sp"), work,
+        ranks = join_ranks(torch, start_ranks(work, kind="sp"), work,
                               kind="sp")
         ranks_s = time.perf_counter() - t0
         t0 = time.perf_counter()
-        started = [(f, start_dp_ranks(work, f, kind="sp"))
+        started = [(f, start_ranks(work, f, kind="sp"))
                    for f in SP_FAULTS]
-        faults = {f: join_dp_ranks(torch, procs, work, f, kind="sp")
+        faults = {f: join_ranks(torch, procs, work, f, kind="sp")
                   for f, procs in started}
         faults_s = time.perf_counter() - t0
     check([r["place"] for r in ranks] == [(0, 2), (1, 2)],
@@ -3708,8 +3834,49 @@ def idle_share(torch, prof, wall_s):
     return round(busy, 3), round(1 - busy / (wall_s * 1e3), 4)
 
 
+# what CUDA's sync debug mode warns of a synchronizing operation
+SYNC_WARNING = "called a synchronizing CUDA operation"
+# the other warnings seen in captures, for the record
+CAPTURE_WARNINGS = set()
+
+
+@contextlib.contextmanager
+def syncs_in_capture(torch, counts):
+    """Within the body, every training iteration issued while a CUDA graph
+    captures runs in CUDA's sync debug mode: `counts` gets the number of
+    host synchronisations PyTorch warns of in each (0: the capture reads
+    nothing back); any other warning's text goes to CAPTURE_WARNINGS."""
+    import warnings
+
+    from hpvaegan_tpu_torch.training import chunk as tchunk
+
+    inner = tchunk.train_iteration
+
+    def counted(*a, **kw):
+        if not torch.cuda.is_current_stream_capturing():
+            return inner(*a, **kw)
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                return inner(*a, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+                texts = [str(w.message) for w in seen]
+                counts.append(sum(SYNC_WARNING in t for t in texts))
+                CAPTURE_WARNINGS.update(t[:300] for t in texts
+                                        if SYNC_WARNING not in t)
+
+    tchunk.train_iteration = counted
+    try:
+        yield counts
+    finally:
+        tchunk.train_iteration = inner
+
+
 def graph_vs_eager(torch, name, cfg, data, scale_idx, ndim,
-                   generator="GeneratorHPVAEGAN", discriminator=""):
+                   generator="GeneratorHPVAEGAN", discriminator="",
+                   want_mode="graph"):
     """Phase 22 (a), one case: 16 iterations as --steps-per-call 8 (the
     first chunk eager on the capture stream, then 8 replays of the
     captured iteration) against 16 --split-step eager iterations, from the
@@ -3719,7 +3886,12 @@ def graph_vs_eager(torch, name, cfg, data, scale_idx, ndim,
     last 7 iterations of each mode (after the capture and one replay, and
     one eager iteration), the idle share of each mode over 4 more
     profiled iterations (1 where an iteration takes over half a second),
-    capture seconds, the graph pool's GB and the peak GB."""
+    capture seconds, the graph pool's GB and the peak GB. In a group
+    (`want_mode` "graph (N NCCL ranks)", the group in force) also the
+    collectives the capture issued beside one eager iteration's and the
+    host syncs in the capture, and the two runs must be equal bit for
+    bit."""
+    from hpvaegan_tpu_torch.parallel import mesh
     import copy
 
     from hpvaegan_tpu_torch import models
@@ -3747,7 +3919,7 @@ def graph_vs_eager(torch, name, cfg, data, scale_idx, ndim,
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         graph_st, graph = make(False)
-        check(graph.mode == "graph", f"{name}: chunk mode {graph.mode}")
+        check(graph.mode == want_mode, f"{name}: chunk mode {graph.mode}")
         t0 = time.perf_counter()
         graph.run(8)  # the first chunk: eager, on the capture stream
         torch.cuda.synchronize()
@@ -3763,14 +3935,18 @@ def graph_vs_eager(torch, name, cfg, data, scale_idx, ndim,
 
         eager.run(1)
         torch.cuda.synchronize()
+        calls = mesh.COLLECTIVE_CALLS[0]
         t0 = time.perf_counter()
         for _ in range(7):
             metrics_e = eager.run(1)
         torch.cuda.synchronize()
         eager_s = time.perf_counter() - t0
-        replays = tchunk.replays
-        graph.run(1)  # the capture, then one replay
+        eager_calls = (mesh.COLLECTIVE_CALLS[0] - calls) / 7
+        replays, calls, syncs = tchunk.replays, mesh.COLLECTIVE_CALLS[0], []
+        with syncs_in_capture(torch, syncs):
+            graph.run(1)  # the capture, then one replay
         torch.cuda.synchronize()
+        captured_calls = mesh.COLLECTIVE_CALLS[0] - calls
         t0 = time.perf_counter()
         metrics_g = graph.run(7)
         torch.cuda.synchronize()
@@ -3782,6 +3958,13 @@ def graph_vs_eager(torch, name, cfg, data, scale_idx, ndim,
                     for k in metrics_e)
         check(diff <= 1e-4 and mdiff <= 1e-4, f"{name}: graph vs eager "
               f"state {diff} (first {first}), metrics {mdiff}")
+        check(want_mode == "graph" or (equal and mdiff == 0),
+              f"{name}: graph vs eager in the group: state {diff} (first "
+              f"{first}), metrics {mdiff}; bit for bit expected")
+        check(syncs == [0] and captured_calls == eager_calls,
+              f"{name}: host syncs in the capture {syncs}, collectives "
+              f"captured {captured_calls} vs {eager_calls} an eager "
+              f"iteration; other warnings {sorted(CAPTURE_WARNINGS)}")
         check(all(math.isfinite(float(v)) for v in metrics_g.values()),
               f"{name}: metrics {metrics_g}")
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -3809,6 +3992,9 @@ def graph_vs_eager(torch, name, cfg, data, scale_idx, ndim,
         "idle_window_iterations": reps,
         "capture_s": round(graph.capture_s, 3),
         "graph_pool_gb": round(graph.pool_bytes / 1e9, 3),
+        "mode": want_mode, "collectives_captured": captured_calls,
+        "collectives_per_eager_iteration": eager_calls,
+        "host_syncs_in_capture": syncs[0],
         "peak_gb": round(peak_gb, 3),
         "case_s": round(time.perf_counter() - t_case, 1)})
     print(f"  (a) {name}, scale {scale_idx}: " + json.dumps(out), flush=True)
@@ -3961,6 +4147,787 @@ def phase_chunk(torch, k1, scale9_video=None):
     return out
 
 
+# --cards 4: the mesh as it is deployed, four NCCL ranks of one card each
+# (`chip_smoke.py --cards-worker` processes; the default run never starts
+# them), against this process on card 0 at the same global batch, TF32 off
+CARDS = 4
+# (--mesh-data D, --mesh-sp S) of cases (a) and (b); the global batch is D
+CARD_MESHES = ((4, 1), (1, 4), (2, 2))
+# iterations a chunk (--steps-per-call) and profiled iterations a mode
+CARD_ITERS = {2: 8, 3: 2}
+CARD_PROFILE = {2: 4, 3: 1}
+# (f): the faults planted in graph mode, each on the mesh whose
+# collectives it breaks
+CARD_FAULTS = (("grads_not_averaged", (4, 1)), ("bn_not_reduced", (4, 1)),
+               ("halo_wrong_neighbour", (1, 4)))
+# (d): the fault planted in every rank of a train CLI's mesh run
+CLI_FAULT = "grads_not_averaged"
+
+
+def restore_state(torch, st, src):
+    """Set `st`'s G, D, optimizer states and draws to `src`'s in place (the
+    tensors a captured graph reads keep their addresses), `src` being a
+    state that has run no iteration: its optimizers hold no state, which a
+    zeroed step and zeroed moments are."""
+    st.G.load_state_dict(src.G.state_dict())
+    st.D.load_state_dict(src.D.state_dict())
+    for opt in (st.opt_g, st.opt_d):
+        for state in opt.state.values():
+            for v in state.values():
+                if torch.is_tensor(v):
+                    v.zero_()
+    st.noise.set_state(src.noise.get_state())
+
+
+def nccl_share(torch, fn):
+    """fn()'s wall ms and the device ms of its kernels, of NCCL's among
+    them, from one profiler window: the share of an iteration in NCCL's
+    kernels (their time includes their wait for the other ranks)."""
+    from torch.autograd import DeviceType
+
+    torch.cuda.synchronize()
+    with profiled(torch) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    nccl = [e for e in kernels if "nccl" in e.name.lower()]
+    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    nccl_ms = sum(e.time_range.elapsed_us() for e in nccl) / 1e3
+    return {"wall_ms": round(wall_ms, 3), "busy_ms": round(busy, 3),
+            "nccl_ms": round(nccl_ms, 3), "nccl_kernels": len(nccl),
+            "nccl_share": round(nccl_ms / wall_ms, 4) if busy else None}
+
+
+def card_leg(torch, group, ndim, batch, generator=None, graph=True,
+             first_only=False):
+    """One training case of --cards: the full-width scale-9 iteration of
+    the 2D (192x257) or 3D (13x192x257) GeneratorHPVAEGAN, or of the
+    baseline `generator` against WDiscriminatorBaselines, at global batch
+    `batch` under `group` (a rank's share, or the whole in one process),
+    in chunks of CARD_ITERS[ndim]. The first chunk runs iteration 1
+    eagerly on the capture stream: its metrics and gradients are what
+    DP_TRAIN_REL holds to one process. With `graph` the state is then set
+    back to its start in place and the next chunk captures iteration 1
+    and replays it: the graph's metrics and gradients must equal the
+    eager ones bit for bit (a planted fault's reading is the graph's). Then
+    the graph's other iterations against as many --split-step iterations
+    of a second state built alike (which supplied the start), bit for bit
+    at the end; steps/s of each mode, the collectives captured beside an
+    eager iteration's, host syncs in the capture, the share of each mode
+    in NCCL's kernels, peak GB, the heights the H-sharded convolutions ran
+    on, capture s and the graph pool's GB."""
+    from hpvaegan_tpu_torch.data.image import SingleImageDataset
+    from hpvaegan_tpu_torch.parallel import mesh, spatial
+    from hpvaegan_tpu_torch.tools.step_parity import build_state
+    from hpvaegan_tpu_torch.training import chunk as tchunk
+    from hpvaegan_tpu_torch.training.steps import batch_former
+    from hpvaegan_tpu_torch.utils.noise import NoiseSource
+
+    k = CARD_ITERS[ndim]
+    if ndim == 2:
+        image = os.path.join(HERE, "data", "imgs", "air_balloons.jpg")
+        cfg = full_width_config(image_path=image, batch_size=batch)
+        dataset = SingleImageDataset(cfg, DP_DEVICE)
+        data = dataset.scale_image(DP_SCALE), dataset.scale_image(0)
+    else:
+        cfg, dataset = video_config(batch_size=batch)
+        data = dataset.scale_frames(DP_SCALE), dataset.scale_frames(0)
+    models = ("GeneratorHPVAEGAN", "")
+    if generator:
+        models = (generator, "WDiscriminatorBaselines")
+        cfg = dataclasses.replace(cfg, generator=generator,
+                                  discriminator=models[1])
+    cfg = dataclasses.replace(cfg, niter=k, steps_per_call=k,
+                              scale_idx=DP_SCALE)
+    amps = [1.0] + [0.05] * (cfg.stop_scale + 1)
+    former = batch_former(ndim, DP_SCALE, baseline=bool(generator))
+
+    def make(split):
+        c = dataclasses.replace(cfg, split_step=split)
+        st = build_state(c, DP_SCALE, SEED, DP_DEVICE, ndim, *models)
+        st.noise = NoiseSource(SEED, DP_DEVICE)
+        return st, tchunk.TrainChunk(c, st, data, amps, False, former)
+
+    def grads(module):
+        return {n: p.grad.detach().cpu().clone()
+                for n, p in module.named_parameters() if p.grad is not None}
+
+    def reading(st, metrics):
+        return {"metrics": {n: float(v) for n, v in metrics.items()},
+                "G_grads": grads(st.G), "D_grads": grads(st.D)}
+
+    out = {"batch": batch, "iterations": k}
+    with mesh.data_parallel(group):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        st, chunk = make(not graph)
+        ref_st, eager = make(True) if graph else (st, chunk)
+        out["mode"] = chunk.mode
+        spatial.conv_rows.clear()
+        out["first"] = reading(st, chunk.run(1))
+        out["conv_rows"] = dict(sorted(spatial.conv_rows.items()))
+        if graph:
+            torch.cuda.synchronize()
+            restore_state(torch, st, ref_st)
+            calls, syncs = mesh.COLLECTIVE_CALLS[0], []
+            with syncs_in_capture(torch, syncs):
+                metrics = chunk.run(1)  # the capture, then one replay
+            torch.cuda.synchronize()
+            out["collectives_captured"] = mesh.COLLECTIVE_CALLS[0] - calls
+            out["host_syncs_in_capture"] = syncs
+            out["graph_first"] = reading(st, metrics)
+            out["capture_s"] = round(chunk.capture_s, 3)
+            out["graph_pool_gb"] = round(chunk.pool_bytes / 1e9, 3)
+            out["graph_first_bit_equal"] = out["graph_first"]["metrics"] \
+                == out["first"]["metrics"] and all(
+                    torch.equal(v, out["first"][part][n])
+                    for part in ("G_grads", "D_grads")
+                    for n, v in out["graph_first"][part].items())
+        if not first_only:
+            if graph:
+                eager.run(1)  # iteration 1 of the state that stayed eager
+            torch.cuda.synchronize()
+            calls = mesh.COLLECTIVE_CALLS[0]
+            t0 = time.perf_counter()
+            for _ in range(k - 1):
+                metrics_e = eager.run(1)
+            torch.cuda.synchronize()
+            out["eager_steps_per_s"] = (k - 1) / (time.perf_counter() - t0)
+            out["collectives_per_eager_iteration"] = (
+                mesh.COLLECTIVE_CALLS[0] - calls) / (k - 1)
+            check(all(math.isfinite(float(v)) for v in metrics_e.values()),
+                  f"metrics {metrics_e}")
+            if graph:
+                t0 = time.perf_counter()
+                chunk.run(k - 1)
+                torch.cuda.synchronize()
+                out["graph_steps_per_s"] = (k - 1) / (time.perf_counter()
+                                                      - t0)
+                diff, equal, first = state_diff(
+                    torch, module_state(torch, st),
+                    module_state(torch, ref_st))
+                out.update(graph_vs_eager_max_diff=diff,
+                           graph_vs_eager_bit_equal=equal,
+                           graph_vs_eager_first_differing=first)
+            reps = CARD_PROFILE[ndim]
+            out["nccl_share_eager"] = nccl_share(
+                torch, lambda: [eager.run(1) for _ in range(reps)])
+            if graph:
+                out["nccl_share_graph"] = nccl_share(
+                    torch, lambda: chunk.run(reps))
+            out["G"] = {n: v.cpu() for n, v in st.G.state_dict().items()}
+            out["D"] = {n: v.cpu() for n, v in st.D.state_dict().items()}
+        out["peak_gb"] = round(torch.cuda.max_memory_allocated() / 1e9, 3)
+        chunk.close()
+    del st, ref_st, chunk, eager, data, dataset
+    torch.cuda.empty_cache()
+    return out
+
+
+@contextlib.contextmanager
+def planted(fault):
+    """One fault of CARD_FAULTS planted for the extent of the body (the
+    module attributes it replaces put back after): phase 19 (c)'s
+    gradients not averaged and BatchNorm not reduced over the data axis,
+    or each halo taken from the wrong neighbour (the rank above's rows
+    where the rank below's belong, and the other way round)."""
+    from hpvaegan_tpu_torch.ops import norm
+    from hpvaegan_tpu_torch.parallel import spatial
+    from hpvaegan_tpu_torch.training import steps
+
+    saved = [(steps, "_set_grads", steps._set_grads),
+             (norm, "set_group_sum", norm.set_group_sum),
+             (spatial, "_neighbour_rows", spatial._neighbour_rows)]
+    if fault == "halo_wrong_neighbour":
+        inner = spatial._neighbour_rows
+
+        def swapped(top, bottom, ax):
+            above, below = inner(bottom, top, ax)
+            return below, above
+        spatial._neighbour_rows = swapped
+    else:
+        plant_fault(fault)
+    try:
+        yield
+    finally:
+        for module, name, value in saved:
+            setattr(module, name, value)
+
+
+def card_eval_leg(torch, exp, ndim, mesh_data):
+    """--on-device-fid SIFID (2D) or SVFID (3D) of DP_SAMPLES samples on
+    `exp` over --mesh-data ranks, or one process (1)."""
+    if ndim == 2:
+        return dp_eval_leg(torch, exp, mesh_data)
+    from hpvaegan_tpu_torch.evaluation import (eval_video_experiment,
+                                               hydrate_config)
+
+    cfg = hydrate_config(exp, dict(
+        niter=1, data_rep=1, batch_size=1, num_samples=DP_SAMPLES,
+        max_samples=4, save_path="images", scale_idx=-1,
+        mesh_data=mesh_data, on_device_fid=True, netG=""))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    value = eval_video_experiment(cfg, exp, seed=SEED, device=DP_DEVICE)[0]
+    return {"SVFID": value, "s": time.perf_counter() - t0}
+
+
+def cards_worker(rank, port, work):
+    """One rank of --cards, run as `chip_smoke.py --cards-worker <rank>
+    <port> <dir>`: card `rank` (select_device's rule for the explicit
+    bootstrap), NCCL, and in one process group the training cases (a)-(c),
+    the evaluation (e) and the planted faults (f)."""
+    import torch
+    import torch.distributed as dist
+
+    from hpvaegan_tpu_torch.ops import fused_upscale_noise as k1
+    from hpvaegan_tpu_torch.parallel import mesh, multihost
+
+    device = mesh.select_device(DP_DEVICE, 0, rank)
+    multihost.init_distributed(f"127.0.0.1:{port}", CARDS, rank,
+                               device=device)
+    # every rank makes every group, in this order
+    groups = {m: mesh.make_data_group(*m) for m in CARD_MESHES}
+    out = {"backend": dist.get_backend(), "device": str(device),
+           "card": torch.cuda.get_device_name(device), "s": {}}
+
+    def timed(key, fn):
+        t0 = time.perf_counter()
+        out[key] = fn()
+        out["s"][str(key)] = round(time.perf_counter() - t0, 1)
+        print(f"rank {rank}: {key} in {out['s'][str(key)]} s", flush=True)
+
+    with exact_math(torch):
+        for ndim in (2, 3):
+            for m in CARD_MESHES:
+                timed((ndim,) + m, lambda: card_leg(torch, groups[m], ndim,
+                                                    m[0]))
+        timed("csg", lambda: card_leg(torch, groups[(1, CARDS)], 3, 1,
+                                      "GeneratorCSG"))
+        timed("eval_image", lambda: card_eval_leg(
+            torch, os.path.join(work, "image"), 2, CARDS))
+        timed("eval_video", lambda: card_eval_leg(
+            torch, os.path.join(work, "video"), 3, CARDS))
+        timed("sampler", lambda: dp_sampler_leg(
+            torch, k1, os.path.join(work, "image"), groups[(CARDS, 1)]))
+        for fault, m in CARD_FAULTS:
+            with planted(fault):
+                timed(fault, lambda: card_leg(
+                    torch, mesh.make_data_group(*m), 2, m[0],
+                    first_only=True))
+    torch.save(out, os.path.join(work, f"cards_sound_{rank}.pt"))
+    multihost.sync()
+    dist.destroy_process_group()
+
+
+def cards_cli(kind, variant, run, *dist_flags):
+    """One rank of a --cards (d) mesh run, as `chip_smoke.py --cards-cli
+    <kind> <variant> <run dir> [--dist-* flags]` (torchrun's environment
+    without them): `cli_variant` on the mesh of `kind`."""
+    import torch.distributed as dist
+
+    flags = list(dist_flags) or ["--dist-coordinator", "auto"]
+    flags += (["--mesh-data", "2", "--mesh-sp", "2"] if kind == "image"
+              else ["--mesh-sp", str(CARDS)])
+    cli_variant(kind, variant, run, flags)
+    dist.destroy_process_group()
+
+
+def cli_variant(kind, variant, run, flags):
+    """--cards (d)'s train CLI of `kind` in this process, TF32 off and
+    deterministic cuDNN, as `variant`: "one" and "graph" as they are,
+    "split" under --split-step, "ulp" with every training input one ulp up
+    (`ulp_inputs`), "fault" with CLI_FAULT planted. Each scale's G and D as
+    this rank holds them at the scale's end go to <run>/states_<rank>.pt
+    (`scale_states`)."""
+    import torch
+    import torch.distributed as dist
+
+    extra = ["--split-step"] if variant == "split" else []
+    variation = {"ulp": lambda: ulp_inputs(torch),
+                 "fault": lambda: planted(CLI_FAULT)}.get(
+                     variant, contextlib.nullcontext)
+    with exact_math(torch), variation(), scale_states(torch) as states:
+        card_train_cli(kind, run, flags + extra)
+    rank = dist.get_rank() if dist.is_initialized() else 0
+    torch.save(states, os.path.join(run, f"states_{rank}.pt"))
+
+
+def card_train_cli(kind, run, flags):
+    """--cards (d)'s train CLI, in this process: train_image 10 scales x 16
+    iterations at --steps-per-call 8, global batch 2; or
+    train_video_baselines (GeneratorCSG) 10 scales x 4 iterations at
+    --steps-per-call 2, batch 1."""
+    if kind == "image":
+        from hpvaegan_tpu_torch import train_image
+
+        return train_image.main(image_train_args(
+            run, "--niter", "16", "--steps-per-call", "8",
+            "--print-interval", "8", "--batch-size", "2", *flags,
+            graph=True))
+    from hpvaegan_tpu_torch import train_video_baselines
+
+    return train_video_baselines.main([
+        "--video-path", os.path.join(HERE, "data", "vids",
+                                     "balloons_pan.avi"),
+        "--max-frames", "13", "--sampling-rates", "4", "3", "2", "1",
+        "--niter", "4", "--steps-per-call", "2", "--print-interval", "2",
+        "--batch-size", "1", "--run-dir", run, "--checkname", "smoke",
+        "--manualSeed", "1", *flags])
+
+
+@contextlib.contextmanager
+def scale_states(torch):
+    """Yields {scale: {"G" | "D": {"params" | "buffers": {name: SHA-1 of
+    the tensor's bytes}}}}, filled as each scale ends (its chunk's
+    `close`): what this rank holds then, weights apart from BatchNorm's
+    running statistics and the other buffers."""
+    import hashlib
+
+    from hpvaegan_tpu_torch.training import chunk as tchunk
+
+    close, states = tchunk.TrainChunk.close, {}
+
+    def digest(v):
+        v = v.detach().cpu().contiguous().reshape(-1).view(torch.uint8)
+        return hashlib.sha1(v.numpy().tobytes()).hexdigest()
+
+    def hashed(self):
+        states[self.cfg.scale_idx] = {
+            part: {"params": {n: digest(v)
+                              for n, v in module.named_parameters()},
+                   "buffers": {n: digest(v)
+                               for n, v in module.named_buffers()}}
+            for part, module in (("G", self.st.G), ("D", self.st.D))}
+        close(self)
+
+    tchunk.TrainChunk.close = hashed
+    try:
+        yield states
+    finally:
+        tchunk.TrainChunk.close = close
+
+
+@contextlib.contextmanager
+def ulp_inputs(torch):
+    """Every element of the training image or frames, at every scale, one
+    ulp up (`torch.nextafter` towards +inf): a perturbation of the size of
+    the rounding that a different order of float32 sums makes."""
+    from hpvaegan_tpu_torch.data.image import SingleImageDataset
+    from hpvaegan_tpu_torch.data.video import SingleVideoDataset
+
+    saved = [(cls, name, getattr(cls, name))
+             for cls, name in ((SingleImageDataset, "scale_image"),
+                               (SingleVideoDataset, "scale_frames"))]
+    for cls, name, method in saved:
+        def up(self, scale_idx, method=method):
+            x = method(self, scale_idx)
+            return torch.nextafter(x, torch.full_like(x, math.inf))
+        setattr(cls, name, up)
+    try:
+        yield
+    finally:
+        for cls, name, method in saved:
+            setattr(cls, name, method)
+
+
+def experiment_of(run):
+    """The one experiment dir a train CLI run wrote under `run`."""
+    import glob
+
+    exps = glob.glob(os.path.join(run, "**", "experiment_*"),
+                     recursive=True)
+    check(len(exps) == 1, f"{run}: experiment dirs {exps}")
+    return exps[0]
+
+
+def logged_modes(exp):
+    """The chunk mode each scale's line of the logbook names."""
+    import re
+
+    with open(os.path.join(exp, "logbook.txt")) as f:
+        return re.findall(r"scale \d+: chunks of \d+ iterations, (.*)",
+                          f.read())
+
+
+def ckpt_diffs(a, b):
+    """`param_diffs`' readings of two netG checkpoints in the JAX layout:
+    (max |diff| over the weights, "params", max relative |diff| over
+    "state", BatchNorm's running statistics)."""
+    import numpy as np
+
+    def leaves(tree):
+        if isinstance(tree, dict):
+            return [x for k in sorted(tree) for x in leaves(tree[k])]
+        if isinstance(tree, (list, tuple)):
+            return [x for t in tree for x in leaves(t)]
+        return [np.asarray(tree, dtype=np.float64)]
+
+    par = [float(np.abs(x - y).max())
+           for x, y in zip(leaves(a["params"]), leaves(b["params"]))]
+    run = [float((np.abs(x - y) / np.maximum(np.abs(y), 1e-3)).max())
+           for x, y in zip(leaves(a["state"]), leaves(b["state"]))]
+    return max(par), max(run, default=0.0)
+
+
+def ranks_differ(states):
+    """{scale: {"params": n, "buffers": n}}: the tensors of G and D in
+    which the ranks' `scale_states` differ, at the scales where any do."""
+    out = {}
+    for k in sorted(states[0]):
+        n = {kind: sum(len({r[k][part][kind][name] for r in states}) > 1
+                       for part in ("G", "D")
+                       for name in states[0][k][part][kind])
+             for kind in ("params", "buffers")}
+        if any(n.values()):
+            out[k] = n
+    return out
+
+
+def read_cli_run(torch, run):
+    """A --cards (d) run's experiment: its chunk modes, amps, every
+    scale's netG and each rank's `scale_states`."""
+    import glob
+
+    from hpvaegan_tpu_torch.utils.saver import load_pytree
+
+    exp = experiment_of(run)
+    with open(os.path.join(exp, "intermediate.json")) as f:
+        amps = json.load(f)["noise_amps"]
+    return {"modes": logged_modes(exp), "amps": amps,
+            "netG": [load_pytree(os.path.join(exp, f"netG_{k}.ckpt"))
+                     for k in range(len(amps))],
+            "states": [torch.load(path) for path in sorted(
+                glob.glob(os.path.join(run, "states_*.pt")))]}
+
+
+def mesh_cli(kind, variant, run):
+    """Start --cards (d)'s mesh run of `kind`: train_image --mesh-data 2
+    --mesh-sp 2 under torchrun (--dist-coordinator auto), or
+    train_video_baselines --mesh-sp 4 with explicit --dist-* flags and no
+    --device-id (each rank takes its card by its process id); wait for it
+    (join_in_group)."""
+    script = os.path.abspath(__file__)
+    os.makedirs(run)
+    if kind == "image":
+        logs = [os.path.join(run, "torchrun.log")]
+        procs = [start_in_group(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             "--nproc-per-node", str(CARDS), script, "--cards-cli", kind,
+             variant, run], logs[0])]
+    else:
+        port = free_port()
+        logs = [os.path.join(run, f"rank_{r}.log") for r in range(CARDS)]
+        procs = [start_in_group(
+            [sys.executable, script, "--cards-cli", kind, variant, run,
+             "--dist-coordinator", f"127.0.0.1:{port}", "--dist-nprocs",
+             str(CARDS), "--dist-procid", str(r)], logs[r])
+            for r in range(CARDS)]
+    join_in_group(procs, logs, f"--cards (d) {kind} {variant}")
+
+
+def card_clis(torch, work):
+    """--cards (d): each train CLI (`card_train_cli`) five ways: one
+    process on card 0 ("one"), the same with its inputs one ulp up
+    ("ulp"), and on its mesh of four NCCL ranks (`mesh_cli`) as it is
+    ("graph"), under --split-step ("split") and, train_image only, with
+    CLI_FAULT planted in every rank ("fault"). Held, bit for bit: the mesh
+    run against the --split-step one (every amp, every scale's G and D on
+    every rank), and the ranks against each other at the end of every
+    scale; scale 1's amp (the first calibration after training, scale 0's
+    iterations) within DP_TRAIN_REL of one process's; one experiment dir
+    a run, the chunk mode at every scale. The planted fault must break a
+    bar that the sound run holds. The later amps and every scale's netG
+    (weights and running statistics apart) are reported against one
+    process beside what the ulp does to one process: the random
+    full-width model amplifies a rounding a thousandfold (phase 19) and
+    every Adam step compounds it. Every reading is printed before the
+    checks."""
+    out, problems = {}, []
+    mesh_mode = f"graph ({CARDS} NCCL ranks)"
+    want_modes = {"one": "graph", "ulp": "graph", "graph": mesh_mode,
+                  "split": "eager (split-step)", "fault": mesh_mode}
+    for kind in ("image", "baselines"):
+        runs, secs = {}, {}
+        for variant in ("one", "ulp", "graph", "split") + (
+                ("fault",) if kind == "image" else ()):
+            run = os.path.join(work, f"cli_{kind}_{variant}")
+            t0 = time.perf_counter()
+            if variant in ("one", "ulp"):
+                cli_variant(kind, variant, run, [])
+                torch.cuda.empty_cache()
+            else:
+                mesh_cli(kind, variant, run)
+            secs[variant] = round(time.perf_counter() - t0, 1)
+            runs[variant] = read_cli_run(torch, run)
+        one = runs["one"]
+        res = {"mesh": "--mesh-data 2 --mesh-sp 2, torchrun"
+               if kind == "image" else f"--mesh-sp {CARDS}, --dist-* flags",
+               "s": secs}
+        for variant, r in runs.items():
+            want = [want_modes[variant]] * 10
+            n_ranks = 1 if variant in ("one", "ulp") else CARDS
+            if r["modes"] != want or len(r["states"]) != n_ranks \
+                    or len(r["amps"]) != 10:
+                problems.append(f"{kind} {variant}: modes {r['modes']}, "
+                                f"{len(r['states'])} ranks' states, amps "
+                                f"{r['amps']}")
+        for variant in ("ulp", "graph", "fault"):
+            if variant not in runs:
+                continue
+            r = runs[variant]
+            rels = [abs(a - b) / abs(b) for a, b in zip(r["amps"],
+                                                        one["amps"])]
+            diffs = [ckpt_diffs(g, g1) for g, g1 in zip(r["netG"],
+                                                        one["netG"])]
+            res[variant] = {
+                "amps_rel_vs_one": rels,
+                "netG_weights_max_abs_vs_one": [d[0] for d in diffs],
+                "netG_running_stats_max_rel_vs_one": [d[1] for d in diffs]}
+        for variant in ("graph", "split", "fault"):
+            if variant in runs:
+                res.setdefault(variant, {})["ranks_differ"] = {
+                    str(k): v for k, v in
+                    ranks_differ(runs[variant]["states"]).items()}
+        graph, split = runs["graph"], runs["split"]
+        res["graph_vs_split_bit_equal"] = {
+            "amps": graph["amps"] == split["amps"],
+            "G_D_every_scale_every_rank": graph["states"] == split["states"]}
+        amp1 = res["graph"]["amps_rel_vs_one"][1]
+        if not all(res["graph_vs_split_bit_equal"].values()):
+            problems.append(f"{kind}: graph vs --split-step on {CARDS} "
+                            f"ranks {res['graph_vs_split_bit_equal']}")
+        for variant in ("graph", "split"):
+            if res[variant]["ranks_differ"]:
+                problems.append(f"{kind} {variant}: the ranks differ "
+                                f"{res[variant]['ranks_differ']}")
+        if not amp1 <= DP_TRAIN_REL:
+            problems.append(f"{kind}: scale 1's amp {amp1} from one "
+                            "process's")
+        if "fault" in runs:
+            fault = res["fault"]
+            fault["caught_by"] = [name for name, caught in (
+                ("ranks_differ", bool(fault["ranks_differ"])),
+                ("amp_1", fault["amps_rel_vs_one"][1] > DP_TRAIN_REL))
+                if caught]
+            if not fault["caught_by"]:
+                problems.append(f"{kind}: planted {CLI_FAULT} passed every "
+                                "bar")
+        out[kind] = res
+        print(f"  (d) {kind} CLI, {CARDS} NCCL ranks ({res['mesh']}) vs "
+              "1 process (TF32 off): " + json.dumps(res), flush=True)
+    check(not problems, "(d): " + "; ".join(problems))
+    return out
+
+
+def card_train_checks(torch, ranks, one, key, what, one_key=None):
+    """Case (a), (b) or (c) of --cards: `key` of each rank's results
+    against `one_key` (default `key`) of this process's: the mode, ranks
+    bit-equal, graph == eager bit for bit, the captured collectives, the
+    first iteration within DP_TRAIN_REL. Returns the case's JSON."""
+    legs = [r[key] for r in ranks]
+    ref = one[one_key or key]
+    want = f"graph ({CARDS} NCCL ranks)"
+    check(all(leg["mode"] == want for leg in legs),
+          f"{what}: modes {[leg['mode'] for leg in legs]}")
+    for part in ("G", "D"):
+        same = all(torch.equal(v, leg[part][n]) for leg in legs[1:]
+                   for n, v in legs[0][part].items())
+        check(same, f"{what}: the ranks' {part} differ")
+    check(all(leg["first"]["metrics"] == legs[0]["first"]["metrics"]
+              for leg in legs), f"{what}: the ranks' metrics differ")
+    calls = [(leg["collectives_captured"],
+              leg["collectives_per_eager_iteration"]) for leg in legs]
+    check(all(c == e > 0 for c, e in calls)
+          and all(leg["host_syncs_in_capture"] == [0] for leg in legs),
+          f"{what}: collectives (captured, eager) {calls}, host syncs "
+          f"{[leg['host_syncs_in_capture'] for leg in legs]}")
+    check(all(leg["graph_first_bit_equal"] and leg["graph_vs_eager_bit_equal"]
+              for leg in legs),
+          f"{what}: graph vs eager under NCCL's defaults: iteration 1 "
+          f"bit-equal {[leg['graph_first_bit_equal'] for leg in legs]}, "
+          "the other iterations' max diff "
+          f"{[leg['graph_vs_eager_max_diff'] for leg in legs]}")
+    rel = first_iteration_rel(legs[0]["first"], ref["first"])
+    check(max(rel.values()) <= DP_TRAIN_REL,
+          f"{what}: {CARDS} ranks vs 1 process: {rel}")
+    g_par, g_run = param_diffs(legs[0]["G"], ref["G"])
+    return {
+        "ranks": CARDS, "backend": ranks[0]["backend"],
+        "batch": legs[0]["batch"], "scale": DP_SCALE,
+        "iterations": legs[0]["iterations"], "mode": want, **rel,
+        "ranks_bit_equal": True,
+        "graph_first_bit_equal": [leg["graph_first_bit_equal"]
+                                  for leg in legs],
+        "graph_vs_eager_bit_equal": [leg["graph_vs_eager_bit_equal"]
+                                     for leg in legs],
+        "graph_vs_eager_max_diff": max(leg["graph_vs_eager_max_diff"]
+                                       for leg in legs),
+        "G_param_max_diff_vs_1_process": g_par,
+        "G_running_stats_max_rel_vs_1_process": g_run,
+        "steps_per_s_1_process_eager": ref["eager_steps_per_s"],
+        "steps_per_s_1_process_graph": ref.get("graph_steps_per_s"),
+        "steps_per_s_eager_per_rank": [leg["eager_steps_per_s"]
+                                       for leg in legs],
+        "steps_per_s_graph_per_rank": [leg["graph_steps_per_s"]
+                                       for leg in legs],
+        "collectives_per_iteration": calls[0][0],
+        "host_syncs_in_capture": 0,
+        "nccl_share_eager_per_rank": [leg["nccl_share_eager"]["nccl_share"]
+                                      for leg in legs],
+        "nccl_share_graph_per_rank": [leg["nccl_share_graph"]["nccl_share"]
+                                      for leg in legs],
+        "nccl_ms_graph_rank0": legs[0]["nccl_share_graph"],
+        "nccl_share_1_process_graph": ref.get("nccl_share_graph", {}).get(
+            "nccl_share"),
+        "peak_gb_per_rank": [leg["peak_gb"] for leg in legs],
+        "peak_gb_1_process": ref["peak_gb"],
+        "capture_s_per_rank": [leg["capture_s"] for leg in legs],
+        "graph_pool_gb_rank0": legs[0]["graph_pool_gb"],
+        "conv_heights_per_rank": [leg["conv_rows"] for leg in legs]}
+
+
+def phase_cards(torch, k1, ckpt, clis_only=False):
+    """--cards 4 (module doc): the ranks' cases (a)-(c), (e) and (f)
+    unless `clis_only`, then the CLIs' (d); fails on any check."""
+    n = torch.cuda.device_count()
+    check(n >= CARDS, f"--cards {CARDS} needs {CARDS} cards; this machine "
+          f"has {n}")
+    t_start = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="hpv_cards_")
+    out = {} if clis_only else card_rank_cases(torch, k1, ckpt, work)
+    out["clis"] = card_clis(torch, work)
+    shutil.rmtree(work, ignore_errors=True)
+    print(f"  --cards {CARDS} took {time.perf_counter() - t_start:.1f} s",
+          flush=True)
+    return out
+
+
+def card_rank_cases(torch, k1, ckpt, work):
+    """--cards (a)-(c), (e) and (f): this process's cases on card 0, then
+    the ranks'; fails on any check."""
+    import numpy as np
+
+    from hpvaegan_tpu_torch.parallel import mesh
+
+    image = os.path.join(HERE, "data", "imgs", "air_balloons.jpg")
+    cfg = full_width_config(image_path=image)
+    os.makedirs(os.path.join(work, "image"))
+    write_experiment(os.path.join(work, "image"), cfg, ckpt)
+    vcfg, _ = video_config()
+    os.makedirs(os.path.join(work, "video"))
+    write_experiment(os.path.join(work, "video"), vcfg,
+                     random_jax_checkpoint(vcfg, SEED, ndim=3))
+    one, none = {}, mesh.DataGroup()
+    t0 = time.perf_counter()
+    with exact_math(torch):
+        for d, _ in CARD_MESHES:
+            one[(2, d)] = card_leg(torch, none, 2, d)
+            one[(3, d)] = card_leg(torch, none, 3, d, graph=False)
+        one["csg"] = card_leg(torch, none, 3, 1, "GeneratorCSG", graph=False)
+        one["eval_image"] = card_eval_leg(
+            torch, os.path.join(work, "image"), 2, 1)
+        one["eval_video"] = card_eval_leg(
+            torch, os.path.join(work, "video"), 3, 1)
+        k1.fused_upscale_noise_2d.launches = 0
+        one["sampler"] = dp_sampler_leg(torch, k1, os.path.join(
+            work, "image"), none)
+    check(all(one[(2, d)]["mode"] == "graph" for d, _ in CARD_MESHES),
+          "one process's 2D chunks are not graphs")
+    torch.cuda.empty_cache()
+    print(f"  one process on card 0: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    t0 = time.perf_counter()
+    ranks = join_ranks(torch, start_ranks(work, kind="cards", ranks=CARDS),
+                       work, kind="cards", ranks=CARDS)
+    print(f"  the {CARDS} ranks' processes took "
+          f"{time.perf_counter() - t0:.1f} s (per case: "
+          f"{[r['s'] for r in ranks[:1]]})", flush=True)
+    check([r["backend"] for r in ranks] == ["nccl"] * CARDS
+          and [r["device"] for r in ranks] == [f"cuda:{r}"
+                                               for r in range(CARDS)],
+          f"ranks' backends and cards {[(r['backend'], r['device']) for r in ranks]}")
+    out = {"cards": [r["card"] for r in ranks]}
+    for ndim, what in ((2, "(a) 2D"), (3, "(b) 3D")):
+        for d, s in CARD_MESHES:
+            name = f"{what} full-width scale {DP_SCALE}, --mesh-data {d} " \
+                f"--mesh-sp {s}"
+            res = card_train_checks(torch, ranks, one, (ndim, d, s), name,
+                                    (ndim, d))
+            rows = res["conv_heights_per_rank"]
+            h = 192 // s
+            check(all((h + 2 in r) == (s > 1) for r in rows),
+                  f"{name}: the sharded convolutions' heights {rows}")
+            out[(ndim, d, s)] = res
+            print(f"  {name} (batch {d}), {CARDS} NCCL ranks, chunk graphs "
+                  "vs eager, vs 1 process (TF32 off): " + json.dumps(res),
+                  flush=True)
+    res = card_train_checks(torch, ranks, one, "csg",
+                            f"(c) GeneratorCSG --mesh-sp {CARDS}")
+    rows = res["conv_heights_per_rank"]
+    check(48 + 2 in rows[1] and rows[1] == rows[2] and rows[0] == rows[3]
+          and set(rows[0]) != set(rows[1]),
+          f"(c): the sharded convolutions' heights {rows}")
+    out["csg"] = res
+    print(f"  (c) GeneratorCSG vs WDiscriminatorBaselines, full-width scale "
+          f"{DP_SCALE}, batch 1, --mesh-sp {CARDS} in unequal padded shards "
+          "(TF32 off): " + json.dumps(res), flush=True)
+    evals = {}
+    for kind, metric in (("eval_image", "SIFID"), ("eval_video", "SVFID")):
+        vals = [r[kind][metric] for r in ranks]
+        rel = abs(vals[0] - one[kind][metric]) / abs(one[kind][metric])
+        check(len(set(vals)) == 1 and math.isfinite(vals[0])
+              and rel <= 1e-3, f"(e) {metric} per rank {vals} vs 1 process "
+              f"{one[kind][metric]}")
+        evals[metric] = {"per_rank": vals, "1_process": one[kind][metric],
+                         "rel_diff": rel,
+                         "s_per_rank": [round(r[kind]["s"], 2)
+                                        for r in ranks],
+                         "s_1_process": round(one[kind]["s"], 2)}
+    samp = [r["sampler"] for r in ranks]
+    check(all(s["rows"] == DP_SAMPLES // CARDS for s in samp)
+          and all(np.array_equal(s["samples"], samp[0]["samples"])
+                  for s in samp), "(e) the ranks' gathered samples")
+    err = float(np.abs(samp[0]["samples"]
+                       - one["sampler"]["samples"]).max())
+    launches = [s["launches"] for s in samp]
+    check(err <= 1e-4 and launches == [9] * CARDS
+          and one["sampler"]["launches"] == 9,
+          f"(e) sharded sampler vs 1 process: err {err}, K1 launches per "
+          f"rank {launches}, one process {one['sampler']['launches']}")
+    evals["sampler"] = {
+        "ranks_x_samples": [CARDS, DP_SAMPLES // CARDS], "max_abs_err": err,
+        "k1_launches_per_rank": launches,
+        "k1_launches_1_process": one["sampler"]["launches"],
+        "s_per_rank": [round(s["s"], 4) for s in samp],
+        "s_1_process": round(one["sampler"]["s"], 4)}
+    out["eval"] = evals
+    print(f"  (e) eval_image / eval_video --mesh-data {CARDS} "
+          f"--on-device-fid, {DP_SAMPLES} samples, and the moving-stat "
+          f"sampler with pallas_fused_sampling, {CARDS} x "
+          f"{DP_SAMPLES // CARDS} vs 1 x {DP_SAMPLES}: " + json.dumps(evals),
+          flush=True)
+    planted_rel = {}
+    for fault, (d, s) in CARD_FAULTS:
+        legs = [r[fault] for r in ranks]
+        check(all(leg["mode"] == f"graph ({CARDS} NCCL ranks)"
+                  and leg["graph_first_bit_equal"] for leg in legs),
+              f"(f) {fault}: not a graph equal to its eager iteration")
+        rels = [first_iteration_rel(leg["graph_first"], one[(2, d)]["first"])
+                for leg in legs]
+        planted_rel[fault] = {k: max(r[k] for r in rels) for k in rels[0]}
+        check(max(planted_rel[fault].values()) > DP_TRAIN_REL,
+              f"(f) planted fault {fault} reads {planted_rel[fault]}, "
+              f"within DP_TRAIN_REL {DP_TRAIN_REL}")
+    out["faults"] = planted_rel
+    print(f"  (f) planted faults, 2D graph-replayed iteration 1 on {CARDS} "
+          f"ranks vs 1 process (the largest rank's reading; bar "
+          f"{DP_TRAIN_REL}): " + json.dumps(planted_rel), flush=True)
+    return out
+
+
 def video_at(cfg, scale_idx):
     """A copy of the video config at `scale_idx`: its fps, time depth and
     rate index."""
@@ -3973,7 +4940,63 @@ def video_at(cfg, scale_idx):
                                fps_index=fps_index)
 
 
+def cards_main(clis_only):
+    """`chip_smoke.py --cards 4 [--clis-only]`: the mesh on four cards
+    (module doc)."""
+    try:
+        import torch
+    except ImportError as e:
+        fail(f"PyTorch is not installed: {e}")
+    if not torch.cuda.is_available():
+        fail(f"no CUDA device: --cards {CARDS} needs {CARDS} NVIDIA cards")
+    try:
+        import hpvaegan_tpu_torch
+        from hpvaegan_tpu_torch.ops import cuda_build
+        from hpvaegan_tpu_torch.ops import fused_upscale_noise as k1
+    except ImportError as e:
+        fail(f"run from the root of a checkout of the repo: {e}")
+    pkg = os.path.dirname(os.path.abspath(hpvaegan_tpu_torch.__file__))
+    check(pkg.startswith(HERE + os.sep), f"imported {pkg}, not this checkout")
+    t0 = time.perf_counter()
+    cuda_build.load("upsample_noise")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr.strip()}")
+    cards = smi.stdout.strip().splitlines()
+    print(f"--cards {CARDS}: built upsample_noise in "
+          f"{time.perf_counter() - t0:.2f} s; cards: {cards}; torch "
+          f"{torch.__version__} CUDA {torch.version.cuda} NCCL "
+          f"{'.'.join(map(str, torch.cuda.nccl.version()))}", flush=True)
+    cfg = full_width_config(image_path=os.path.join(
+        HERE, "data", "imgs", "air_balloons.jpg"))
+    phase_cards(torch, k1, random_jax_checkpoint(cfg, SEED), clis_only)
+    for line in cards:
+        print(line, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
 def main():
+    if len(sys.argv) > 1 and sys.argv[1] == "--cards":
+        check(sys.argv[2:3] == [str(CARDS)]
+              and sys.argv[3:] in ([], ["--clis-only"]),
+              f"--cards takes {CARDS}: chip_smoke.py --cards {CARDS} "
+              "[--clis-only]")
+        cards_main(sys.argv[3:] == ["--clis-only"])
+        return
+    if len(sys.argv) > 1 and sys.argv[1].endswith("-worker"):
+        # a rank of start_ranks: SIGUSR1 (join_in_group) prints its stacks
+        from hpvaegan_tpu_torch.utils.logger import register_stack_dump
+
+        register_stack_dump()
+    if len(sys.argv) > 1 and sys.argv[1] == "--cards-worker":
+        cards_worker(int(sys.argv[2]), sys.argv[3], sys.argv[4])
+        return
+    if len(sys.argv) > 1 and sys.argv[1] == "--cards-cli":
+        cards_cli(*sys.argv[2:])
+        return
     if len(sys.argv) > 1 and sys.argv[1] == "--dp-worker":
         dp_worker(int(sys.argv[2]), sys.argv[3], sys.argv[4],
                   sys.argv[5] if len(sys.argv) > 5 else None)

@@ -20,6 +20,7 @@ import os
 
 from .evaluation import eval_image_experiment, hydrate_config
 from .parallel import mesh, multihost
+from .utils.logger import register_stack_dump
 
 
 def run(argv, evaluate, metric: str) -> None:
@@ -57,7 +58,9 @@ def run(argv, evaluate, metric: str) -> None:
 
     logging.basicConfig(level=logging.INFO,
                         format='%(asctime)s %(levelname)s %(message)s')
-    device = mesh.select_device(args.device, args.device_id)
+    register_stack_dump()
+    device = mesh.select_device(args.device, args.device_id,
+                                args.dist_procid)
     multihost.init_from_cfg(args, device)
     mesh.eval_group(args.mesh_data)  # refuse a data axis it cannot run
     for exp_dir in sorted(glob.glob(args.exp_dir)):

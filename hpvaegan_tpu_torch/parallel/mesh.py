@@ -77,9 +77,10 @@ class DataGroup(NamedTuple):
 
 
 _ACTIVE = DataGroup()
-# seconds spent in the group's collectives while `timing` is on (the
-# device is synchronized before each, so that queued work is not counted),
-# and their number
+# the number of the group's collectives issued (a captured one counts at
+# its capture, not at the replays), and the seconds spent in them while
+# `timing` is on (the device is synchronized before each, so that queued
+# work is not counted)
 COLLECTIVE_SECONDS = [0.0]
 COLLECTIVE_CALLS = [0]
 timing = False
@@ -174,15 +175,26 @@ def data_parallel(group: DataGroup):
         norm.set_sharded_sum(sharded_before)
 
 
-def select_device(kind: str = "cuda", device_id: int = 0) -> torch.device:
-    """The rank's device: cuda:<device_id> (under torchrun, cuda:LOCAL_RANK
-    when --device-id is 0), made current so that NCCL finds it; or the
-    CPU."""
+def select_device(kind: str = "cuda", device_id: int = 0,
+                  rank: int = -1) -> torch.device:
+    """The rank's device, made current so that NCCL finds it: cuda:<device_id>
+    where --device-id is given (not 0); else cuda:LOCAL_RANK under
+    torchrun; else, under the explicit bootstrap (`rank`, --dist-procid,
+    >= 0), card rank % the cards this host has, so that the consecutive
+    ranks of one host take a card each (NCCL refuses two ranks on one
+    card); else cuda:0. Or the CPU."""
     from ..utils.device import resolve_device
 
     if kind != "cuda":
         return resolve_device("cpu")
-    index = device_id or int(os.environ.get("LOCAL_RANK", 0))
+    if device_id:
+        index = device_id
+    elif "LOCAL_RANK" in os.environ:
+        index = int(os.environ["LOCAL_RANK"])
+    elif rank >= 0 and torch.cuda.is_available():
+        index = rank % torch.cuda.device_count()
+    else:
+        index = 0
     device = resolve_device(f"cuda:{index}")
     torch.cuda.set_device(device)
     return device
@@ -197,10 +209,15 @@ def local_rows(n: int) -> int:
 
 
 class _Timed:
+    """Counts a collective, and times it while `timing` is on: the device
+    is synchronized first, which a CUDA graph's capture forbids
+    (training/chunk.py refuses to capture while `timing` is on)."""
+
     def __init__(self, device: torch.device):
         self.device = device
 
     def __enter__(self):
+        COLLECTIVE_CALLS[0] += 1
         if timing and self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.t0 = time.perf_counter()
@@ -208,7 +225,6 @@ class _Timed:
     def __exit__(self, *exc):
         if timing:
             COLLECTIVE_SECONDS[0] += time.perf_counter() - self.t0
-            COLLECTIVE_CALLS[0] += 1
 
 
 class _AllReduceSum(torch.autograd.Function):

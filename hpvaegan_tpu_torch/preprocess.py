@@ -68,10 +68,13 @@ def pre_process(cfg, exp_dir: str, seed: int = 0, num_samples: int = 1):
     return noise_init, amps
 
 
-def main(argv=None):
+def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser()
     parser.add_argument('--exp-dir', type=str, required=True,
                         help='Experiment directory')
+    parser.add_argument('--device-id', default=0, type=int,
+                        help="accepted as the JAX CLI accepts it; no effect "
+                             "(preprocessing draws on the host)")
     parser.add_argument('--scale-idx', type=int, default=-1,
                         help='scale to serve (-1: the last finalized)')
     parser.add_argument('--seed', type=int, default=0)
@@ -81,7 +84,11 @@ def main(argv=None):
     parser.add_argument('--batch-size', type=int, default=1,
                         help="must match the export's --batch-size (the "
                              "runner checks bin bytes against io_spec.txt)")
-    args = parser.parse_args(argv)
+    return parser
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
 
     cfg = Config.from_args_txt(os.path.join(args.exp_dir, 'args.txt'))
     cfg.batch_size = args.batch_size

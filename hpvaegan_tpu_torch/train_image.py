@@ -228,9 +228,11 @@ def launch(args: argparse.Namespace, ndim: int, summary,
     from .utils.profiling import trace
 
     trainer = trainer or hpvaegan_trainer
+    hlog.register_stack_dump()
     cfg = cfg_from_args(args, ndim,
                         baselines=trainer is baselines_trainer).finalize()
-    device = mesh.select_device(args.device, args.device_id)
+    device = mesh.select_device(args.device, args.device_id,
+                                args.dist_procid)
     multihost.init_from_cfg(cfg, device)
     mesh.check_mesh(cfg.mesh_data, cfg.mesh_sp)  # refuse before IO
     if cfg.manualSeed is None:

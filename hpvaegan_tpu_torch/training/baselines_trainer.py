@@ -22,7 +22,9 @@ with these differences:
     in its place (JAX :305-366), so either package resumes and evaluates
     the other's run;
   * netG_<k> carries k + 1 stages: G grows by a deep copy of its last stage
-    at every scale > 0 except the one a reference-style resume retrains.
+    at every scale > 0 except the one a reference-style resume retrains;
+  * the logbook lines carry no noise amp: "[Scale k/Iter n] <metrics>"
+    (JAX :233-235).
 Resume is trainer.resume's cases (a)-(c) at that stage count: the inflight
 payload carries G, D, both optimizers and the generators' states; a
 finalized port marker continues at k + 1 with netD_<k> copied; any other
@@ -110,7 +112,7 @@ def train_scale(cfg, G, dataset, saver: DataSaver, noise_amps: List[float],
     noise_amps = trainer.calibrate_amp(cfg, G, former, data, noise_amps,
                                        noise, inflight, const_amp=False)
     trainer.run_scale(cfg, st, saver, data, noise_amps, False, former,
-                      init_gen, step_callback, inflight)
+                      init_gen, step_callback, inflight, log_amp=False)
     return noise_amps
 
 

@@ -30,12 +30,30 @@ the host generator (checked after capture) or reads a value to the host
 (capture then fails). The gradients `_set_grads` binds to `.grad` live in
 the graph's pool: nothing outside the graph reads them.
 
-On the CPU, under --split-step and in a group of several ranks (whose
-collectives and halo exchanges are not captured), the chunk runs its k
+In a group of ranks whose collectives are NCCL's (parallel/mesh.py, one
+card per rank) the chunk is a graph too, the counterpart of the JAX
+package's make_train_chunk(..., mesh=mesh): the captured iteration holds
+its collectives (the gradients' and metrics' all-reduce, BatchNorm's group
+sums, the spatial axis' halo all-gathers), each on NCCL's stream, forked
+from and joined to the capture stream. The scale's first chunk runs every
+collective of the iteration eagerly, so that each communicator it uses
+(WORLD, the data column, the spatial row) exists before the capture. Every
+rank decides the mode alike (the device, the backend and cfg are the same
+on all) and so captures the same collectives; the capture runs in
+thread-local error mode, so that NCCL's watchdog thread may query its
+events meanwhile, and the ranks then agree, in one eager all-reduce, that
+every capture succeeded before any replays: a rank whose capture failed
+raises, and so do the others, instead of replaying collectives that one
+rank never joins. `mesh.timing` synchronizes the device at every
+collective, which a capture cannot record: the chunk refuses to capture
+while it is on.
+
+On the CPU, under --split-step and in a gloo group (whose collectives copy
+through the host, which a graph cannot record) the chunk runs its k
 iterations as an eager loop; the chunk boundaries, and with them the
-trainer's logbook, images and inflight checkpoints, are the same. On a
-single-rank CUDA run a failed capture or replay raises; nothing falls back
-to eager.
+trainer's logbook, images and inflight checkpoints, are the same. A failed
+capture or replay raises; nothing falls back to eager, and an NCCL group
+never drops to gloo.
 """
 
 from __future__ import annotations
@@ -45,6 +63,7 @@ import time
 from typing import Callable, Optional
 
 import torch
+import torch.distributed as dist
 
 from ..parallel import mesh
 from .state import ScaleTrainState
@@ -63,26 +82,39 @@ def steps_per_call(cfg) -> int:
     return max(1, min(int(cfg.steps_per_call), int(cfg.niter)))
 
 
+def chunk_mode(device_type: str, split_step: bool, backend: Optional[str],
+               ranks: int = 1) -> str:
+    """How a scale's chunks run, for the log: "graph" (one rank on the
+    card), "graph (N NCCL ranks)", or why eagerly: "eager (N gloo ranks)",
+    "eager (cpu)", "eager (split-step)". `backend`: the group's, None
+    without a group."""
+    group = f"{ranks} {'NCCL' if backend == 'nccl' else backend} " \
+        f"rank{'' if ranks == 1 else 's'}"
+    if backend not in (None, "nccl"):
+        return f"eager ({group})"
+    if device_type != "cuda":
+        return f"eager ({device_type})"
+    if split_step:
+        return "eager (split-step)"
+    return "graph" if backend is None else f"graph ({group})"
+
+
 class TrainChunk:
     """Scale cfg.scale_idx's iterations of `st` on `data` (data_scale,
     data_zero) at `amps`, in chunks: `run(k)` runs k iterations and
-    returns the last one's metrics (device tensors). `mode` is "graph",
-    or why the chunk runs eagerly."""
+    returns the last one's metrics (device tensors). `mode` is
+    `chunk_mode`'s."""
 
     def __init__(self, cfg, st: ScaleTrainState, data, amps,
                  vae_phase: bool, former: Callable):
         self.cfg, self.st, self.data = cfg, st, data
         self.amps, self.vae_phase, self.former = amps, vae_phase, former
         self.device = next(st.G.parameters()).device
-        group, ranks = mesh.everyone()
-        if self.device.type != "cuda":
-            self.mode = f"eager ({self.device.type})"
-        elif group is not None:
-            self.mode = f"eager ({ranks} ranks)"
-        elif cfg.split_step:
-            self.mode = "eager (split-step)"
-        else:
-            self.mode = "graph"
+        self.group, ranks = mesh.everyone()
+        backend = None if self.group is None \
+            else dist.get_backend(self.group)
+        self.mode = chunk_mode(self.device.type, cfg.split_step, backend,
+                               ranks)
         self.stream: Optional[torch.cuda.Stream] = None
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.outputs: Optional[Metrics] = None
@@ -94,7 +126,7 @@ class TrainChunk:
                                self.amps, self.vae_phase, self.former)
 
     def run(self, k: int) -> Metrics:
-        if self.mode != "graph":
+        if not self.mode.startswith("graph"):
             for _ in range(k):
                 metrics = self.iteration()
             return metrics
@@ -126,6 +158,12 @@ class TrainChunk:
 
     def _capture(self) -> None:
         global captures
+        scale = self.cfg.scale_idx
+        if mesh.timing:
+            raise RuntimeError(f"scale {scale}: mesh.timing synchronizes the "
+                               "device at every collective, which a CUDA "
+                               "graph's capture cannot record; time graph "
+                               "replays with the profiler")
         noise = self.st.noise
         host_before = noise.host_gen.get_state()
         graph = torch.cuda.CUDAGraph()
@@ -134,25 +172,41 @@ class TrainChunk:
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved(self.device)
         t0 = time.perf_counter()
+        error, cause = None, None
+        before = torch.cuda.current_stream(self.device)
         try:
-            with torch.cuda.graph(graph, stream=self.stream):
+            with torch.cuda.graph(graph, stream=self.stream,
+                                  capture_error_mode="global"
+                                  if self.group is None else "thread_local"):
                 outputs = self.iteration()
         except RuntimeError as e:
-            raise RuntimeError(f"scale {self.cfg.scale_idx}: capturing the "
-                               f"training iteration into a CUDA graph "
-                               f"failed: {e}") from e
-        torch.cuda.synchronize(self.device)
+            # a failed capture_end leaves the capture stream current
+            torch.cuda.set_stream(before)
+            error, cause = ("capturing the training iteration into a CUDA "
+                            f"graph failed: {e}"), e
+        else:
+            torch.cuda.synchronize(self.device)
+            if not torch.equal(noise.host_gen.get_state(), host_before):
+                error = ("the captured iteration drew from the host "
+                         "generator, whose draws a replay would repeat")
         self.capture_s = time.perf_counter() - t0
         self.pool_bytes = torch.cuda.memory_reserved(self.device) - reserved
-        if not torch.equal(noise.host_gen.get_state(), host_before):
-            raise RuntimeError(f"scale {self.cfg.scale_idx}: the captured "
-                               "iteration drew from the host generator, "
-                               "whose draws a replay would repeat")
+        if self.group is not None and not self._all_captured(error is None):
+            error = error or "the capture failed on another rank"
+        if error is not None:
+            raise RuntimeError(f"scale {scale}: {error}") from cause
         self.graph, self.outputs = graph, outputs
         captures += 1
         logging.info("scale %d: captured the iteration in %.2f s (graph pool "
-                     "%.3f GB)", self.cfg.scale_idx, self.capture_s,
-                     self.pool_bytes / 1e9)
+                     "%.3f GB)", scale, self.capture_s, self.pool_bytes / 1e9)
+
+    def _all_captured(self, ok: bool) -> bool:
+        """Whether every rank of the group captured its iteration: one eager
+        all-reduce, so that no rank replays collectives that another rank
+        never joins."""
+        flag = torch.tensor([float(ok)], device=self.device)
+        dist.all_reduce(flag, op=dist.ReduceOp.MIN, group=self.group)
+        return bool(flag.item())
 
     def close(self) -> None:
         """Release the graph, its pool and the gradients that live there."""

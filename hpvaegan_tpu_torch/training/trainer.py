@@ -16,8 +16,9 @@ or "video" (3D). Per scale:
     noise_amp_init * RMSE of a reconstruction (divided by batch_size again
     only under bug_compat, the reference's bug #3);
   * niter iterations of training/steps.py::train_iteration in chunks of
-    steps_per_call (training/chunk.py: CUDA-graph replays on one card, an
-    eager loop elsewhere; one iteration a chunk under --split-step), and
+    steps_per_call (training/chunk.py: CUDA-graph replays on the card,
+    alone or in an NCCL group, an eager loop on the CPU and in a gloo
+    group; one iteration a chunk under --split-step), and
     at each chunk boundary `done`, in the JAX trainer's order and cadence
     (trainer.py:243-294 there): a logbook line of the chunk's last
     metrics and the abort on non-finite ones when done % print_interval <
@@ -284,12 +285,15 @@ def visualize(G, saver: DataSaver, real, real_zero, noise_init, amps,
 def run_scale(cfg, st: ScaleTrainState, saver: DataSaver, data,
               noise_amps: List[float], vae_phase: bool, former,
               init_gen: torch.Generator, step_callback=None,
-              inflight: Optional[Dict] = None) -> None:
+              inflight: Optional[Dict] = None, log_amp: bool = True) -> None:
     """The scale's iterations (after the inflight payload's, when given) in
     chunks of steps_per_call (training/chunk.py), with the JAX trainer's
     cadence at the chunk boundaries (trainer.py:243-294 there), the images
     of cfg.visualize (2D), and the scale's checkpoints: netG, netD (GAN
-    scales) and torch_rng_<k>.pt."""
+    scales) and torch_rng_<k>.pt. The logbook lines are the JAX trainer's
+    "[Scale k/Iter n] Noise amp: a, <metrics>" (trainer.py:273 there), or
+    without `log_amp` the JAX baselines trainer's "[Scale k/Iter n]
+    <metrics>" (baselines_trainer.py:233-235 there)."""
     scale_idx = cfg.scale_idx
     G, D = st.G, st.D
     amps = amps_list(noise_amps, cfg.stop_scale)
@@ -319,9 +323,11 @@ def run_scale(cfg, st: ScaleTrainState, saver: DataSaver, data,
                     raise RuntimeError(
                         f"non-finite training metrics {bad} at scale "
                         f"{scale_idx} iter {done} (amps={noise_amps})")
-                logbook("[Scale {}/Iter {}] Noise amp: {:.5f}, {}".format(
-                    scale_idx + 1, done, noise_amps[-1], ", ".join(
-                        f"{k}: {v:.5f}" for k, v in sorted(vals.items()))))
+                amp = f"Noise amp: {noise_amps[-1]:.5f}, " if log_amp \
+                    else ""
+                text = ", ".join(f"{k}: {v:.5f}"
+                                 for k, v in sorted(vals.items()))
+                logbook(f"[Scale {scale_idx + 1}/Iter {done}] {amp}{text}")
             if cfg.visualize and G.ndim == 2 \
                     and done % cfg.image_interval < spc:
                 real, real_zero, noise_init = former(cfg, data[0], data[1],

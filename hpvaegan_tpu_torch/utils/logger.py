@@ -4,12 +4,18 @@ The port of the JAX package's `utils/logger.py` (reference
 src/utils/logger.py:70-139, progress_bar.py:77-100): a LOGBOOK level (1000)
 that the console leaves out and the file logbook keeps, ANSI colours
 stripped in the file, and a LoggingBlock that indents nested sections.
+`configure_logging` also registers a SIGUSR1 stack dump, as the JAX
+package's does (scripts/train_watchdog.sh sends SIGUSR1 before it kills a
+stalled run).
 """
 
 from __future__ import annotations
 
+import faulthandler
+import io
 import logging
 import re
+import signal
 
 _ANSI_RE = re.compile(r"\x1b\[[0-9;]*m")
 LOGBOOK_LEVEL = 1000
@@ -37,9 +43,29 @@ class _IndentFormatter(logging.Formatter):
         return ("  " * _Indent.level) + msg
 
 
+_stack_dump_registered = False
+
+
+def register_stack_dump() -> None:
+    """From now on `kill -USR1 <pid>` dumps every thread's Python stack to
+    stderr and the process runs on: where a rank waits in a collective,
+    for one. Once a process: the train and eval CLIs call it on every
+    rank, and `configure_logging` (the primary's) finds it done."""
+    global _stack_dump_registered
+    if _stack_dump_registered:
+        return
+    try:
+        faulthandler.register(signal.SIGUSR1, all_threads=True)
+        _stack_dump_registered = True
+    except (AttributeError, ValueError, io.UnsupportedOperation):
+        pass  # no SIGUSR1 on this platform, or no usable stderr
+
+
 def configure_logging(filename: str = None) -> None:
     """Console (INFO and up, LOGBOOK left out) and, with `filename`, a file
-    logbook of everything, ANSI-stripped."""
+    logbook of everything, ANSI-stripped; and the SIGUSR1 stack dump
+    (`register_stack_dump`), as the JAX package's configure_logging."""
+    register_stack_dump()
     root = logging.getLogger()
     root.setLevel(logging.DEBUG)
     root.handlers = []

@@ -451,6 +451,59 @@ def test_graph_chunk_equals_eager_iterations(cuda, monkeypatch, ndim,
     graph.close()
 
 
+@pytest.mark.parametrize("ndim", [2, 3])
+def test_graph_chunk_in_a_one_rank_nccl_group_equals_eager(cuda, monkeypatch,
+                                                           ndim):
+    """In an NCCL group of one rank on the card the chunk is a graph whose
+    capture holds the group's collectives (mean_'s all-reduce of the
+    gradients and metrics, BatchNorm's group sums): chunks of 3 and 4
+    iterations end bit for bit as 7 --split-step eager iterations in the
+    same group (TF32 off, deterministic cuDNN), and the capture issues as
+    many collectives as one eager iteration."""
+    import socket
+
+    import torch.distributed as dist
+
+    from hpvaegan_tpu_torch.parallel import mesh, multihost
+    from hpvaegan_tpu_torch.training import chunk
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    multihost.init_distributed(f"127.0.0.1:{port}", 1, 0,
+                               device=mesh.select_device("cuda", 0))
+    try:
+        assert dist.get_backend() == "nccl"
+        with mesh.data_parallel(mesh.DataGroup(0, 1, dist.group.WORLD)):
+            graph_st, graph = _chunk(_flag_cfg(ndim), ndim, False, cuda)
+            eager_st, eager = _chunk(_flag_cfg(ndim), ndim, True, cuda)
+            assert (graph.mode, eager.mode) == ("graph (1 NCCL rank)",
+                                                "eager (split-step)")
+            graph.run(3)
+            calls = mesh.COLLECTIVE_CALLS[0]
+            got = graph.run(4)
+            captured = mesh.COLLECTIVE_CALLS[0] - calls
+            for _ in range(7):
+                calls = mesh.COLLECTIVE_CALLS[0]
+                want = eager.run(1)
+            per_iteration = mesh.COLLECTIVE_CALLS[0] - calls
+            torch.cuda.synchronize()
+        assert captured == per_iteration > 0
+        for k in want:
+            assert torch.equal(got[k], want[k]), k
+        a, b = _state(graph_st), _state(eager_st)
+        assert sorted(a) == sorted(b)
+        for k in a:
+            assert torch.equal(a[k].cpu(), b[k].cpu()), k
+        graph.close()
+    finally:
+        dist.destroy_process_group()
+
+
 def test_graph_run_with_images_equals_eager_run(cuda, tmp_path, monkeypatch):
     """train_image --steps-per-call 2 --visualize --image-interval 2 on the
     card as graph replays ends bit for bit as the same run with every

@@ -27,6 +27,7 @@ Ranks run this file as a script (test_torch_multihost.py::run_ranks).
 import glob
 import json
 import os
+import re
 import sys
 
 import numpy as np
@@ -396,6 +397,10 @@ def test_data_parallel_cli_equals_one_process(tmp_path, kind,
         assert "Z_init.npy" in names and f"netD_{n_scales - 1}.ckpt" in names
     with open(os.path.join(r0["exp"], "args.txt")) as f:
         assert "mesh_data: 2" in f.read()
+    with open(os.path.join(r0["exp"], "logbook.txt")) as f:
+        modes = re.findall(r"scale \d+: chunks of \d+ iterations, (.*)",
+                           f.read())
+    assert len(modes) == n_scales and set(modes) == {"eager (2 gloo ranks)"}
 
     one = _train(kind, str(tmp_path / "one"))
     assert one["saver"] == "DataSaver"

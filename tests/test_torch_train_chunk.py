@@ -5,7 +5,8 @@ make_train_chunk there):
   * train_image, train_video and train_video_baselines at --niter 7
     --steps-per-call 3 write their logbook lines, inflight checkpoints and
     (2D) --visualize images at the iterations the JAX CLIs do with the
-    same flags;
+    same flags, and lines of the same text (the baselines' without a
+    noise amp, as scripts/analyze_soak.py's parse then reads them);
   * a chunked run ends bit for bit as the per-iteration one (2D, 3D, CSG);
   * a resume from an inflight iteration that is not a multiple of
     --steps-per-call is refused with the JAX trainer's message, and an
@@ -13,7 +14,9 @@ make_train_chunk there):
   * FlatAdam and the step-on-device (capturable) Adams match JAX's
     flat_adam / clipped_adam / adam over 5 steps, FlatAdam's step lives on
     the parameters' device, and an inflight optimizer state written with
-    the step on the host loads.
+    the step on the host loads;
+  * the chunk's mode per device, backend and --split-step, and a gloo
+    group's chunk running eagerly.
 
 The CUDA-graph side (replays against eager iterations, a failed capture
 raising) needs the card: tests/test_torch_cuda.py.
@@ -160,15 +163,26 @@ def jax_run(kind, run_dir, monkeypatch, *extra):
     return exp, saves
 
 
-@pytest.mark.parametrize("kind", ["image", "video", "baselines"])
-def test_chunk_cadence_matches_the_jax_clis(kind, tmp_path, monkeypatch):
+@pytest.fixture(scope="module", params=["image", "video", "baselines"])
+def cadence_runs(request, tmp_path_factory):
+    """(kind, the port's run, its inflight saves, the JAX CLI's run, its
+    inflight saves) of the `kind` CLI at --niter 7 --steps-per-call 3, in
+    both packages."""
+    kind = request.param
+    extra = CADENCE + (VISUALIZE if kind == "image" else [])
+    base = tmp_path_factory.mktemp(f"cadence_{kind}")
+    port, port_saves = port_run(kind, base / "port", *extra)
+    with pytest.MonkeyPatch.context() as monkeypatch:
+        jax_exp, jax_saves = jax_run(kind, base / "jax", monkeypatch, *extra)
+    return kind, port, port_saves, jax_exp, jax_saves
+
+
+def test_chunk_cadence_matches_the_jax_clis(cadence_runs):
     """--niter 7 --steps-per-call 3: chunks end at 3, 6 and 7; the logbook
     (print interval 2) logs at all three, the inflight checkpoints
     (interval 2) land at 3 and 6, and the images (2D, image interval 2)
     are written at all three, in both packages, at every scale."""
-    extra = CADENCE + (VISUALIZE if kind == "image" else [])
-    port, port_saves = port_run(kind, tmp_path / "port", *extra)
-    jax_exp, jax_saves = jax_run(kind, tmp_path / "jax", monkeypatch, *extra)
+    kind, port, port_saves, jax_exp, jax_saves = cadence_runs
     want_log = [(s, i) for s in range(1, LAST + 2) for i in (3, 6, 7)]
     assert logged_iterations(port) == logged_iterations(jax_exp) == want_log
     assert port_saves == jax_saves == [(s, i) for s in range(LAST + 1)
@@ -180,6 +194,54 @@ def test_chunk_cadence_matches_the_jax_clis(kind, tmp_path, monkeypatch):
              for name in ("fake_var_", "fake_vae_var")]
             + [f"{name}_{n + 1}.jpg" for n in (3, 6, 7)
                for name in ("real", "generated", "generated_vae")])
+
+
+def logbook_lines(exp):
+    """The experiment's "[Scale k/Iter n] ..." lines, every number masked:
+    what the format leaves when the values are taken out."""
+    with open(os.path.join(exp, "logbook.txt")) as f:
+        lines = re.findall(r"\[Scale \d+/Iter \d+\].*", f.read())
+    return [re.sub(r"-?\d+(\.\d+)?(e[-+]?\d+)?|nan|inf", "#", ln)
+            for ln in lines]
+
+
+def test_logbook_lines_match_the_jax_clis(cadence_runs):
+    """Each logbook line of the port's run has the JAX CLI's format: the
+    HP-VAE-GAN trainers' "[Scale k/Iter n] Noise amp: a, <metrics>", the
+    baselines' "[Scale k/Iter n] <metrics>" with no amp, the same metric
+    names in the same order."""
+    kind, port, _, jax_exp, _ = cadence_runs
+    got, want = logbook_lines(port), logbook_lines(jax_exp)
+    assert len(got) == 3 * (LAST + 1) and got == want
+    assert all(("Noise amp" in ln) == (kind != "baselines") for ln in got)
+
+
+def test_analyze_soak_reads_no_amp_from_a_baselines_run(cadence_runs):
+    """scripts/analyze_soak.py's own parse (its LINE and METRIC patterns)
+    of the port's baselines logbook finds the JAX baselines' metrics at
+    every logged iteration, and no `amp` series; of the HP-VAE-GAN runs'
+    (the image and video cases, which share the module's runs), the JAX
+    CLIs' series with their `amp`. (Its rates need log lines seconds
+    apart: tests/test_torch_run_tools.py runs the tool.)"""
+    import importlib.util
+
+    kind, port, _, jax_exp, _ = cadence_runs
+    path = os.path.join(REPO, "scripts", "analyze_soak.py")
+    spec = importlib.util.spec_from_file_location("analyze_soak", path)
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+
+    def series(exp):
+        with open(os.path.join(exp, "logbook.txt")) as f:
+            found = [tool.LINE.match(ln.strip()) for ln in f]
+        return [sorted(k for k, _ in tool.METRIC.findall(m.group(4)))
+                for m in found if m]
+
+    got = series(port)
+    assert len(got) == 3 * (LAST + 1) and got == series(jax_exp)
+    assert all(("amp" in keys) == (kind != "baselines") for keys in got)
+    if kind == "baselines":
+        assert all("d_loss" in keys for keys in got)
 
 
 def assert_same_run(a, b):
@@ -406,3 +468,78 @@ def test_a_host_step_state_loads_into_a_step_on_device_optimizer(
         np.testing.assert_allclose(p[k].detach().numpy(),
                                    host_p[k].detach().numpy(), rtol=0,
                                    atol=1e-6)
+
+
+# ------------------------------------------------ the chunk's mode ---
+
+@pytest.mark.parametrize("device,split,backend,ranks,want", [
+    ("cuda", False, None, 1, "graph"),
+    ("cuda", False, "nccl", 4, "graph (4 NCCL ranks)"),
+    ("cuda", False, "nccl", 1, "graph (1 NCCL rank)"),
+    ("cuda", True, "nccl", 4, "eager (split-step)"),
+    ("cuda", False, "gloo", 2, "eager (2 gloo ranks)"),
+    ("cpu", False, "gloo", 4, "eager (4 gloo ranks)"),
+    ("cpu", False, None, 1, "eager (cpu)"),
+    ("cuda", True, None, 1, "eager (split-step)")])
+def test_chunk_mode_names_the_backend(device, split, backend, ranks, want):
+    """A chunk is a graph on the card, alone or in an NCCL group; a gloo
+    group (its collectives copy through the host), the CPU and
+    --split-step run eagerly, and the mode line says why."""
+    from hpvaegan_tpu_torch.training.chunk import chunk_mode
+
+    assert chunk_mode(device, split, backend, ranks) == want
+
+
+def _tiny_chunk():
+    """A scale-3 chunk of a tiny 2D config on the CPU, from seed 0."""
+    from hpvaegan_tpu_torch.config import Config
+    from hpvaegan_tpu_torch.tools.step_parity import build_state
+    from hpvaegan_tpu_torch.training.chunk import TrainChunk
+    from hpvaegan_tpu_torch.training.steps import batch_former
+    from hpvaegan_tpu_torch.utils.noise import NoiseSource
+    from hpvaegan_tpu_torch.utils.pyramid import scale_size_2d
+
+    cfg = Config(nfc=8, num_layer=2, img_size=32, min_size=16, max_size=32,
+                 latent_dim=8, enc_blocks=1, vae_levels=2).finalize()
+    cfg.scale_idx, cfg.ar = 3, 0.75
+    st = build_state(cfg, 3, 0, "cpu")
+    st.noise = NoiseSource(0, "cpu")
+    gen = torch.Generator().manual_seed(1)
+    data = [torch.rand((1, 3) + tuple(scale_size_2d(
+        k, cfg.scale_factor, cfg.stop_scale, cfg.img_size, cfg.ar)),
+        generator=gen) for k in (3, 0)]
+    return st, TrainChunk(cfg, st, data, [1.0] + [0.05] * (
+        cfg.stop_scale + 1), False, batch_former(2, 3))
+
+
+def test_a_gloo_group_chunk_stays_eager():
+    """In a gloo group (here one rank, in this process) the chunk runs its
+    iterations eagerly, with their collectives, and says so; it captures
+    nothing, and its metrics are the chunk's with no group to 1e-5 (a
+    group sums BatchNorm's statistics in another order)."""
+    import torch.distributed as dist
+
+    from hpvaegan_tpu_torch.parallel import mesh
+    from hpvaegan_tpu_torch.training import chunk
+    from test_torch_multihost import free_port
+
+    dist.init_process_group("gloo", init_method="tcp://127.0.0.1:"
+                            f"{free_port()}", world_size=1, rank=0)
+    try:
+        with mesh.data_parallel(mesh.DataGroup(0, 1, dist.group.WORLD)):
+            _, grouped = _tiny_chunk()
+            assert grouped.mode == "eager (1 gloo rank)"
+            captures, calls = chunk.captures, mesh.COLLECTIVE_CALLS[0]
+            got = grouped.run(2)
+            assert mesh.COLLECTIVE_CALLS[0] > calls
+    finally:
+        dist.destroy_process_group()
+    assert chunk.captures == captures
+    assert grouped.stream is None and grouped.graph is None
+    _, alone = _tiny_chunk()
+    assert alone.mode == "eager (cpu)"
+    want = alone.run(2)
+    assert sorted(got) == sorted(want)
+    for k in want:
+        np.testing.assert_allclose(float(got[k]), float(want[k]), rtol=1e-5,
+                                   atol=1e-6, err_msg=k)
