@@ -178,8 +178,9 @@ Phases, each of which exits non-zero on a failed check:
              this process at the same global batch, TF32 off: 4
              full-width scale-9 iterations at batch 2 (the ranks'
              parameters and metrics bit-equal; against one process as in
-             (a); steps/s of both over iterations 2-3, and the share of
-             iteration 4 spent in the collectives), eval_image --on-device-fid of 64 samples of
+             (a); steps/s of both over iterations 2-3, and iteration 4's
+             device ms in the gradients' exchange, its phases d.exchange
+             and g.exchange), eval_image --on-device-fid of 64 samples of
              the full-width image model sharded over the ranks (the
              same SIFID on both, rtol 1e-3 of one process's), the
              moving-stat sampler with pallas_fused_sampling, 2 x 32
@@ -200,8 +201,8 @@ Phases, each of which exits non-zero on a failed check:
              (192x257; heights 24 .. 96 and 192 split, 121 and 153 whole):
              the ranks' parameters and metrics bit-equal, the first
              iteration's metrics and gradients within DP_TRAIN_REL of one
-             process, steps/s of both, the share of a rank's iteration in
-             collectives, peak GB per rank beside one process's, and the
+             process, steps/s of both, the device ms of a rank's
+             iteration in the gradients' exchange, peak GB per rank beside one process's, and the
              heights the sharded convolutions ran on (96 + 2 at scale 9);
              K1 launches 0; (b) the same for the 3D model
              at scale 9 (13x192x257), 2 iterations; (c) planted faults:
@@ -218,7 +219,8 @@ Phases, each of which exits non-zero on a failed check:
              ranks' 48 at scale 9): the ranks' parameters and metrics
              bit-equal, the first iteration's metrics and gradients within
              DP_TRAIN_REL of one process, steps/s of both, each rank's
-             share of an iteration in collectives and their number, peak
+             device ms of an iteration in the gradients' exchange and its
+             collectives' number, peak
              GB per rank beside one process's, the heights each rank's
              sharded convolutions ran on (the edge ranks' differ from the
              middle ranks'), K1 launches 0; and the first CSG iteration
@@ -2809,7 +2811,7 @@ def phase_serving(torch, k1, ckpt, runner_build, meanwhile=None):
 # phase 19: the data-parallel ranks of one card (gloo: NCCL takes one card
 # per rank) and the run they are held to
 DP_RANKS = 2
-DP_ITERS = 4  # at scale 9: 1 compared, 2 timed, 1 with collectives timed
+DP_ITERS = 4  # at scale 9: 1 compared, 2 timed, 1 with its phases timed
 DP_SAMPLES = 64
 DP_SCALE = 9
 DP_DEVICE = "cuda"
@@ -2886,6 +2888,28 @@ def plant_fault(fault):
         raise ValueError(f"unknown fault {fault!r}")
 
 
+def collective_calls(mesh) -> int:
+    """The collectives this process has issued, summed over their kinds."""
+    return sum(calls for calls, _ in mesh.collectives().values())
+
+
+def exchange_ms(torch, iteration):
+    """Runs `iteration` with the program's phases on (utils/profiling.py);
+    returns its result and its device ms in the gradients' exchange
+    (phases d.exchange and g.exchange), timed by CUDA events that add no
+    synchronisation of their own."""
+    from hpvaegan_tpu_torch.utils import profiling
+
+    profiling.enable(True)
+    try:
+        result = iteration()
+    finally:
+        profiling.enable(False)
+    torch.cuda.synchronize()
+    phases = profiling.phase_ms()
+    return result, phases["d.exchange"] + phases["g.exchange"]
+
+
 def dp_train_leg(torch, group, first_only=False):
     """DP_ITERS full-width training iterations at scale 9 (GAN) of a global
     batch of 2, under `group` (a rank's share of it, or the whole in one
@@ -2895,8 +2919,7 @@ def dp_train_leg(torch, group, first_only=False):
     that is zero up to rounding into +-lr, so later parameters differ by
     ~2 lr per step in a few elements and are only reported), G's and
     D's state after all the iterations, the steps/s of iterations 2 and 3,
-    and the share of iteration 4 spent in the group's collectives (the
-    device synchronised before each, so queued work is not counted)."""
+    and iteration 4's device ms in the gradients' exchange (`exchange_ms`)."""
     from hpvaegan_tpu_torch.data.image import SingleImageDataset
     from hpvaegan_tpu_torch.parallel import mesh
     from hpvaegan_tpu_torch.tools.step_parity import build_state
@@ -2933,13 +2956,7 @@ def dp_train_leg(torch, group, first_only=False):
             metrics = iteration()
         torch.cuda.synchronize()
         out["steps_per_s"] = 2 / (time.perf_counter() - t0)
-        mesh.timing, mesh.COLLECTIVE_SECONDS[0] = True, 0.0
-        t0 = time.perf_counter()
-        metrics = iteration()
-        torch.cuda.synchronize()
-        out["collective_share"] = (mesh.COLLECTIVE_SECONDS[0]
-                                   / (time.perf_counter() - t0))
-        mesh.timing = False
+        metrics, out["exchange_ms"] = exchange_ms(torch, iteration)
     check(all(math.isfinite(v) for v in metrics.values()),
           f"data-parallel metrics {metrics}")
     out["G"] = {k: v.cpu() for k, v in st.G.state_dict().items()}
@@ -3124,7 +3141,7 @@ def nccl_one_rank(torch):
                **train_parity(nccl, one, "NCCL one-rank training"),
                "train_steps_per_s_nccl": round(nccl["steps_per_s"], 3),
                "train_steps_per_s_no_group": round(one["steps_per_s"], 3),
-               "collective_share_nccl": round(nccl["collective_share"], 4)}
+               "exchange_ms_nccl": round(nccl["exchange_ms"], 4)}
         print("  (a) NCCL, one rank (TF32 off): " + json.dumps(out),
               flush=True)
         with mesh.data_parallel(group):
@@ -3284,10 +3301,8 @@ def phase_data_parallel(torch, k1, ckpt):
                             f"{DP_RANKS} ranks vs 1 process"),
              "steps_per_s_2_ranks": round(r0["train"]["steps_per_s"], 3),
              "steps_per_s_1_process": round(one["train"]["steps_per_s"], 3),
-             "collective_share_rank0": round(
-                 r0["train"]["collective_share"], 4),
-             "collective_share_rank1": round(
-                 r1["train"]["collective_share"], 4)}
+             "exchange_ms_rank0": round(r0["train"]["exchange_ms"], 4),
+             "exchange_ms_rank1": round(r1["train"]["exchange_ms"], 4)}
     print(f"  (b) full-width scale {DP_SCALE}, global batch 2, {DP_RANKS} "
           "gloo ranks vs 1 process (TF32 off): " + json.dumps(train),
           flush=True)
@@ -3355,15 +3370,15 @@ def phase_data_parallel(torch, k1, ckpt):
 
 # phase 20: the spatial mesh (--mesh-sp 2): two ranks on the card over gloo
 # split H, against this process at the same batch; iterations at scale 9
-# per model: 2D 1 compared, 2 timed, 1 with the collectives timed; 3D 1
-# compared, 1 timed with the collectives timed (steps/s read from it)
+# per model: 2D 1 compared, 2 timed, 1 with its phases timed; 3D 1
+# compared, 1 timed with its phases timed (steps/s read from it)
 SP_ITERS = {2: 4, 3: 2}
 # phase 20 (c): the faults planted in a rank, each breaking one of the
 # exchanges that make S ranks one process (parallel/spatial.py)
 SP_FAULTS = ("halo_zeros", "bn_not_summed_over_sp", "draws_first_rows")
 # phase 20 (d): the CSG/SG baselines on 4 spatial ranks, where the padded
 # stages' edge ranks hold more rows than the middle ones; 2 iterations at
-# scale 9 per generator (1 compared, 1 timed with the collectives timed),
+# scale 9 per generator (1 compared, 1 timed with its phases timed),
 # and the fault (d) plants: BatchNorm of a padded layout counted as equal
 # shards (each rank's count times the ranks)
 SPB_RANKS = 4
@@ -3412,8 +3427,8 @@ def sp_train_leg(torch, group, ndim, first_only=False, generator=None):
     rank's rows of H, or the whole in one process). Returns the first iteration's metrics and gradients, the
     heights the H-sharded convolutions of that iteration ran on (rows plus
     halos, by height), G's and D's state after all the iterations, the
-    steps/s, the share of the last iteration spent in collectives and
-    their number, and the peak memory allocated."""
+    steps/s, the last iteration's device ms in the gradients' exchange and
+    its collectives' number, and the peak memory allocated."""
     from hpvaegan_tpu_torch.data.image import SingleImageDataset
     from hpvaegan_tpu_torch.parallel import mesh, spatial
     from hpvaegan_tpu_torch.tools.step_parity import build_state
@@ -3461,15 +3476,11 @@ def sp_train_leg(torch, group, ndim, first_only=False, generator=None):
                 metrics = iteration()
             torch.cuda.synchronize()
             out["steps_per_s"] = timed / (time.perf_counter() - t0)
-        mesh.timing, mesh.COLLECTIVE_SECONDS[0] = True, 0.0
-        mesh.COLLECTIVE_CALLS[0] = 0
+        calls = collective_calls(mesh)
         t0 = time.perf_counter()
-        metrics = iteration()
-        torch.cuda.synchronize()
+        metrics, out["exchange_ms"] = exchange_ms(torch, iteration)
         secs = time.perf_counter() - t0
-        mesh.timing = False
-        out["collective_share"] = mesh.COLLECTIVE_SECONDS[0] / secs
-        out["collectives"] = mesh.COLLECTIVE_CALLS[0]
+        out["collectives"] = collective_calls(mesh) - calls
         out.setdefault("steps_per_s", 1 / secs)
     check(all(math.isfinite(v) for v in metrics.values()),
           f"spatial-mesh metrics {metrics}")
@@ -3597,8 +3608,7 @@ def spatial_baselines(torch, k1):
             f"G_running_stats_max_rel_after_{SP_ITERS[3]}": g_run,
             f"steps_per_s_{SPB_RANKS}_ranks": legs[0]["steps_per_s"],
             "steps_per_s_1_process": one[name]["steps_per_s"],
-            "collective_share_per_rank": [leg["collective_share"]
-                                          for leg in legs],
+            "exchange_ms_per_rank": [leg["exchange_ms"] for leg in legs],
             "collectives_per_iteration": legs[0]["collectives"],
             "peak_gb_per_rank": [leg["peak_gb"] for leg in legs],
             "peak_gb_1_process": one[name]["peak_gb"],
@@ -3677,8 +3687,8 @@ def phase_spatial(torch, k1):
             f"G_running_stats_max_rel_after_{SP_ITERS[ndim]}": g_run,
             "steps_per_s_2_ranks": round(r0["steps_per_s"], 3),
             "steps_per_s_1_process": round(one[ndim]["steps_per_s"], 3),
-            "collective_share_rank0": round(r0["collective_share"], 4),
-            "collective_share_rank1": round(r1["collective_share"], 4),
+            "exchange_ms_rank0": round(r0["exchange_ms"], 4),
+            "exchange_ms_rank1": round(r1["exchange_ms"], 4),
             "collectives_per_iteration": r0["collectives"],
             "peak_gb_per_rank": [round(r["peak_gb"], 3) for r in (r0, r1)],
             "peak_gb_1_process": round(one[ndim]["peak_gb"], 3),
@@ -3935,18 +3945,18 @@ def graph_vs_eager(torch, name, cfg, data, scale_idx, ndim,
 
         eager.run(1)
         torch.cuda.synchronize()
-        calls = mesh.COLLECTIVE_CALLS[0]
+        calls = collective_calls(mesh)
         t0 = time.perf_counter()
         for _ in range(7):
             metrics_e = eager.run(1)
         torch.cuda.synchronize()
         eager_s = time.perf_counter() - t0
-        eager_calls = (mesh.COLLECTIVE_CALLS[0] - calls) / 7
-        replays, calls, syncs = tchunk.replays, mesh.COLLECTIVE_CALLS[0], []
+        eager_calls = (collective_calls(mesh) - calls) / 7
+        replays, calls, syncs = tchunk.replays, collective_calls(mesh), []
         with syncs_in_capture(torch, syncs):
             graph.run(1)  # the capture, then one replay
         torch.cuda.synchronize()
-        captured_calls = mesh.COLLECTIVE_CALLS[0] - calls
+        captured_calls = collective_calls(mesh) - calls
         t0 = time.perf_counter()
         metrics_g = graph.run(7)
         torch.cuda.synchronize()
@@ -4271,11 +4281,11 @@ def card_leg(torch, group, ndim, batch, generator=None, graph=True,
         if graph:
             torch.cuda.synchronize()
             restore_state(torch, st, ref_st)
-            calls, syncs = mesh.COLLECTIVE_CALLS[0], []
+            calls, syncs = collective_calls(mesh), []
             with syncs_in_capture(torch, syncs):
                 metrics = chunk.run(1)  # the capture, then one replay
             torch.cuda.synchronize()
-            out["collectives_captured"] = mesh.COLLECTIVE_CALLS[0] - calls
+            out["collectives_captured"] = collective_calls(mesh) - calls
             out["host_syncs_in_capture"] = syncs
             out["graph_first"] = reading(st, metrics)
             out["capture_s"] = round(chunk.capture_s, 3)
@@ -4289,14 +4299,14 @@ def card_leg(torch, group, ndim, batch, generator=None, graph=True,
             if graph:
                 eager.run(1)  # iteration 1 of the state that stayed eager
             torch.cuda.synchronize()
-            calls = mesh.COLLECTIVE_CALLS[0]
+            calls = collective_calls(mesh)
             t0 = time.perf_counter()
             for _ in range(k - 1):
                 metrics_e = eager.run(1)
             torch.cuda.synchronize()
             out["eager_steps_per_s"] = (k - 1) / (time.perf_counter() - t0)
             out["collectives_per_eager_iteration"] = (
-                mesh.COLLECTIVE_CALLS[0] - calls) / (k - 1)
+                collective_calls(mesh) - calls) / (k - 1)
             check(all(math.isfinite(float(v)) for v in metrics_e.values()),
                   f"metrics {metrics_e}")
             if graph:

@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import datetime
 import functools
+import itertools
 import logging
 import os
 from typing import Optional
@@ -34,10 +35,13 @@ from . import models
 from .config import Config
 from .parallel import mesh, multihost
 from .tools.convert import load_generator_checkpoint
-from .utils import pyramid
+from .utils import profiling, pyramid
 from .utils.device import resolve_device
 from .utils.noise import NoiseSource
 from .utils.saver import DataSaver, resolve_finalized_scale
+
+# generate_samples' calls in this process: the request number its spans carry
+_REQUESTS = itertools.count()
 
 
 def hydrate_config(exp_dir: str, overrides: dict,
@@ -130,18 +134,29 @@ def generate_samples(cfg, generator, ndim: int = 2, seed: int = 0,
     as the reference's eval does; train_mode=False is the plain batched
     forward on moving statistics, which runs the fused upscale+noise kernel
     when cfg.pallas_fused_sampling is set. Every draw comes from `noise`
-    (default: a NoiseSource seeded `seed` on the generator's device)."""
+    (default: a NoiseSource seeded `seed` on the generator's device).
+
+    With utils/profiling.py on, each call is one request, numbered in the
+    process, and its host spans carry the number: "sample.forward" (the
+    sub-batches issued), "sample.to_host" (the copy, parallel/sampling.py::
+    _host_copy's "d2h" phase and byte counter) and "sample.assemble" (the
+    host arrays joined)."""
     from .parallel.sampling import group_to_host, sharded_sampler
 
+    request = next(_REQUESTS)
     if noise is None:
         noise = NoiseSource(seed, next(generator.parameters()).device)
-    sample = sharded_sampler(cfg, generator, ndim=ndim, train=train_mode,
-                             z_tail=eval_z_tail(cfg, ndim))
-    outs = [sample(cfg.num_samples, noise).movedim(1, -1)
-            for _ in range(cfg.niter)]
-    # under a data group: each iteration's rows of every rank, in one
-    # gather
-    return np.concatenate(group_to_host(*outs), axis=0)
+    with profiling.span("sample.forward", request=request):
+        sample = sharded_sampler(cfg, generator, ndim=ndim, train=train_mode,
+                                 z_tail=eval_z_tail(cfg, ndim))
+        outs = [sample(cfg.num_samples, noise).movedim(1, -1)
+                for _ in range(cfg.niter)]
+    with profiling.span("sample.to_host", request=request):
+        # under a data group: each iteration's rows of every rank, in one
+        # gather
+        host = group_to_host(*outs)
+    with profiling.span("sample.assemble", request=request):
+        return np.concatenate(host, axis=0)
 
 
 def _persist_eval_metrics(saver, cfg, metric: str, value: float) -> None:

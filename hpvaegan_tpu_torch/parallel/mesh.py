@@ -49,8 +49,7 @@ from __future__ import annotations
 
 import contextlib
 import os
-import time
-from typing import List, NamedTuple, Optional, Sequence
+from typing import Dict, List, NamedTuple, Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -77,13 +76,15 @@ class DataGroup(NamedTuple):
 
 
 _ACTIVE = DataGroup()
-# the number of the group's collectives issued (a captured one counts at
-# its capture, not at the replays), and the seconds spent in them while
-# `timing` is on (the device is synchronized before each, so that queued
-# work is not counted)
-COLLECTIVE_SECONDS = [0.0]
-COLLECTIVE_CALLS = [0]
-timing = False
+# the kinds of collective the program issues: the gradients' mean
+# (training/steps.py::_set_grads), the metrics' and the calibration's
+# means, BatchNorm's group sums (forward and backward, `group_sum`), and the
+# spatial axis' exchanges (parallel/spatial.py: its all-gathers and sums)
+KINDS = ("grad", "metric", "bn", "halo")
+# [calls, bytes] of each kind issued: the bytes of the buffer the rank hands
+# to the collective (one rank's part of an all-gather); a captured
+# collective counts once, at its capture, not at the replays
+_COLLECTIVES = {kind: [0, 0] for kind in KINDS}
 
 
 def check_mesh(mesh_data: int = 1, mesh_sp: int = 1) -> None:
@@ -208,23 +209,18 @@ def local_rows(n: int) -> int:
     return n // _ACTIVE.size
 
 
-class _Timed:
-    """Counts a collective, and times it while `timing` is on: the device
-    is synchronized first, which a CUDA graph's capture forbids
-    (training/chunk.py refuses to capture while `timing` is on)."""
+def collectives() -> Dict[str, List[int]]:
+    """{kind: [calls, bytes]} of the collectives issued so far in this
+    process (KINDS), a copy."""
+    return {kind: list(v) for kind, v in _COLLECTIVES.items()}
 
-    def __init__(self, device: torch.device):
-        self.device = device
 
-    def __enter__(self):
-        COLLECTIVE_CALLS[0] += 1
-        if timing and self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        self.t0 = time.perf_counter()
-
-    def __exit__(self, *exc):
-        if timing:
-            COLLECTIVE_SECONDS[0] += time.perf_counter() - self.t0
+def count(kind: str, t: torch.Tensor) -> None:
+    """Count one collective of `kind` on the rank's buffer `t`, where it is
+    issued."""
+    c = _COLLECTIVES[kind]
+    c[0] += 1
+    c[1] += t.numel() * t.element_size()
 
 
 class _AllReduceSum(torch.autograd.Function):
@@ -236,29 +232,29 @@ class _AllReduceSum(torch.autograd.Function):
     in the same order on every rank."""
 
     @staticmethod
-    def forward(ctx, t, group):
-        ctx.group = group
+    def forward(ctx, t, group, kind):
+        ctx.group, ctx.kind = group, kind
         comm = multihost.comm_device(group)
-        with _Timed(t.device):
-            out = t.to(comm, memory_format=torch.contiguous_format,
-                       copy=True)
-            dist.all_reduce(out, group=group)
-            return out.to(t.device)
+        out = t.to(comm, memory_format=torch.contiguous_format, copy=True)
+        count(kind, out)
+        dist.all_reduce(out, group=group)
+        return out.to(t.device)
 
     @staticmethod
     def backward(ctx, grad):
-        return _AllReduceSum.apply(grad, ctx.group), None
+        return _AllReduceSum.apply(grad, ctx.group, ctx.kind), None, None
 
 
-def group_sum(t: torch.Tensor, group) -> torch.Tensor:
+def group_sum(t: torch.Tensor, group, kind: str = "bn") -> torch.Tensor:
     """The sum of `t` over the ranks of `group` (None: `t`), differentiable
-    twice (the gradient penalty's double backward runs through it); a
-    bfloat16 tensor is summed in float32 and rounded back once."""
+    twice (the gradient penalty's double backward runs through it), counted
+    as a collective of `kind` (its backward's too); a bfloat16 tensor is
+    summed in float32 and rounded back once."""
     if group is None:
         return t
     if t.dtype == torch.bfloat16:
-        return _AllReduceSum.apply(t.float(), group).to(t.dtype)
-    return _AllReduceSum.apply(t, group)
+        return _AllReduceSum.apply(t.float(), group, kind).to(t.dtype)
+    return _AllReduceSum.apply(t, group, kind)
 
 
 def all_reduce_sum(t: torch.Tensor) -> torch.Tensor:
@@ -273,19 +269,20 @@ def sum_all(t: torch.Tensor) -> torch.Tensor:
 
 
 @torch.no_grad()
-def mean_(tensors: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+def mean_(tensors: Sequence[torch.Tensor], kind: str = "grad"
+          ) -> List[torch.Tensor]:
     """The means of `tensors` over all D x S ranks in force (one
-    all-reduce of one flat buffer), written into them in place; returned
-    for convenience."""
+    all-reduce of one flat buffer, counted as `kind`), written into them
+    in place; returned for convenience."""
     tensors = list(tensors)
     group, n = _everyone(_ACTIVE)
     if group is None or not tensors:
         return tensors
     comm = multihost.comm_device(group)
-    with _Timed(tensors[0].device):
-        flat = torch.cat([t.reshape(-1).float() for t in tensors]).to(comm)
-        dist.all_reduce(flat, group=group)
-        flat = flat.div_(n).to(tensors[0].device)
+    flat = torch.cat([t.reshape(-1).float() for t in tensors]).to(comm)
+    count(kind, flat)
+    dist.all_reduce(flat, group=group)
+    flat = flat.div_(n).to(tensors[0].device)
     for t, m in zip(tensors, flat.split([t.numel() for t in tensors])):
         t.copy_(m.view_as(t))
     return tensors
@@ -296,5 +293,6 @@ def mean_metrics(metrics: dict) -> dict:
     collective."""
     if _everyone(_ACTIVE)[0] is None or not metrics:
         return metrics
-    vals = mean_([torch.stack([v.float() for v in metrics.values()])])[0]
+    vals = mean_([torch.stack([v.float() for v in metrics.values()])],
+                 "metric")[0]
     return dict(zip(metrics, vals.unbind()))

@@ -43,7 +43,7 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
-from ..utils import pyramid
+from ..utils import profiling, pyramid
 from ..utils.noise import NoiseSource
 from . import mesh, multihost
 
@@ -175,8 +175,13 @@ def _feature_stats(model, block: int, x01: torch.Tensor) -> torch.Tensor:
 
 
 def _host_copy(t: torch.Tensor) -> np.ndarray:
-    """The one copy of a run's result to the host."""
-    return t.cpu().numpy()
+    """The one copy of a run's result to the host: the device phase "d2h"
+    (utils/profiling.py), whose end `.cpu()` waits for, and its bytes on
+    the counter "d2h_bytes"."""
+    with profiling.phase("d2h", t.device):
+        host = t.cpu()
+    profiling.count("d2h_bytes", t.numel() * t.element_size())
+    return host.numpy()
 
 
 def group_to_host(*ts: torch.Tensor):

@@ -166,13 +166,13 @@ def _all_gather(t: torch.Tensor, ax: mesh.Axis) -> List[torch.Tensor]:
     """Every rank's `t` over `ax`, in rank order, on t's device; bfloat16
     travels as its bytes (gloo has no bfloat16 gather everywhere)."""
     comm = multihost.comm_device(ax.group)
-    with mesh._Timed(t.device):
-        src = t.to(comm, memory_format=torch.contiguous_format)
-        if src.dtype == torch.bfloat16:
-            src = src.view(torch.uint8)
-        parts = [torch.empty_like(src) for _ in range(ax.size)]
-        dist.all_gather(parts, src, group=ax.group)
-        return [p.view(t.dtype).to(t.device) for p in parts]
+    src = t.to(comm, memory_format=torch.contiguous_format)
+    if src.dtype == torch.bfloat16:
+        src = src.view(torch.uint8)
+    parts = [torch.empty_like(src) for _ in range(ax.size)]
+    mesh.count("halo", src)
+    dist.all_gather(parts, src, group=ax.group)
+    return [p.view(t.dtype).to(t.device) for p in parts]
 
 
 def _neighbour_rows(top: torch.Tensor, bottom: torch.Tensor, ax: mesh.Axis
@@ -227,7 +227,7 @@ class _GatherRows(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad):
-        summed = mesh.group_sum(grad, ctx.ax.group)
+        summed = mesh.group_sum(grad, ctx.ax.group, "halo")
         return _Narrow.apply(summed, ctx.ax.rank * ctx.n, ctx.n), None
 
 
@@ -302,4 +302,4 @@ def halo(x: torch.Tensor, k: int) -> torch.Tensor:
 def sum_sp(t: torch.Tensor) -> torch.Tensor:
     """The sum of `t` over the spatial axis in force (differentiable
     twice)."""
-    return mesh.group_sum(t, axis().group)
+    return mesh.group_sum(t, axis().group, "halo")

@@ -44,9 +44,16 @@ thread-local error mode, so that NCCL's watchdog thread may query its
 events meanwhile, and the ranks then agree, in one eager all-reduce, that
 every capture succeeded before any replays: a rank whose capture failed
 raises, and so do the others, instead of replaying collectives that one
-rank never joins. `mesh.timing` synchronizes the device at every
-collective, which a capture cannot record: the chunk refuses to capture
-while it is on.
+rank never joins.
+
+What a chunk reports of its iteration: `collectives_per_iter`, the
+collectives one iteration issues by kind (parallel/mesh.py::collectives,
+[calls, bytes]), counted while the graph is captured (a replay issues the
+same ones and counts none) or over the last eager iteration; and
+`phase_ms()`, the device ms of each phase of the last iteration
+(training/steps.py::PHASES), when utils/profiling.py was on while the
+iteration was captured or ran: a graph captured with it off holds no
+event and reports none.
 
 On the CPU, under --split-step and in a gloo group (whose collectives copy
 through the host, which a graph cannot record) the chunk runs its k
@@ -66,6 +73,7 @@ import torch
 import torch.distributed as dist
 
 from ..parallel import mesh
+from ..utils import profiling
 from .state import ScaleTrainState
 from .steps import Metrics, train_iteration
 
@@ -120,10 +128,24 @@ class TrainChunk:
         self.outputs: Optional[Metrics] = None
         self.capture_s = 0.0
         self.pool_bytes = 0
+        self.collectives_per_iter = {}
+        self.phases = None  # the last iteration's phases (utils/profiling)
 
     def iteration(self) -> Metrics:
-        return train_iteration(self.cfg, self.st, self.data[0], self.data[1],
-                               self.amps, self.vae_phase, self.former)
+        """One iteration, its collectives and phases kept as the chunk's."""
+        before, last = mesh.collectives(), profiling.last_phases()
+        metrics = train_iteration(self.cfg, self.st, self.data[0],
+                                  self.data[1], self.amps, self.vae_phase,
+                                  self.former)
+        self.collectives_per_iter = _issued(before)
+        seq = profiling.last_phases()
+        self.phases = seq if seq is not last else None
+        return metrics
+
+    def phase_ms(self) -> dict:
+        """{phase: device ms} of the last iteration run or replayed, {}
+        when none was traced (utils/profiling.py)."""
+        return self.phases.ms() if self.phases is not None else {}
 
     def run(self, k: int) -> Metrics:
         if not self.mode.startswith("graph"):
@@ -159,11 +181,6 @@ class TrainChunk:
     def _capture(self) -> None:
         global captures
         scale = self.cfg.scale_idx
-        if mesh.timing:
-            raise RuntimeError(f"scale {scale}: mesh.timing synchronizes the "
-                               "device at every collective, which a CUDA "
-                               "graph's capture cannot record; time graph "
-                               "replays with the profiler")
         noise = self.st.noise
         host_before = noise.host_gen.get_state()
         graph = torch.cuda.CUDAGraph()
@@ -220,3 +237,10 @@ class TrainChunk:
         self.graph.reset()
         self.graph = None
         torch.cuda.empty_cache()
+
+
+def _issued(before: dict) -> dict:
+    """The collectives issued since `before` (mesh.collectives()), by
+    kind."""
+    return {kind: [a - b for a, b in zip(now, before[kind])]
+            for kind, now in mesh.collectives().items()}

@@ -65,17 +65,31 @@ from ..data.video import make_baseline_batch, make_video_batch
 from ..losses import d_loss_fn, g_gan_loss_fn, g_vae_loss_fn
 from ..models.blocks import DeferredFolds, assign_sn_state
 from ..parallel import mesh, spatial
+from ..utils import profiling
 from ..utils.pyramid import scale_height
 from .state import ScaleTrainState
 
 Metrics = Dict[str, torch.Tensor]
+# the phases of an iteration, in order (utils/profiling.py): batch forming;
+# G's fake for D; D on real, fake and the interpolate with the gradient
+# penalty's first gradient; the critic loss's gradient (the penalty's
+# double backward); the gradients' mean over the ranks; the optimizer and
+# the spectral-norm state; then G's forward (reconstruction, fake, losses),
+# backward, exchange and optimizer; the metrics' mean. The VAE phase runs
+# the G phases alone, --fused-dg all but with G's fake taken with grad.
+PHASES = ("batch", "d.fake", "d.forward", "d.backward", "d.exchange",
+          "d.optim", "g.forward", "g.backward", "g.exchange", "g.optim",
+          "metrics")
 
 
 def _set_grads(params: List[torch.Tensor], loss: torch.Tensor) -> None:
     """The gradients of `loss` into .grad, averaged over all ranks of the
-    data and spatial axes (parallel/mesh.py)."""
-    grads = torch.autograd.grad(loss, params, materialize_grads=True)
-    mesh.mean_(grads)
+    data and spatial axes (parallel/mesh.py); the phases `.backward` and
+    `.exchange` of the step whose forward came before."""
+    with profiling.phase(".backward"):
+        grads = torch.autograd.grad(loss, params, materialize_grads=True)
+    with profiling.phase(".exchange"):
+        mesh.mean_(grads, "grad")
     for p, g in zip(params, grads):
         p.grad = g
 
@@ -104,11 +118,9 @@ def d_step(cfg, st: ScaleTrainState, real, noise_init, amps,
     train_image.py:157), on `fake` when given (the fused iteration's),
     else on a fake drawn here under no_grad."""
     if fake is None:
-        with torch.no_grad():
+        with profiling.phase("d.fake"), torch.no_grad():
             fake = st.G(noise_init, amps, st.noise, bn="batch",
                         commit=False)[0]
-    # one alpha per step; bug_compat freezes it (reference losses.py:26)
-    alpha = 0.5 if cfg.bug_compat else st.noise.uniform()
     kept = []
     d_apply, score_mean = _d_apply(cfg, st.D)
 
@@ -118,16 +130,22 @@ def d_step(cfg, st: ScaleTrainState, real, noise_init, amps,
             kept.append(sn_state)
         return y
 
-    loss, aux = d_loss_fn(cfg, d_fn, real, fake.detach(), alpha, score_mean)
+    with profiling.phase("d.forward"):
+        # one alpha per step; bug_compat freezes it (reference losses.py:26)
+        alpha = 0.5 if cfg.bug_compat else st.noise.uniform()
+        loss, aux = d_loss_fn(cfg, d_fn, real, fake.detach(), alpha,
+                              score_mean)
     _set_grads(list(st.D.parameters()), loss)
-    st.opt_d.step()
-    assign_sn_state(st.D, kept[0])
+    with profiling.phase("d.optim"):
+        st.opt_d.step()
+        assign_sn_state(st.D, kept[0])
     return _detached(loss, "d_loss", aux)
 
 
 def _g_update(st: ScaleTrainState, loss, aux) -> Metrics:
     _set_grads([p for g in st.opt_g.param_groups for p in g["params"]], loss)
-    st.opt_g.step()
+    with profiling.phase("g.optim"):
+        st.opt_g.step()
     return _detached(loss, "g_loss", aux)
 
 
@@ -139,18 +157,21 @@ def g_step(cfg, st: ScaleTrainState, real, real_zero, noise_init, amps,
     pair = None if vae_phase or not cfg.paired_g \
         else getattr(st.G, "reconstruct_pair", None)
     d_apply, score_mean = _d_apply(cfg, st.D)
-    if pair is not None:
-        gen, fake = pair(real_zero, noise_init, amps, st.noise)[:2]
-        return _g_update(st, *g_gan_loss_fn(
-            cfg, lambda x: d_apply(x)[0], gen, real, fake, score_mean))
-    gen, gen_vae, mu, logvar = st.G.reconstruct(real_zero, amps, st.noise)
-    if vae_phase:
-        loss, aux = g_vae_loss_fn(cfg, gen, gen_vae, real, real_zero, mu,
-                                  logvar)
-    else:
-        fake = st.G(noise_init, amps, st.noise, bn="batch")[0]
-        loss, aux = g_gan_loss_fn(cfg, lambda x: d_apply(x)[0], gen, real,
-                                  fake, score_mean)
+    with profiling.phase("g.forward"):
+        if pair is not None:
+            gen, fake = pair(real_zero, noise_init, amps, st.noise)[:2]
+            loss, aux = g_gan_loss_fn(cfg, lambda x: d_apply(x)[0], gen,
+                                      real, fake, score_mean)
+        else:
+            gen, gen_vae, mu, logvar = st.G.reconstruct(real_zero, amps,
+                                                        st.noise)
+            if vae_phase:
+                loss, aux = g_vae_loss_fn(cfg, gen, gen_vae, real, real_zero,
+                                          mu, logvar)
+            else:
+                fake = st.G(noise_init, amps, st.noise, bn="batch")[0]
+                loss, aux = g_gan_loss_fn(cfg, lambda x: d_apply(x)[0], gen,
+                                          real, fake, score_mean)
     return _g_update(st, loss, aux)
 
 
@@ -162,13 +183,16 @@ def fused_dg_iteration(cfg, st: ScaleTrainState, real, real_zero,
     encoder's (u, v)), then the fake's fold; G's adversarial term on the
     updated D. Draws: the fake's noise, the GP alpha, then eps."""
     folds = DeferredFolds()
-    fake = st.G(noise_init, amps, st.noise, bn="batch", commit=folds)[0]
+    with profiling.phase("d.fake"):
+        fake = st.G(noise_init, amps, st.noise, bn="batch", commit=folds)[0]
     metrics = d_step(cfg, st, real, noise_init, amps, fake=fake)
-    gen = st.G.reconstruct(real_zero, amps, st.noise)[0]
-    folds.apply()
     d_apply, score_mean = _d_apply(cfg, st.D)
-    metrics.update(_g_update(st, *g_gan_loss_fn(
-        cfg, lambda x: d_apply(x)[0], gen, real, fake, score_mean)))
+    with profiling.phase("g.forward"):
+        gen = st.G.reconstruct(real_zero, amps, st.noise)[0]
+        folds.apply()
+        loss, aux = g_gan_loss_fn(cfg, lambda x: d_apply(x)[0], gen, real,
+                                  fake, score_mean)
+    metrics.update(_g_update(st, loss, aux))
     return metrics
 
 
@@ -178,7 +202,8 @@ def calibrate(G, real, real_zero, amps, noise) -> torch.Tensor:
     train_image.py:134-148), on the device; the MSE is the mean over all
     ranks."""
     gen = G.reconstruct(real_zero, amps, noise, commit=False)[0]
-    return torch.sqrt(mesh.mean_([torch.mean((real - gen) ** 2)])[0])
+    return torch.sqrt(mesh.mean_([torch.mean((real - gen) ** 2)],
+                                 "metric")[0])
 
 
 def batch_former(ndim: int, scale_idx: int, baseline: bool = False
@@ -199,16 +224,20 @@ def train_iteration(cfg, st: ScaleTrainState, data_scale, data_zero, amps,
     """Batch from `former` (see batch_former), then D (GAN scales only),
     then G against the updated D, or the fused iteration on GAN scales
     under cfg.fused_dg (JAX steps.py:214-245). The D and G steps are the
-    same in 2D and 3D."""
-    real, real_zero, noise_init = former(cfg, data_scale, data_zero,
-                                         st.noise)
-    if cfg.fused_dg and not vae_phase:
-        metrics = fused_dg_iteration(cfg, st, real, real_zero, noise_init,
-                                     amps)
-    else:
-        metrics = {}
-        if not vae_phase:
-            metrics.update(d_step(cfg, st, real, noise_init, amps))
-        metrics.update(g_step(cfg, st, real, real_zero, noise_init, amps,
-                              vae_phase))
-    return mesh.mean_metrics(metrics)
+    same in 2D and 3D. With utils/profiling.py on, the iteration is one
+    phases() block (PHASES, those that run)."""
+    with profiling.phases(data_scale):
+        with profiling.phase("batch"):
+            real, real_zero, noise_init = former(cfg, data_scale, data_zero,
+                                                 st.noise)
+        if cfg.fused_dg and not vae_phase:
+            metrics = fused_dg_iteration(cfg, st, real, real_zero,
+                                         noise_init, amps)
+        else:
+            metrics = {}
+            if not vae_phase:
+                metrics.update(d_step(cfg, st, real, noise_init, amps))
+            metrics.update(g_step(cfg, st, real, real_zero, noise_init, amps,
+                                  vae_phase))
+        with profiling.phase("metrics"):
+            return mesh.mean_metrics(metrics)

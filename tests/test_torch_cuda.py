@@ -452,6 +452,44 @@ def test_graph_chunk_equals_eager_iterations(cuda, monkeypatch, ndim,
 
 
 @pytest.mark.parametrize("ndim", [2, 3])
+def test_captured_phases_tile_the_replay(cuda, ndim):
+    """With the program's phases on while the chunk captures its
+    iteration, every replay records the phases' events again: after a
+    replay each phase of training/steps.py::PHASES reads its device ms
+    (positive, but for the exchanges, which hold no work without a
+    group), and their sum is within 5% of the replay's own event-timed
+    length."""
+    from hpvaegan_tpu_torch.training.steps import PHASES
+    from hpvaegan_tpu_torch.utils import profiling
+
+    profiling.enable(True)
+    try:
+        _, chunk = _chunk(_flag_cfg(ndim), ndim, False, cuda)
+        chunk.run(2)  # eager
+        chunk.run(1)  # the capture, then a replay
+        assert chunk.graph is not None
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "ab")
+        start.record()
+        chunk.graph.replay()
+        end.record()
+        got = chunk.phase_ms()
+        total = start.elapsed_time(end)
+    finally:
+        profiling.enable(False)
+        profiling.reset()
+    chunk.close()
+    assert list(got) == list(PHASES)
+    assert all(v > 0 for k, v in got.items() if not k.endswith("exchange"))
+    assert all(v >= 0 for v in got.values()), got
+    assert abs(sum(got.values()) - total) <= 0.05 * total, (got, total)
+
+
+def _collective_calls(mesh) -> int:
+    """The collectives issued so far, summed over their kinds."""
+    return sum(calls for calls, _ in mesh.collectives().values())
+
+
+@pytest.mark.parametrize("ndim", [2, 3])
 def test_graph_chunk_in_a_one_rank_nccl_group_equals_eager(cuda, monkeypatch,
                                                            ndim):
     """In an NCCL group of one rank on the card the chunk is a graph whose
@@ -484,15 +522,16 @@ def test_graph_chunk_in_a_one_rank_nccl_group_equals_eager(cuda, monkeypatch,
             assert (graph.mode, eager.mode) == ("graph (1 NCCL rank)",
                                                 "eager (split-step)")
             graph.run(3)
-            calls = mesh.COLLECTIVE_CALLS[0]
+            calls = _collective_calls(mesh)
             got = graph.run(4)
-            captured = mesh.COLLECTIVE_CALLS[0] - calls
+            captured = _collective_calls(mesh) - calls
             for _ in range(7):
-                calls = mesh.COLLECTIVE_CALLS[0]
+                calls = _collective_calls(mesh)
                 want = eager.run(1)
-            per_iteration = mesh.COLLECTIVE_CALLS[0] - calls
+            per_iteration = _collective_calls(mesh) - calls
             torch.cuda.synchronize()
         assert captured == per_iteration > 0
+        assert graph.collectives_per_iter == eager.collectives_per_iter
         for k in want:
             assert torch.equal(got[k], want[k]), k
         a, b = _state(graph_st), _state(eager_st)
