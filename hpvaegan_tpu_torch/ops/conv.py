@@ -22,6 +22,25 @@ same halo of (ker - 1) / 2 rows, less the rows past the global edges
 (`spatial.drop_edges`), and no padding of H, so that the output is the
 rank's rows of the layout with (ker - 1) / 2 fewer pad rows a side
 (`spatial.conv_layout`).
+
+Where autograd records the convolution (grad enabled, and the input or the
+weight requires grad), it runs as `_Conv`, whose input gradient is
+`_ConvInputGrad`. The two issue the same cuDNN forward, dgrad and wgrad as
+autograd's own node; what differs is the second derivative that the
+gradient penalty's double backward (losses.py) takes of the input
+gradient. PyTorch's `_convolution_double_backward` computes its weight
+part as a forward convolution whose filter is the whole incoming gradient
+image, which cuDNN runs as a long serial reduction over batch x space on
+a handful of blocks; `_ConvInputGrad.backward` asks for the same weight
+gradient as an ordinary wgrad, with the input gradient's own gradient in
+the input's place. A Function cannot see which gradients the caller asked
+for, so `_Conv.backward` computes the weight and bias gradients whenever
+they require grad, also inside the penalty's inner gradient, where nothing
+reads them (the G step runs the critic with its parameters out of
+autograd, training/steps.py). `_Conv` keeps its input only where the
+weight takes a gradient: the dgrad needs the input's shape alone. Under
+no_grad (the samplers, eval, torch.export) the convolution is the plain
+`F.conv*` call.
 """
 
 from __future__ import annotations
@@ -30,8 +49,10 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
 
 from ..parallel import spatial
+from ..utils import profiling
 
 
 def _halo(x: torch.Tensor, weight: torch.Tensor, stride: int, padding: int,
@@ -57,6 +78,92 @@ def _halo(x: torch.Tensor, weight: torch.Tensor, stride: int, padding: int,
     return x, tuple(pads)
 
 
+def _per_axis(v, d: int) -> list:
+    return list(v) if isinstance(v, (tuple, list)) else [v] * d
+
+
+def _dgrad(gy: torch.Tensor, weight: torch.Tensor, shape, stride,
+           padding) -> torch.Tensor:
+    """cuDNN's dgrad of a convolution by `weight` at `gy`, for an input of
+    `shape`: the transposed convolution (cuDNN's backward-data, as
+    autograd's own node runs it), whose output padding gives back the
+    rows a stride dropped; it needs no input tensor."""
+    d = weight.ndim - 2
+    stride, padding = _per_axis(stride, d), _per_axis(padding, d)
+    out_pad = [shape[2 + i] - (gy.shape[2 + i] - 1) * stride[i]
+               + 2 * padding[i] - weight.shape[2 + i] for i in range(d)]
+    fn = F.conv_transpose2d if d == 2 else F.conv_transpose3d
+    return fn(gy, weight, None, stride, padding, out_pad)
+
+
+def _wgrad(gy: torch.Tensor, x: torch.Tensor, weight: torch.Tensor,
+           stride, padding) -> torch.Tensor:
+    """cuDNN's wgrad of a convolution of `x` by `weight` at `gy`."""
+    d = weight.ndim - 2
+    return torch.ops.aten.convolution_backward(
+        gy, x, weight, None, _per_axis(stride, d), _per_axis(padding, d),
+        [1] * d, False, [0] * d, 1, [False, True, False])[1]
+
+
+class _Conv(torch.autograd.Function):
+    """fn(x, weight, bias): a convolution whose input gradient is
+    `_ConvInputGrad` (module docstring). It keeps x only where the weight
+    takes a gradient, which is what reads it."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, stride, padding, fn):
+        ctx.save_for_backward(x if ctx.needs_input_grad[1] else None, weight)
+        ctx.shape, ctx.stride, ctx.padding, ctx.fn = (x.shape, stride,
+                                                      padding, fn)
+        return fn(x, weight, bias, stride=stride, padding=padding)
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, weight = ctx.saved_tensors
+        gx = gw = gb = None
+        if ctx.needs_input_grad[0]:
+            gx = _ConvInputGrad.apply(gy, weight, ctx.shape, ctx.stride,
+                                      ctx.padding, ctx.fn)
+        if ctx.needs_input_grad[1]:
+            gw = _wgrad(gy, x, weight, ctx.stride, ctx.padding)
+        if ctx.needs_input_grad[2]:
+            gb = gy.sum([0] + list(range(2, gy.ndim)))
+        return gx, gw, gb, None, None, None
+
+
+class _ConvInputGrad(torch.autograd.Function):
+    """The input gradient (cuDNN's dgrad) of fn(x, weight) at gy, for an x
+    of `shape`. Its own gradient at ggx: fn(ggx, weight) for gy, and for
+    the weight the wgrad of gy with ggx as the input, which `conv.wgrad2`
+    counts."""
+
+    @staticmethod
+    def forward(ctx, gy, weight, shape, stride, padding, fn):
+        ctx.save_for_backward(gy, weight)
+        ctx.stride, ctx.padding, ctx.fn = stride, padding, fn
+        return _dgrad(gy, weight, shape, stride, padding)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, ggx):
+        gy, weight = ctx.saved_tensors
+        profiling.count("conv.wgrad2", 1)
+        g_gy = g_w = None
+        if ctx.needs_input_grad[0]:
+            g_gy = ctx.fn(ggx, weight, None, stride=ctx.stride,
+                          padding=ctx.padding)
+        if ctx.needs_input_grad[1]:
+            g_w = _wgrad(gy, ggx, weight, ctx.stride, ctx.padding)
+        return g_gy, g_w, None, None, None, None
+
+
+def _apply(fn, x: torch.Tensor, weight: torch.Tensor,
+           bias: Optional[torch.Tensor], stride, padding) -> torch.Tensor:
+    if torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad):
+        return _Conv.apply(x, weight, bias, stride, padding, fn)
+    return fn(x, weight, bias, stride=stride, padding=padding)
+
+
 def _conv(fn, x: torch.Tensor, weight: torch.Tensor,
           bias: Optional[torch.Tensor], stride: int, padding: int,
           compute_dtype: Optional[torch.dtype],
@@ -64,9 +171,9 @@ def _conv(fn, x: torch.Tensor, weight: torch.Tensor,
     if sharded:
         x, padding = _halo(x, weight, stride, padding, sharded)
     if compute_dtype is None:
-        return fn(x, weight, bias, stride=stride, padding=padding)
-    out = fn(x.to(compute_dtype), weight.to(compute_dtype), None,
-             stride=stride, padding=padding)
+        return _apply(fn, x, weight, bias, stride, padding)
+    out = _apply(fn, x.to(compute_dtype), weight.to(compute_dtype), None,
+                 stride, padding)
     if bias is None:
         return out
     return out + bias.to(out.dtype).reshape((-1,) + (1,) * (out.ndim - 2))

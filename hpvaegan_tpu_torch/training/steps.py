@@ -5,7 +5,8 @@ The port of the JAX package's `training/steps.py` (`_d_step_core`,
 the body of a loop whose state is updated in place: training/chunk.py runs
 it k times per chunk, replayed from a CUDA graph on one card, so nothing
 here reads a value to the host. Gradients come from `torch.autograd.grad`
-on the trainable parameters only (D's weights get none in the G step) and
+on the trainable parameters only (D's weights get none in the G step,
+whose forward runs D with its parameters out of autograd: `_scores`) and
 are left in `.grad` for the optimizer, and for a test to read (G's after
 the optimizer's per-tensor clip, which scales them in place).
 
@@ -108,6 +109,23 @@ def _d_apply(cfg, D) -> Tuple[Callable, Callable]:
             lambda t: spatial.mean(t, layout))
 
 
+def _scores(d_apply: Callable, D) -> Callable:
+    """D's scores for G's adversarial term, with D's parameters out of
+    autograd while it runs: the G step differentiates G alone, and the
+    convolutions of ops/conv.py compute a weight gradient wherever the
+    weight requires grad."""
+    def scores(x):
+        params = [p for p in D.parameters() if p.requires_grad]
+        for p in params:
+            p.requires_grad_(False)
+        try:
+            return d_apply(x)[0]
+        finally:
+            for p in params:
+                p.requires_grad_(True)
+    return scores
+
+
 def _detached(loss: torch.Tensor, name: str, aux: Metrics) -> Metrics:
     return {name: loss.detach(), **{k: v.detach() for k, v in aux.items()}}
 
@@ -160,7 +178,7 @@ def g_step(cfg, st: ScaleTrainState, real, real_zero, noise_init, amps,
     with profiling.phase("g.forward"):
         if pair is not None:
             gen, fake = pair(real_zero, noise_init, amps, st.noise)[:2]
-            loss, aux = g_gan_loss_fn(cfg, lambda x: d_apply(x)[0], gen,
+            loss, aux = g_gan_loss_fn(cfg, _scores(d_apply, st.D), gen,
                                       real, fake, score_mean)
         else:
             gen, gen_vae, mu, logvar = st.G.reconstruct(real_zero, amps,
@@ -170,7 +188,7 @@ def g_step(cfg, st: ScaleTrainState, real, real_zero, noise_init, amps,
                                           mu, logvar)
             else:
                 fake = st.G(noise_init, amps, st.noise, bn="batch")[0]
-                loss, aux = g_gan_loss_fn(cfg, lambda x: d_apply(x)[0], gen,
+                loss, aux = g_gan_loss_fn(cfg, _scores(d_apply, st.D), gen,
                                           real, fake, score_mean)
     return _g_update(st, loss, aux)
 
@@ -190,7 +208,7 @@ def fused_dg_iteration(cfg, st: ScaleTrainState, real, real_zero,
     with profiling.phase("g.forward"):
         gen = st.G.reconstruct(real_zero, amps, st.noise)[0]
         folds.apply()
-        loss, aux = g_gan_loss_fn(cfg, lambda x: d_apply(x)[0], gen, real,
+        loss, aux = g_gan_loss_fn(cfg, _scores(d_apply, st.D), gen, real,
                                   fake, score_mean)
     metrics.update(_g_update(st, loss, aux))
     return metrics

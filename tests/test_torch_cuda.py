@@ -19,7 +19,7 @@ import torch
 from hpvaegan_tpu_torch.config import Config
 from hpvaegan_tpu_torch.evaluation import generate_samples
 from hpvaegan_tpu_torch.models import get_generator
-from hpvaegan_tpu_torch.models.blocks import init_weights_
+from hpvaegan_tpu_torch.models.blocks import Conv, SNConv, init_weights_
 from hpvaegan_tpu_torch.models.networks_2d import GeneratorHPVAEGAN
 from hpvaegan_tpu_torch.ops import fused_upscale_noise as k1
 from hpvaegan_tpu_torch.models.networks_3d import (
@@ -27,6 +27,7 @@ from hpvaegan_tpu_torch.models.networks_3d import (
 from hpvaegan_tpu_torch.tools.step_parity import (compare_devices,
                                                   compare_sampler_devices)
 from hpvaegan_tpu_torch.training import trainer
+from hpvaegan_tpu_torch.utils.pyramid import scale_size_2d
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY = ["--image-path", os.path.join(REPO, "data", "imgs", "air_balloons.jpg"),
@@ -482,6 +483,89 @@ def test_captured_phases_tile_the_replay(cuda, ndim):
     assert all(v > 0 for k, v in got.items() if not k.endswith("exchange"))
     assert all(v >= 0 for v in got.values()), got
     assert abs(sum(got.values()) - total) <= 0.05 * total, (got, total)
+
+
+def _d_step_on(device, cfg, ndim, real, fake, alpha):
+    """Two D steps of a scale-3 state from seed 0 on `device`, the first at
+    learning rate 0 (so that the second starts from the built weights; on
+    the card it is also the warm-up a capture needs), the second captured
+    as a CUDA graph and replayed on the card, eager on the CPU. Returns the
+    second step's metrics, D's gradients and buffers, and on the card the
+    `conv.wgrad2` count after the capture and after the replay."""
+    from hpvaegan_tpu_torch.tools.step_parity import ReplayedNoise, build_state
+    from hpvaegan_tpu_torch.training.steps import d_step
+    from hpvaegan_tpu_torch.utils import profiling
+
+    st = build_state(cfg, 3, 0, device, ndim)
+    st.noise = ReplayedNoise([alpha, alpha], device)
+    real, fake = real.to(device), fake.to(device)
+
+    def step():
+        return d_step(cfg, st, real, None, None, fake=fake)
+
+    lrs = [g["lr"] for g in st.opt_d.param_groups]
+    for g in st.opt_d.param_groups:
+        g["lr"] = 0.0
+    counts = None
+    if device.type == "cuda":
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            step()
+        torch.cuda.current_stream().wait_stream(side)
+    else:
+        step()
+    for g, lr in zip(st.opt_d.param_groups, lrs):
+        g["lr"] = lr
+    if device.type == "cuda":
+        graph = torch.cuda.CUDAGraph()
+        profiling.reset()
+        profiling.enable(True)
+        try:
+            with torch.cuda.graph(graph):
+                metrics = step()
+            captured = profiling.counters().get("conv.wgrad2")
+            graph.replay()
+            counts = (captured, profiling.counters().get("conv.wgrad2"))
+        finally:
+            profiling.enable(False)
+            profiling.reset()
+        torch.cuda.synchronize()
+    else:
+        metrics = step()
+    return ({k: float(v) for k, v in metrics.items()},
+            {k: p.grad.cpu() for k, p in st.D.named_parameters()},
+            {k: b.cpu() for k, b in st.D.named_buffers()}, counts,
+            sum(isinstance(m, (Conv, SNConv)) for m in st.D.modules()))
+
+
+@pytest.mark.parametrize("ndim", [2, 3])
+def test_captured_d_step_matches_cpu(cuda, monkeypatch, ndim):
+    """A D step (the gradient penalty's double backward through
+    ops/conv.py's `_Conv`) captured as a CUDA graph and replayed on the
+    card (TF32 off) equals the same step eager on the CPU from the same
+    weights, data and GP alpha, within test_training_iteration_matches_cpu's
+    bars; the capture counts one second-order weight gradient
+    (`conv.wgrad2`) per critic convolution, and the replay none."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = dataclasses.replace(_flag_cfg(ndim), scale_idx=3)
+    gen = torch.Generator().manual_seed(1)
+    shape = (2, cfg.nc_im) + ((cfg.max_frames,) if ndim == 3 else ()) \
+        + tuple(scale_size_2d(3, cfg.scale_factor, cfg.stop_scale,
+                              cfg.img_size, cfg.ar))
+    real, fake = (torch.rand(shape, generator=gen) * 2 - 1 for _ in "ab")
+    alpha = torch.rand((), generator=gen)
+    card = _d_step_on(cuda, cfg, ndim, real, fake, alpha)
+    host = _d_step_on(torch.device("cpu"), cfg, ndim, real, fake, alpha)
+    convs = card[4]
+    assert convs == cfg.num_layer + 2 and card[3] == (convs, convs)
+    for k, want in host[0].items():
+        assert abs(card[0][k] - want) <= 1e-4 * max(abs(want), 1.0), k
+    for got, want in ((card[1], host[1]), (card[2], host[2])):
+        assert sorted(got) == sorted(want)
+        for k in want:
+            assert torch.allclose(got[k], want[k], rtol=0, atol=1e-4), k
 
 
 def _collective_calls(mesh) -> int:

@@ -97,15 +97,22 @@ def _conv_run(ndim, pick, sharded):
     """conv (padding 1) on `pick` of a fixed input, then a gradient-penalty-
     like loss: sum(q * (d sum(r * y) / dx)^2) + sum(r * y), differentiated
     again. Each rank's loss is its own elements' sum, so the ranks' sum is
-    the global loss."""
+    the global loss. In float64: a rank's weight gradient sums its rows'
+    products in another order than one process's, and in float32 that
+    order alone moves an entry that cancels to ~1e-3 of the largest by a
+    few ulps of the largest, past TOL."""
     shape = (4, 3, 8, 6) if ndim == 2 else (4, 2, 3, 8, 5)
-    x = pick(_problem(ndim, *shape)).requires_grad_(True)
-    w = (_problem(ndim + 1, 5, shape[1], *(3,) * ndim) * 0.3
+
+    def problem(seed, *shape):
+        return _problem(seed, *shape).double()
+
+    x = pick(problem(ndim, *shape)).requires_grad_(True)
+    w = (problem(ndim + 1, 5, shape[1], *(3,) * ndim) * 0.3
          ).requires_grad_(True)
-    b = _problem(ndim + 2, 5).requires_grad_(True)
+    b = problem(ndim + 2, 5).requires_grad_(True)
     out_shape = (shape[0], 5) + shape[2:]
-    r, q = pick(_problem(ndim + 3, *out_shape)), pick(_problem(ndim + 4,
-                                                               *shape))
+    r, q = pick(problem(ndim + 3, *out_shape)), pick(problem(ndim + 4,
+                                                             *shape))
     y = conv(x, w, b, padding=1, sharded=sharded)
     gx, = torch.autograd.grad((r * y).sum(), x, create_graph=True)
     loss = (q * gx ** 2).sum() + (r * y).sum()

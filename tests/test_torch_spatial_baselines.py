@@ -120,11 +120,15 @@ def _pick(h, p=0):
 def _chain_run():
     """The sharded zero pad of (2, 2, 3, H, 5) by PAD and three padding-0
     conv3d on it, then sum(q * (d sum(r * y) / dx)^2) + sum(r * y),
-    differentiated again (each rank's loss its own elements' sum)."""
-    x = _pick(H)(_problem(1, 2, 2, 3, H, 5)).requires_grad_(True)
-    ws = [(_problem(2 + i, 3, 2 if i == 0 else 3, 3, 3, 3) * 0.3
+    differentiated again (each rank's loss its own elements' sum). In
+    float64, as test_torch_spatial.py::_conv_run."""
+    def problem(seed, *shape):
+        return _problem(seed, *shape).double()
+
+    x = _pick(H)(problem(1, 2, 2, 3, H, 5)).requires_grad_(True)
+    ws = [(problem(2 + i, 3, 2 if i == 0 else 3, 3, 3, 3) * 0.3
            ).requires_grad_(True) for i in range(PAD)]
-    bs = [_problem(5 + i, 3).requires_grad_(True) for i in range(PAD)]
+    bs = [problem(5 + i, 3).requires_grad_(True) for i in range(PAD)]
     layout = spatial.layout(H, PAD)
     y = _zero_pad(x, PAD, layout)
     out = {"padded": y.detach()}
@@ -132,8 +136,8 @@ def _chain_run():
         y = conv(y, w, b, padding=0, sharded=layout)
         layout = spatial.conv_layout(layout, 3, 0)
         out[f"y{i}"] = y.detach()
-    r = _pick(H)(_problem(9, 2, 3, 3, H, 5))
-    q = _pick(H)(_problem(10, 2, 2, 3, H, 5))
+    r = _pick(H)(problem(9, 2, 3, 3, H, 5))
+    q = _pick(H)(problem(10, 2, 2, 3, H, 5))
     gx, = torch.autograd.grad((r * y).sum(), x, create_graph=True)
     loss = (q * gx ** 2).sum() + (r * y).sum()
     grads = torch.autograd.grad(loss, [x] + ws + bs)
