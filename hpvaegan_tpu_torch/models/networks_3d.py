@@ -51,6 +51,7 @@ import torch.nn.functional as F
 from ..ops.conv import lrelu
 from ..ops.resize import resize_trilinear_padded, upscale_3d
 from ..parallel import spatial
+from ..utils import profiling
 from ..utils.noise import NoiseSource
 from ..utils.pyramid import scale_height
 from . import networks_2d
@@ -216,6 +217,12 @@ def _zero_pad(x: torch.Tensor, pad: int,
     return F.pad(x, (pad, pad, top, bottom, pad, pad))
 
 
+def stage_input_bytes(x_prev_out: torch.Tensor, x_in: torch.Tensor) -> int:
+    """The least bytes a stage input's making moves: the previous stage's
+    output read once and the padded stage input written once."""
+    return sum(t.numel() * t.element_size() for t in (x_prev_out, x_in))
+
+
 class _Baseline(nn.Module):
     """What GeneratorCSG and GeneratorSG share.
 
@@ -232,7 +239,11 @@ class _Baseline(nn.Module):
     it is given; reconstruction from the fixed `z_init` (1, nc_im, td0, h0,
     w0), broadcast to the batch: a buffer kept out of the state_dict, so
     that netG converts to the JAX package's tree. Growth deep-copies the
-    last stage and draws nothing."""
+    last stage and draws nothing. With utils/profiling.py on, all that
+    comes before a stage's first convolution (the upscale, and the padded
+    resize and the noise, or the zero pad) is the device interval
+    "stage_input", and `stage_input_bytes` of it is added to the counter
+    of that name wherever the code runs (eagerly, or once at a capture)."""
 
     ndim = 3
     body_offset = 1  # netG_<k> carries k + 1 stages
@@ -266,19 +277,24 @@ class _Baseline(nn.Module):
                 commit: Commit) -> torch.Tensor:
         cfg, p = self.cfg, self.pad
         h_in, h = scale_height(cfg, idx - 1), scale_height(cfg, idx)
-        x_up = upscale_3d(x_prev_out, idx, cfg.scale_factor, cfg.stop_scale,
-                          cfg.img_size, cfg.stop_scale_time,
-                          cfg.sampling_rates, cfg.org_fps, cfg.fps_lcm, cfg.ar,
-                          h_in=h_in)
         layout = self._layout(idx, p)
-        if is_random:
-            t, w = x_up.shape[2], x_up.shape[4]
-            x2 = resize_trilinear_padded(x_prev_out, (t, h, w), p, h_in)
-            z = noise.draw_rows(h, "normal", x2.shape, pad=p) \
-                * float(amps[idx])
-            x_in = x2 + z.to(x2.dtype)  # float32 noise, cast (JAX :420, :472)
-        else:
-            x_in = _zero_pad(x_up, p, layout)
+        with profiling.interval("stage_input", x_prev_out):
+            x_up = upscale_3d(x_prev_out, idx, cfg.scale_factor,
+                              cfg.stop_scale, cfg.img_size,
+                              cfg.stop_scale_time, cfg.sampling_rates,
+                              cfg.org_fps, cfg.fps_lcm, cfg.ar, h_in=h_in)
+            if is_random:
+                t, w = x_up.shape[2], x_up.shape[4]
+                x2 = resize_trilinear_padded(x_prev_out, (t, h, w), p, h_in)
+                z = noise.draw_rows(h, "normal", x2.shape, pad=p) \
+                    * float(amps[idx])
+                # float32 noise, cast (JAX :420, :472)
+                x_in = x2 + z.to(x2.dtype)
+            else:
+                x_in = _zero_pad(x_up, p, layout)
+        if profiling.enabled():
+            profiling.count("stage_input_bytes",
+                            stage_input_bytes(x_prev_out, x_in))
         return self.body[idx](x_in, bn, commit, layout) + x_up
 
     def forward(self, noise_init: torch.Tensor, amps, noise: NoiseSource, *,

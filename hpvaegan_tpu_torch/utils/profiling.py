@@ -34,10 +34,17 @@ event.
     ms (after a host sync, or it waits for the block's last event). A
     phase outside a block is its own pair of events. On the CPU the
     boundaries are perf_counter readings.
+  * interval(name, device): a device interval that does not tile: its own
+    pair of timing CUDA events (perf_counter readings on the CPU) around
+    the block, which a capture keeps as phases' are, and which may lie
+    inside a phase or overlap others. Inside a `phases` block it belongs
+    to the block, and `interval_ms()` reads the last block's intervals,
+    summed by name, as `phase_ms()` reads its phases; outside one it is
+    summed into the totals alone.
   * count(name, n): adds n to `counters()[name]`.
-  * totals(): {name: (count, seconds)} of the spans and of the phases that
-    ran eagerly (a captured block's phases are read by `phase_ms`, not
-    summed); counters(); reset() clears both.
+  * totals(): {name: (count, seconds)} of the spans and of the phases and
+    intervals that ran eagerly (a captured block's are read by `phase_ms`
+    and `interval_ms`, not summed); counters(); reset() clears both.
 Nothing is written out while a run goes: the totals stay in memory and
 are read at the end.
 """
@@ -125,9 +132,17 @@ def _mark(device: torch.device):
     return time.perf_counter()
 
 
+def _elapsed_ms(device: torch.device, a, b) -> float:
+    if device.type == "cuda":
+        return a.elapsed_time(b)
+    return 1e3 * (b - a)
+
+
 class _Sequence:
-    """Consecutive phases: names[i] runs from marks[i] to marks[i + 1]."""
-    __slots__ = ("device", "names", "marks", "captured", "inside")
+    """Consecutive phases: names[i] runs from marks[i] to marks[i + 1];
+    and the intervals inside the block, (name, start, end) each."""
+    __slots__ = ("device", "names", "marks", "captured", "inside",
+                 "intervals")
 
     def __init__(self, device):
         if isinstance(device, torch.Tensor):
@@ -138,6 +153,7 @@ class _Sequence:
         self.captured = self.device.type == "cuda" \
             and torch.cuda.is_current_stream_capturing()
         self.inside = False  # a phase is open
+        self.intervals: list = []
 
     def ms(self) -> Dict[str, float]:
         out: Dict[str, float] = {}
@@ -145,19 +161,23 @@ class _Sequence:
             return out
         if self.device.type == "cuda":
             self.marks[-1].synchronize()
-            spans = [a.elapsed_time(b)
-                     for a, b in zip(self.marks, self.marks[1:])]
-        else:
-            spans = [1e3 * (b - a) for a, b in zip(self.marks, self.marks[1:])]
-        for name, ms in zip(self.names, spans):
-            out[name] = out.get(name, 0.0) + ms
+        for name, a, b in zip(self.names, self.marks, self.marks[1:]):
+            out[name] = out.get(name, 0.0) + _elapsed_ms(self.device, a, b)
+        return out
+
+    def interval_ms(self) -> Dict[str, float]:
+        out: Dict[str, float] = {}
+        if self.intervals and self.device.type == "cuda":
+            self.intervals[-1][2].synchronize()
+        for name, a, b in self.intervals:
+            out[name] = out.get(name, 0.0) + _elapsed_ms(self.device, a, b)
         return out
 
 
 def _finish(seq: _Sequence) -> None:
-    """An ended block or lone phase: its eager phases go to the totals
-    when they are read."""
-    if seq.captured or not seq.names:
+    """An ended block, lone phase or lone interval: its eager phases and
+    intervals go to the totals when they are read."""
+    if seq.captured or not (seq.names or seq.intervals):
         return
     _PENDING.append(seq)
     if len(_PENDING) > _MAX_PENDING:
@@ -166,6 +186,8 @@ def _finish(seq: _Sequence) -> None:
 
 def _resolve(seq: _Sequence) -> None:
     for name, ms in seq.ms().items():
+        _add(name, ms / 1e3)
+    for name, ms in seq.interval_ms().items():
         _add(name, ms / 1e3)
 
 
@@ -183,7 +205,7 @@ class _Phases:
     def __exit__(self, *exc):
         global _OPEN, _LAST
         seq, _OPEN = _OPEN, self.outer
-        if exc[0] is None and seq.names:
+        if exc[0] is None and (seq.names or seq.intervals):
             _LAST = seq
             _finish(seq)
         return False
@@ -236,6 +258,37 @@ def phase(name: str, device=None):
     return _Phase(name, device)
 
 
+class _Interval:
+    __slots__ = ("name", "device", "start")
+
+    def __init__(self, name: str, device):
+        if isinstance(device, torch.Tensor):
+            device = device.device
+        self.name, self.device = name, torch.device(device)
+
+    def __enter__(self):
+        self.start = _mark(self.device)
+        return self
+
+    def __exit__(self, *exc):
+        record = (self.name, self.start, _mark(self.device))
+        if _OPEN is not None:
+            _OPEN.intervals.append(record)
+        else:
+            seq = _Sequence(self.device)
+            seq.intervals.append(record)
+            _finish(seq)
+        return False
+
+
+def interval(name: str, device):
+    """A device interval of `name` over the block, on `device` (or a
+    tensor's; module docstring)."""
+    if not enabled():
+        return _NULL
+    return _Interval(name, device)
+
+
 def last_phases() -> Optional[_Sequence]:
     """The last phases() block that ended (a captured one included)."""
     return _LAST
@@ -245,6 +298,12 @@ def phase_ms() -> Dict[str, float]:
     """{phase: ms} of the last phases() block: for a captured one, its
     last replay's."""
     return _LAST.ms() if _LAST is not None else {}
+
+
+def interval_ms() -> Dict[str, float]:
+    """{interval: ms} of the last phases() block, each name's intervals
+    summed: for a captured block, its last replay's."""
+    return _LAST.interval_ms() if _LAST is not None else {}
 
 
 def totals() -> Dict[str, Tuple[int, float]]:

@@ -118,6 +118,31 @@ def test_phases_share_their_boundaries_and_do_not_nest():
     assert "inner" not in profiling.totals()
 
 
+def test_intervals_lie_inside_phases_without_tiling():
+    """An interval is its own pair of marks inside a phase, summed by name
+    into its block's interval_ms() and left out of its phases; outside a
+    block it is a total; off, the shared no-op."""
+    assert profiling.interval("a", "cpu") is profiling.span("b")
+    profiling.enable(True)
+    with profiling.phases("cpu"):
+        with profiling.phase("g.forward"):
+            for _ in range(2):
+                with profiling.interval("stage_input", torch.zeros(1)):
+                    time.sleep(0.002)
+        with profiling.phase(".optim"):
+            pass
+    assert list(profiling.phase_ms()) == ["g.forward", "g.optim"]
+    ms = profiling.interval_ms()
+    assert list(ms) == ["stage_input"]
+    assert 4.0 <= ms["stage_input"] <= profiling.phase_ms()["g.forward"]
+    assert len(profiling.last_phases().intervals) == 2
+    with profiling.interval("lone", "cpu"):
+        time.sleep(0.002)
+    assert profiling.interval_ms() == ms  # a lone interval is no block
+    assert profiling.totals()["lone"][1] >= 0.002
+    assert profiling.totals()["stage_input"][1] >= 0.004
+
+
 def _tiny(**kw):
     from hpvaegan_tpu_torch.tools.step_parity import build_state
     from hpvaegan_tpu_torch.utils.noise import NoiseSource
