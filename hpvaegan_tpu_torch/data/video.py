@@ -4,11 +4,12 @@ The port of the JAX package's `data/video.py:27-68` (reference
 src/datasets/video.py:13-96): one host decode at full resolution
 (data/frames.py), then per scale a half-pixel bilinear resize of every
 frame (cv2 INTER_LINEAR, no antialias) on the device, cached. Tensors are
-NCDHW. `make_video_batch` forms a training batch on the device (the port
-of `make_video_batch_body`, data/video.py:71-115 there): random temporal
-windows at the scale's sampling rate, per-sample flips, z_init;
-`make_baseline_batch` the baselines' (JAX training/baselines_trainer.py:
-71-84), whose noise has nc_im channels. Under a spatial axis
+NCDHW, channels-last in memory (ops/layout.py). `make_video_batch` forms a
+training batch on the device (the port of `make_video_batch_body`,
+data/video.py:71-115 there): random temporal windows at the scale's
+sampling rate, per-sample flips, z_init; `make_baseline_batch` the
+baselines' (JAX training/baselines_trainer.py:71-84), whose noise has
+nc_im channels. Under a spatial axis
 (parallel/spatial.py) a batch holds the rank's rows of H of each tensor
 whose height is split.
 """
@@ -21,6 +22,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ..ops.layout import to_port
 from ..ops.resize import resize_bilinear
 from ..parallel import mesh, spatial
 from ..utils import pyramid
@@ -99,12 +101,12 @@ def make_video_batch(cfg, scale_frames: torch.Tensor,
     starts = noise.randint(max(t_full - cfg.fps_lcm, 1), (batch,))
 
     def take(frames, every):
-        c, _, h, w = frames.shape[1:]
         idx = starts[:, None] + torch.arange(0, cfg.fps_lcm + 1, every,
                                              device=starts.device)
-        win = frames[0].index_select(1, idx.reshape(-1))
-        return win.reshape(c, batch, idx.shape[1], h, w).transpose(
-            0, 1).contiguous()
+        # gathered on the (T, H, W, C) view: channels-last windows
+        win = frames[0].movedim(0, -1).index_select(0, idx.reshape(-1))
+        return to_port(win.reshape((batch, idx.shape[1])
+                                   + tuple(win.shape[1:])).movedim(-1, 1))
 
     real = take(spatial.shard_rows(scale_frames),
                 cfg.sampling_rates[fps_index])

@@ -6,7 +6,9 @@ src/modules/networks_2d.py:44-82, networks_3d.py:45-86):
   ConvStack = head block + num_layer blocks + plain conv tail
   SNConv    = spectral-norm conv (ops/spectral_norm.py), (u, v) as buffers
   SNBlock   = SNConv + LeakyReLU(0.2) (the reference's ConvBlockSN, bn=True)
-`ndim` is 2 for images (OIHW weights) and 3 for videos (OIDHW).
+`ndim` is 2 for images (OIHW weights) and 3 for videos (OIDHW, kept
+ODHWI in memory from the start: ops/layout.py; load_state_dict copies
+into them and keeps it).
 Module and parameter names follow the original hp-vae-gan state_dict
 (`head`, `block<i>`, `tail`, `conv`, `norm`, `weight_orig`, ...), which is
 also what the JAX package's tools/convert.py reads and writes.
@@ -52,10 +54,16 @@ from typing import List, Optional, Sequence, Tuple, Union
 import torch
 import torch.nn as nn
 
+from ..ops.layout import to_port
 from ..ops.conv import conv, lrelu
 from ..ops.norm import batch_stats, batchnorm, fold, normalize_batch
 from ..ops.spectral_norm import spectral_normalize
 from ..parallel import spatial
+
+
+def _weight(cout: int, cin: int, ker: int, ndim: int) -> torch.Tensor:
+    """A zero conv weight (cout, cin, ker, ...) in the port's layout."""
+    return to_port(torch.zeros((cout, cin) + (ker,) * ndim))
 
 
 class Conv(nn.Module):
@@ -67,7 +75,7 @@ class Conv(nn.Module):
     def __init__(self, cin: int, cout: int, ker: int, padding: int,
                  ndim: int = 2, bias: bool = True):
         super().__init__()
-        self.weight = nn.Parameter(torch.zeros((cout, cin) + (ker,) * ndim))
+        self.weight = nn.Parameter(_weight(cout, cin, ker, ndim))
         self.bias = nn.Parameter(torch.zeros(cout)) if bias else None
         self.padding = padding
 
@@ -173,8 +181,7 @@ class SNConv(nn.Module):
 
     def __init__(self, cin: int, cout: int, ker: int, ndim: int = 2):
         super().__init__()
-        self.weight_orig = nn.Parameter(
-            torch.zeros((cout, cin) + (ker,) * ndim))
+        self.weight_orig = nn.Parameter(_weight(cout, cin, ker, ndim))
         self.bias = nn.Parameter(torch.zeros(cout))
         self.register_buffer("weight_u", torch.zeros(cout))
         self.register_buffer("weight_v", torch.zeros(cin * ker ** ndim))

@@ -37,6 +37,10 @@ their scale's height (`_sharded`), the upscales between stages move
 between the two layouts (ops/resize.py), every draw is the rank's rows of
 the global draw (NoiseSource.draw_rows) and Encode2DVAE_nb's spatial mean
 is the global one. The discriminator takes `sharded` from its caller.
+
+The decoder's input z enters in the port's memory layout (ops/layout.py:
+channels-last in 3D, a copy where the draws made it NCDHW; as it is in
+2D).
 """
 
 from __future__ import annotations
@@ -48,6 +52,7 @@ import torch
 import torch.nn as nn
 
 from ..ops.fused_upscale_noise import fused_upscale_noise_2d
+from ..ops.layout import to_port
 from ..ops.resize import upscale_2d
 from ..parallel import spatial
 from ..utils.noise import NoiseSource
@@ -280,7 +285,7 @@ class GeneratorHPVAEGAN(nn.Module):
         """Random-mode forward from z = noise_init (B, latent_dim, h0, w0;
         in 3D (B, latent_dim, td, h0, w0)). Returns (x, vae_out). bn:
         "batch", "moving" or "sample" (ops/norm.py)."""
-        z = self._random_z(noise_init, noise)
+        z = to_port(self._random_z(noise_init, noise))
         vae_out = torch.tanh(self.decoder(z, bn, commit,
                                           sharded=self._sharded(0)))
         x = self._refine(vae_out, amps, noise, is_random=True, bn=bn,
@@ -295,7 +300,7 @@ class GeneratorHPVAEGAN(nn.Module):
         `_latent`. Returns (x, vae_out, mu, logvar). With commit, BatchNorm
         folds and the encoder keeps its new (u, v)."""
         z, mu, logvar, enc_state = self._latent(video, noise)
-        vae_out = torch.tanh(self.decoder(z, "batch", commit,
+        vae_out = torch.tanh(self.decoder(to_port(z), "batch", commit,
                                           sharded=self._sharded(0)))
         x = self._refine(vae_out, amps, noise, is_random=False, bn="batch",
                          commit=commit)

@@ -21,6 +21,11 @@ The baselines (see `_Baseline`) are a GAN at every scale: no encoder, a
 growing body of padding-0 stages fed through explicit zero pads, and a
 fixed reconstruction noise Z_init that the baselines trainer sets.
 
+Activations and weights are channels-last in memory (ops/layout.py): the
+generators' noise inputs enter so (`to_port`), and every op on the way
+keeps it; the refinement noise, drawn in NCDHW order, is added to a
+channels-last operand, whose layout the sum takes.
+
 Under a compute dtype the 3D networks flow in it as the 2D ones do: the
 refinement noise (the baselines' random-mode stage input too) is drawn in
 float32 and cast before the add (JAX :232, :420, :472).
@@ -49,6 +54,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.conv import lrelu
+from ..ops.layout import to_port
 from ..ops.resize import resize_trilinear_padded, upscale_3d
 from ..parallel import spatial
 from ..utils import profiling
@@ -302,7 +308,8 @@ class _Baseline(nn.Module):
                 ) -> Tuple[torch.Tensor]:
         """Random mode from noise_init (B, nc_im, td0, h0, w0); returns
         (x,). bn: "batch", "moving" or "sample" (ops/norm.py)."""
-        return (self._run(noise_init, amps, noise, True, bn, commit),)
+        return (self._run(to_port(noise_init), amps, noise, True, bn,
+                          commit),)
 
     def reconstruct(self, video: torch.Tensor, amps, noise: NoiseSource, *,
                     commit: bool = True):
@@ -315,7 +322,7 @@ class _Baseline(nn.Module):
                                "baselines trainer sets it")
         z = spatial.shard_rows(self.z_init)  # the rank's rows of h0
         z = z.expand((video.shape[0],) + tuple(z.shape[1:]))
-        x = self._run(z, amps, noise, False, "batch", commit)
+        x = self._run(to_port(z), amps, noise, False, "batch", commit)
         return x, x, None, None
 
 

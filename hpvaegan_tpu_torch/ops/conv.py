@@ -2,9 +2,29 @@
 
 The port of the JAX package's `ops/conv.py`. The JAX package keeps HWIO /
 DHWIO weights and channels-last activations; the port keeps PyTorch's
-layouts, and tools/convert.py carries weights across. The convolutions
+shapes, and tools/convert.py carries weights across. The convolutions
 themselves are `F.conv2d` / `F.conv3d` (cuDNN on the card), as XLA ran them
 outside any Pallas kernel in the JAX package.
+
+In memory (ops/layout.py) a 2D tensor is NCHW; a 3D activation is
+channels-last (NDHWC strides under the NCDHW shape) and a 3D weight ODHWI,
+so that cuDNN's NHWC engines take them without layout transforms. Each 3D
+convolution this module issues (forward, dgrad, wgrad, and the
+second-order wgrad and forward of `_ConvInputGrad.backward`) adds 1 to the
+counter `conv.ndhwc` where its activation operand (the forward's and the
+wgrads' input, the dgrad's output gradient) is dense channels-last with
+the strides of its sizes (`layout.ndhwc`), else to `conv.ncdhw`, when
+Python issues it: eagerly, or once at a capture. The forward's input is
+counted as the model hands it, then given the strides of its sizes
+(`to_port`: a view where a batch of 1 has another batch stride, which
+cuDNN's weight gradient would read as NCDHW). An incoming gradient is
+taken into the layout before it is counted: autograd hands it in
+whatever layout the op after the convolution gave it (a mean's backward
+a dense NCDHW one, a sum's a broadcast), and one copy then serves the
+dgrad and the wgrad, where PyTorch's wrapper would copy it for each.
+Every result is in the layout: cuDNN writes it so, and where the CPU's
+kernels write NCDHW (a batch of 1) `to_port` copies it. The bias
+gradient sums by rows (`layout.channel_sum`).
 
 `compute_dtype` (bfloat16 under `--compute-dtype bfloat16`) is the JAX
 package's flow-through, not autocast: the input and the weight are cast to
@@ -53,6 +73,14 @@ from torch.autograd.function import once_differentiable
 
 from ..parallel import spatial
 from ..utils import profiling
+from .layout import channel_sum, ndhwc, to_port
+
+
+def _count(t: torch.Tensor) -> None:
+    """Count a 3D convolution on the activation operand `t` by its layout
+    (module docstring); a 2D one counts nowhere."""
+    if t.ndim == 5:
+        profiling.count("conv.ndhwc" if ndhwc(t) else "conv.ncdhw", 1)
 
 
 def _halo(x: torch.Tensor, weight: torch.Tensor, stride: int, padding: int,
@@ -89,20 +117,22 @@ def _dgrad(gy: torch.Tensor, weight: torch.Tensor, shape, stride,
     autograd's own node runs it), whose output padding gives back the
     rows a stride dropped; it needs no input tensor."""
     d = weight.ndim - 2
+    _count(gy)
     stride, padding = _per_axis(stride, d), _per_axis(padding, d)
     out_pad = [shape[2 + i] - (gy.shape[2 + i] - 1) * stride[i]
                + 2 * padding[i] - weight.shape[2 + i] for i in range(d)]
     fn = F.conv_transpose2d if d == 2 else F.conv_transpose3d
-    return fn(gy, weight, None, stride, padding, out_pad)
+    return to_port(fn(gy, weight, None, stride, padding, out_pad))
 
 
 def _wgrad(gy: torch.Tensor, x: torch.Tensor, weight: torch.Tensor,
            stride, padding) -> torch.Tensor:
     """cuDNN's wgrad of a convolution of `x` by `weight` at `gy`."""
     d = weight.ndim - 2
-    return torch.ops.aten.convolution_backward(
+    _count(x)
+    return to_port(torch.ops.aten.convolution_backward(
         gy, x, weight, None, _per_axis(stride, d), _per_axis(padding, d),
-        [1] * d, False, [0] * d, 1, [False, True, False])[1]
+        [1] * d, False, [0] * d, 1, [False, True, False])[1])
 
 
 class _Conv(torch.autograd.Function):
@@ -115,11 +145,12 @@ class _Conv(torch.autograd.Function):
         ctx.save_for_backward(x if ctx.needs_input_grad[1] else None, weight)
         ctx.shape, ctx.stride, ctx.padding, ctx.fn = (x.shape, stride,
                                                       padding, fn)
-        return fn(x, weight, bias, stride=stride, padding=padding)
+        return to_port(fn(x, weight, bias, stride=stride, padding=padding))
 
     @staticmethod
     def backward(ctx, gy):
         x, weight = ctx.saved_tensors
+        gy = to_port(gy)
         gx = gw = gb = None
         if ctx.needs_input_grad[0]:
             gx = _ConvInputGrad.apply(gy, weight, ctx.shape, ctx.stride,
@@ -127,7 +158,7 @@ class _Conv(torch.autograd.Function):
         if ctx.needs_input_grad[1]:
             gw = _wgrad(gy, x, weight, ctx.stride, ctx.padding)
         if ctx.needs_input_grad[2]:
-            gb = gy.sum([0] + list(range(2, gy.ndim)))
+            gb = channel_sum(gy)
         return gx, gw, gb, None, None, None
 
 
@@ -147,11 +178,13 @@ class _ConvInputGrad(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, ggx):
         gy, weight = ctx.saved_tensors
+        ggx = to_port(ggx)
         profiling.count("conv.wgrad2", 1)
         g_gy = g_w = None
         if ctx.needs_input_grad[0]:
-            g_gy = ctx.fn(ggx, weight, None, stride=ctx.stride,
-                          padding=ctx.padding)
+            _count(ggx)
+            g_gy = to_port(ctx.fn(ggx, weight, None, stride=ctx.stride,
+                                  padding=ctx.padding))
         if ctx.needs_input_grad[1]:
             g_w = _wgrad(gy, ggx, weight, ctx.stride, ctx.padding)
         return g_gy, g_w, None, None, None, None
@@ -159,9 +192,11 @@ class _ConvInputGrad(torch.autograd.Function):
 
 def _apply(fn, x: torch.Tensor, weight: torch.Tensor,
            bias: Optional[torch.Tensor], stride, padding) -> torch.Tensor:
+    _count(x)
+    x = to_port(x)
     if torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad):
         return _Conv.apply(x, weight, bias, stride, padding, fn)
-    return fn(x, weight, bias, stride=stride, padding=padding)
+    return to_port(fn(x, weight, bias, stride=stride, padding=padding))
 
 
 def _conv(fn, x: torch.Tensor, weight: torch.Tensor,

@@ -37,6 +37,23 @@ the data ranks (`_elements`). "moving" needs no collective; "sample"
 Statistics are reduced in float32 whatever the activations' dtype, and the
 normalisation runs in the activations' dtype (bfloat16 under
 `--compute-dtype bfloat16`, ops/norm.py:40-75 there).
+
+A channels-last 5-D activation (ops/layout.py) comes out channels-last.
+In "batch" mode with one group its statistics and normalisation run on
+its memory as the matrix of rows (B * D * H, W * C) (`layout.rows`, a
+view): PyTorch's reductions over the axes (0, 2, 3, 4) of a channels-last
+tensor, C outputs, run at a half to a third of the bandwidth of those
+over the W * C columns, and so do the sums of the normalisation's
+backward. On the card the statistics are then each column's, combined
+per channel; elsewhere (the CPU, where the tests hold the port to the JAX
+package) they are taken of an NCDHW copy, as in the NCDHW layout to the
+bit: the CPU sums a channels-last tensor in another order, and the
+critic's gradients move by more than those tests' bounds where that
+rounding puts a LeakyReLU input on the other side of 0.
+Otherwise the elementwise ops keep the strides of x, their first operand;
+with `groups` > 1 they run on the split of the batch, a view, whose
+result `to_port` gives a batch stride that PyTorch's layout test reads as
+channels-last again.
 """
 
 from __future__ import annotations
@@ -44,6 +61,8 @@ from __future__ import annotations
 from typing import Callable, Optional, Tuple
 
 import torch
+
+from .layout import from_rows, ndhwc, rows, to_port
 
 BN_MODES = ("batch", "moving", "sample")
 
@@ -87,12 +106,30 @@ def batch_stats(x: torch.Tensor, groups: int = 1, sharded=False
         return _group_batch_stats(xf, groups, fn,
                                   _elements(xf, groups, ranks, sharded))
     if groups == 1:
+        if xf.ndim == 5 and ndhwc(xf):
+            if xf.is_cuda:
+                return _row_stats(xf)
+            xf = xf.contiguous()
         dims = (0,) + tuple(range(2, x.ndim))
         return (xf.mean(dim=dims).unsqueeze(0),
                 xf.var(dim=dims, unbiased=False).unsqueeze(0))
     xg = xf.reshape((groups, -1) + tuple(x.shape[1:]))
     dims = (1,) + tuple(range(3, xg.ndim))
     return xg.mean(dim=dims), xg.var(dim=dims, unbiased=False)
+
+
+def _row_stats(xf: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """batch_stats of a dense NDHWC xf, groups 1, from its rows
+    (ops/layout.py): each of the W * C columns' own mean and biased
+    variance in one pass, then each channel's W columns combined, which
+    their equal counts make exact (the variance: the columns' mean
+    variance plus the variance of their means)."""
+    w, c = xf.shape[4], xf.shape[1]
+    var, mean = torch.var_mean(rows(xf), 0, correction=0)
+    mean, var = mean.view(w, c), var.view(w, c)
+    b_mean = mean.mean(0)
+    b_var = var.mean(0) + ((mean - b_mean) ** 2).mean(0)
+    return b_mean.unsqueeze(0), b_var.unsqueeze(0)
 
 
 def _elements(xf: torch.Tensor, groups: int, ranks: int, sharded) -> int:
@@ -139,12 +176,21 @@ def normalize_batch(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
                     eps: float = 1e-5) -> torch.Tensor:
     """x normalised by batch_stats' (groups, C) statistics, in x's dtype."""
     groups = b_mean.shape[0]
-    shape = (groups, 1, -1) + (1,) * (x.ndim - 2)
     inv = torch.rsqrt(b_var + eps) * gamma
+    if groups == 1 and x.ndim == 5 and ndhwc(x):  # by rows, as _row_stats
+        w = x.shape[4]
+        y = (rows(x) - b_mean[0].repeat(w).to(x.dtype)) \
+            * inv[0].repeat(w).to(x.dtype) + beta.repeat(w).to(x.dtype)
+        return from_rows(y, x.shape)
+    if groups == 1:  # on x itself, whose strides the result then keeps
+        shape = (1, -1) + (1,) * (x.ndim - 2)
+        return (x - b_mean.reshape(shape).to(x.dtype)) \
+            * inv.reshape(shape).to(x.dtype) + beta.reshape(shape).to(x.dtype)
+    shape = (groups, 1, -1) + (1,) * (x.ndim - 2)
     xg = x.reshape((groups, -1) + tuple(x.shape[1:]))
     y = (xg - b_mean.reshape(shape).to(x.dtype)) \
         * inv.reshape(shape).to(x.dtype) + beta.reshape(shape[1:]).to(x.dtype)
-    return y.reshape(x.shape)
+    return to_port(y.reshape(x.shape))
 
 
 def batchnorm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,

@@ -15,6 +15,9 @@ source position, float32 fraction) is the JAX package's, so the two
 packages gather the same taps with the same weights. The fused kernel of
 ops/fused_upscale_noise.py reads the same tables.
 
+A 5-D result is channels-last, as the 3D path keeps its activations
+(ops/layout.py); the gather and lerp are the same per element.
+
 The upscales between pyramid stages take an H split over the spatial axis
 (parallel/spatial.py) in and out, in all four combinations: a sharded
 input is gathered whole (the 3-channel stage output, `h_in` its global
@@ -36,6 +39,7 @@ import torch
 
 from ..parallel import spatial
 from ..utils import pyramid
+from . import layout
 
 
 @functools.lru_cache(maxsize=None)
@@ -96,6 +100,17 @@ def _resize_rows(x: torch.Tensor, h_in: int, h_out: int,
 
 def _lerp(x: torch.Tensor, axis: int, lo: torch.Tensor, hi: torch.Tensor,
           frac: torch.Tensor) -> torch.Tensor:
+    """The gather and lerp along `axis`; a 5-D result is in the port's
+    layout (ops/layout.py), gathered on the NDHWC view, whose output
+    index_select makes dense."""
+    if x.ndim == 5 and layout.FORMAT_5D == torch.channels_last_3d:
+        y = _gather_lerp(x.movedim(1, -1), axis - (axis > 1), lo, hi, frac)
+        return y.movedim(-1, 1)
+    return _gather_lerp(x, axis, lo, hi, frac)
+
+
+def _gather_lerp(x: torch.Tensor, axis: int, lo: torch.Tensor,
+                 hi: torch.Tensor, frac: torch.Tensor) -> torch.Tensor:
     n_out = lo.shape[0]
     x_lo = torch.index_select(x, axis, lo)
     x_hi = torch.index_select(x, axis, hi)

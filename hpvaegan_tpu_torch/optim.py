@@ -159,7 +159,10 @@ def load_optimizer_state(opt: torch.optim.Optimizer, state_dict: Dict
     Adam into FlatAdam, or the reverse). The step counts go where `opt`
     keeps them (a state written on the CPU, or before they moved to the
     card, keeps them on the host), and each Adam group keeps `opt`'s
-    `capturable`, which load_state_dict would take from the checkpoint."""
+    `capturable`, which load_state_dict would take from the checkpoint.
+    Adam's moments take their parameter's memory layout (ops/layout.py),
+    which a checkpoint written before 3D weights were channels-last does
+    not hold."""
     flat = isinstance(opt, FlatAdam)
     if is_flat_state(state_dict) != flat:
         raise ValueError(
@@ -177,3 +180,6 @@ def load_optimizer_state(opt: torch.optim.Optimizer, state_dict: Dict
             if "step" in state:
                 state["step"] = state["step"].to(
                     p.device if on_device else "cpu", torch.float32)
+            for k in ("exp_avg", "exp_avg_sq"):
+                if k in state:
+                    state[k] = torch.empty_like(p).copy_(state[k])

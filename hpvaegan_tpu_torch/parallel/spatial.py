@@ -52,7 +52,9 @@ takes zeros for the rows past the edge. The exchanges are all-gathers (of
 each rank's edge rows for a halo), which need no ordering of sends and
 receives. The copies to the collective's device (the host under gloo) are
 inside each function, so that the backward runs every exchange on the
-tensor's device's one autograd thread; bfloat16 travels as its bytes.
+tensor's device's one autograd thread; bfloat16 travels as its bytes. The
+collectives take dense NCHW / NCDHW copies; what a function hands on is
+in the port's memory layout (ops/layout.py: channels-last in 3D).
 
 Gradients (training/steps.py, losses.py): each rank's losses are means
 over its own rows, and the gradients are averaged over all D x S ranks,
@@ -71,6 +73,7 @@ from typing import List, NamedTuple, Tuple, Union
 import torch
 import torch.distributed as dist
 
+from ..ops.layout import memory_format, to_port
 from . import mesh, multihost
 
 # the heights of the inputs the H-sharded convolutions ran on (the rank's
@@ -132,9 +135,10 @@ def edge_pads(p: int) -> Tuple[int, int]:
 def drop_edges(x: torch.Tensor, k: int) -> torch.Tensor:
     """x without its first k rows on rank 0 and its last k rows on rank
     S - 1: a halo's zero rows past the global edges, which a padding-0
-    convolution does not read."""
+    convolution does not read; a 5-D x's rows dense in the port's
+    layout (ops/layout.py), the copy the convolution would make."""
     top, bottom = edge_pads(k)
-    return x.narrow(-2, top, x.shape[-2] - top - bottom)
+    return to_port(x.narrow(-2, top, x.shape[-2] - top - bottom))
 
 
 def conv_layout(sharded: Layout, ker: int, padding: int) -> Layout:
@@ -195,7 +199,7 @@ class _Narrow(torch.autograd.Function):
     def forward(ctx, x, start, n):
         ctx.start, ctx.h = start, x.shape[-2]
         return x.narrow(-2, start, n).clone(
-            memory_format=torch.contiguous_format)
+            memory_format=memory_format(x.ndim))
 
     @staticmethod
     def backward(ctx, grad):
@@ -208,7 +212,9 @@ class _Pad(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, start, h):
         ctx.start, ctx.n = start, x.shape[-2]
-        out = x.new_zeros(tuple(x.shape[:-2]) + (h, x.shape[-1]))
+        out = torch.zeros(tuple(x.shape[:-2]) + (h, x.shape[-1]),
+                          dtype=x.dtype, device=x.device,
+                          memory_format=memory_format(x.ndim))
         out.narrow(-2, start, ctx.n).copy_(x)
         return out
 
@@ -239,7 +245,7 @@ class _Halo(torch.autograd.Function):
         ctx.k, ctx.ax = k, ax
         above, below = _neighbour_rows(x.narrow(-2, 0, k),
                                        x.narrow(-2, x.shape[-2] - k, k), ax)
-        return torch.cat([above, x, below], -2)
+        return torch.cat([to_port(above), x, to_port(below)], -2)
 
     @staticmethod
     def backward(ctx, grad):
@@ -258,7 +264,7 @@ class _HaloAdjoint(torch.autograd.Function):
         above, below = _neighbour_rows(grad.narrow(-2, 0, k),
                                        grad.narrow(-2, n + k, k), ax)
         out = grad.narrow(-2, k, n).clone(
-            memory_format=torch.contiguous_format)
+            memory_format=memory_format(grad.ndim))
         out.narrow(-2, 0, k).add_(above)
         out.narrow(-2, n - k, k).add_(below)
         return out

@@ -485,6 +485,49 @@ def test_captured_phases_tile_the_replay(cuda, ndim):
     assert abs(sum(got.values()) - total) <= 0.05 * total, (got, total)
 
 
+@pytest.mark.parametrize("generator", ["GeneratorHPVAEGAN", "GeneratorCSG"])
+def test_captured_3d_iteration_is_channels_last(cuda, monkeypatch,
+                                                generator):
+    """A captured iteration of the tiny 3D HP-VAE-GAN and CSG hands cuDNN
+    channels-last operands only: the capture counts every 3D convolution
+    the eager iteration counts under `conv.ndhwc` (ops/conv.py) and none
+    under `conv.ncdhw`; and its replays end bit for bit as the eager
+    iterations (TF32 off, deterministic cuDNN), as the chunk test above
+    holds it."""
+    from hpvaegan_tpu_torch.utils import profiling
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    cfg = _flag_cfg(3, generator)
+    disc = cfg.discriminator if generator == "GeneratorCSG" else ""
+    counts = []
+    profiling.enable(True)
+    try:
+        graph_st, graph = _chunk(cfg, 3, False, cuda, generator, disc)
+        eager_st, eager = _chunk(cfg, 3, True, cuda, generator, disc)
+        for run in (lambda: graph.run(1), lambda: graph.run(2)):
+            profiling.reset()
+            got = run()
+            counts.append(profiling.counters())
+        for _ in range(3):
+            want = eager.run(1)
+    finally:
+        profiling.enable(False)
+        profiling.reset()
+    assert graph.graph is not None
+    eager_counts, capture_counts = counts
+    assert "conv.ncdhw" not in eager_counts
+    assert "conv.ncdhw" not in capture_counts
+    assert capture_counts["conv.ndhwc"] == eager_counts["conv.ndhwc"] > 50
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+    a, b = _state(graph_st), _state(eager_st)
+    for k in a:
+        assert torch.equal(a[k].cpu(), b[k].cpu()), k
+    graph.close()
+
+
 def _d_step_on(device, cfg, ndim, real, fake, alpha):
     """Two D steps of a scale-3 state from seed 0 on `device`, the first at
     learning rate 0 (so that the second starts from the built weights; on

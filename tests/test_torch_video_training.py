@@ -224,7 +224,9 @@ def test_video_batch_former_matches_jax(hflip):
     assert not noise.drawn
     assert real_t.shape == (batch, 3, 3, h, w)  # frames s, s+1, s+2
     assert zero_t.shape == (batch, 3, 2, h0, w0)  # frames s, s+2
-    assert real_t.is_contiguous() and zero_t.is_contiguous()
+    # dense in the port's 3D layout, channels-last (ops/layout.py)
+    assert all(t.is_contiguous(memory_format=torch.channels_last_3d)
+               for t in (real_t, zero_t))
     np.testing.assert_allclose(_ndhwc(real_t), np.asarray(real_j), rtol=0,
                                atol=2e-6)
     np.testing.assert_allclose(_ndhwc(zero_t), np.asarray(zero_j), rtol=0,
