@@ -21,8 +21,8 @@ trainer (the state is the trainer's `scale_state` minus D's warm start).
 `compare_devices` runs the iteration on the card and on the CPU with TF32
 off and returns the largest differences; `compare_sampler_devices` does
 the same for one `generate_samples` call of a given generator.
-chip_smoke.py (phases 5, 8, 10, 14, 15, 16 and 21) and
-tests/test_torch_cuda.py call them; they need a card.
+tests/test_torch_cuda.py calls them (its `*_matches_cpu` tests); they
+need a card.
 """
 
 from __future__ import annotations

@@ -573,8 +573,9 @@ def test_baseline_calibration_matches_jax(name):
 
 @pytest.mark.parametrize("name", GENS)
 def test_step_parity_runs_a_baseline_iteration(name):
-    """tools/step_parity's iteration of a baseline (what chip_smoke.py
-    phase 15 holds card against CPU): every scale a GAN scale, the
+    """tools/step_parity's iteration of a baseline (what
+    tests/test_torch_cuda.py::test_baseline_iteration_matches_cpu holds
+    card against CPU): every scale a GAN scale, the
     baseline plan (scale 1: body[1] and the tail train), finite."""
     _, ct = _bcfgs(name, hflip=True, batch_size=2)
     out = step_parity.run_iteration(ct, 1, 0, "cpu", NoiseSource(0, "cpu"),

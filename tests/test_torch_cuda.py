@@ -28,13 +28,7 @@ from hpvaegan_tpu_torch.tools.step_parity import (compare_devices,
                                                   compare_sampler_devices)
 from hpvaegan_tpu_torch.training import trainer
 from hpvaegan_tpu_torch.utils.pyramid import scale_size_2d
-
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-TINY = ["--image-path", os.path.join(REPO, "data", "imgs", "air_balloons.jpg"),
-        "--nfc", "8", "--latent-dim", "8", "--num-layer", "1",
-        "--enc-blocks", "1", "--img-size", "32", "--min-size", "16",
-        "--max-size", "32", "--vae-levels", "2", "--niter", "4",
-        "--ckpt-interval", "2", "--manualSeed", "1"]
+from torch_card_helpers import TINY, chunk_state, flag_cfg, make_chunk
 
 pytestmark = pytest.mark.cuda
 
@@ -50,7 +44,9 @@ def test_k1_matches_plain_version(cuda):
     """The kernel's outputs equal the plain version's on its Philox words,
     bit for bit: at stage shapes, at H_out and W_out both odd and H_out not
     a multiple of the row tile, at 41x41 planes (not 16-byte aligned), at
-    one input row, and at a downscale."""
+    one input row, and at a downscale; at amp 0 its noised output is its
+    clean one. The plain version's noise statistics and streams are held
+    on the CPU (tests/test_torch_kernels.py)."""
     g = torch.Generator(device=cuda).manual_seed(0)
     for hw_in, hw in (((33, 34), (41, 43)), ((204, 205), (257, 259)),
                       ((7, 8), (30, 32)), ((13, 14), (37, 45)),
@@ -65,6 +61,8 @@ def test_k1_matches_plain_version(cuda):
         pc, pn = k1.fused_upscale_noise_2d_plain(x, hw, 0.7, bits)
         assert torch.equal(clean, pc), (hw_in, hw)
         assert torch.equal(noised, pn), (hw_in, hw)
+        clean, noised = k1.fused_upscale_noise_2d(x, hw, 0.0, 9)
+        assert torch.equal(clean, noised), (hw_in, hw)  # amp 0: no noise
 
 
 def test_k1_refuses_what_it_cannot_take(cuda):
@@ -77,12 +75,18 @@ def test_k1_refuses_what_it_cannot_take(cuda):
         k1.fused_upscale_noise_2d(x.transpose(2, 3), (16, 16), 1.0, 0)
 
 
-def test_fused_sampler_launches_k1_per_stage(cuda):
+@pytest.mark.parametrize("generator", ["GeneratorHPVAEGAN", "GeneratorVAE_nb"])
+def test_fused_sampler_launches_k1_per_stage(cuda, monkeypatch, generator):
+    """The moving-stat sampler with pallas_fused_sampling launches K1 once
+    at every refinement stage of each batch; at amps 0 (TF32 off) the
+    kernel's path gives the plain path's samples within 1e-4."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
     cfg = Config(nfc=8, latent_dim=8, num_layer=2, img_size=32, min_size=16,
-                 max_size=32, niter=2, num_samples=3,
+                 max_size=32, niter=2, num_samples=3, generator=generator,
                  pallas_fused_sampling=True).finalize()
     cfg.Noise_Amps = [1.0] + [0.1] * cfg.stop_scale
-    gen = GeneratorHPVAEGAN(cfg)
+    gen = get_generator(generator)(cfg)
     for _ in range(cfg.stop_scale):
         gen.init_next_stage(torch.Generator().manual_seed(0))
     gen = gen.to(cuda)
@@ -90,6 +94,12 @@ def test_fused_sampler_launches_k1_per_stage(cuda):
     out = generate_samples(cfg, gen, train_mode=False)
     assert k1.fused_upscale_noise_2d.launches == 2 * cfg.stop_scale
     assert out.shape == (6, 33, 33, 3) and np.isfinite(out).all()
+    cfg.Noise_Amps = [1.0] + [0.0] * cfg.stop_scale
+    fused = generate_samples(cfg, gen, train_mode=False, seed=7)
+    cfg.pallas_fused_sampling = False
+    plain = generate_samples(cfg, gen, train_mode=False, seed=7)
+    assert k1.fused_upscale_noise_2d.launches == 4 * cfg.stop_scale
+    assert np.abs(fused - plain).max() <= 1e-4
 
 
 @pytest.mark.parametrize("scale_idx", [1, 3])
@@ -98,26 +108,31 @@ def test_training_iteration_matches_cpu(cuda, scale_idx):
     iteration on the CPU from the same weights and draws: a VAE-scale G
     step (scale 1), and a GAN-scale D + G iteration whose GP double
     backward runs through cuDNN (scale 3). Metrics to rtol 1e-4, gradients
-    and BatchNorm / spectral-norm state to atol 1e-4."""
+    and BatchNorm / spectral-norm state to atol 1e-4. Training launches
+    no K1."""
     cfg = Config(nfc=8, latent_dim=8, num_layer=2, enc_blocks=1, img_size=32,
                  min_size=16, max_size=32, vae_levels=2).finalize()
+    k1.fused_upscale_noise_2d.launches = 0
     errs = compare_devices(cfg, scale_idx, seed=0, device=cuda)
     assert errs["finite"], errs
     assert errs["metrics_rel"] <= 1e-4, errs
     assert errs["grads_abs"] <= 1e-4 and errs["state_abs"] <= 1e-4, errs
+    assert k1.fused_upscale_noise_2d.launches == 0
 
 
+@pytest.mark.parametrize("generator", ["GeneratorHPVAEGAN", "GeneratorVAE_nb"])
 @pytest.mark.parametrize("train", [True, False])
-def test_video_sampler_matches_cpu(cuda, train):
-    """The 3D sampler on the card (TF32 off) equals the same samples on the
-    CPU from the same weights and draws, in both BatchNorm modes; the video
-    path launches no kernel of its own."""
+def test_video_sampler_matches_cpu(cuda, train, generator):
+    """The 3D sampler of HP-VAE-GAN and of VAE_nb on the card (TF32 off)
+    equals the same samples on the CPU from the same weights and draws, in
+    both BatchNorm modes; the video path launches no kernel of its own."""
     cfg = Config(nfc=8, latent_dim=8, num_layer=2, enc_blocks=1, img_size=32,
                  min_size=16, max_size=32, vae_levels=2, niter=1,
-                 num_samples=3, sampling_rates=[2, 1]).finalize()
+                 num_samples=3, sampling_rates=[2, 1],
+                 generator=generator).finalize()
     cfg.org_fps, cfg.ar, cfg.fps_lcm, cfg.td = 24.0, 0.75, 2, 3
     cfg.Noise_Amps = [1.0] + [0.3] * cfg.stop_scale
-    gen = GeneratorHPVAEGAN3D(cfg)
+    gen = get_generator(generator, 3)(cfg)
     for _ in range(cfg.stop_scale):
         gen.init_next_stage(torch.Generator().manual_seed(0))
     k1.fused_upscale_noise_2d.launches = 0
@@ -150,11 +165,13 @@ def test_vae_nb_iteration_matches_cpu(cuda, scale_idx):
     cfg = Config(nfc=8, latent_dim=8, num_layer=2, enc_blocks=1, img_size=32,
                  min_size=16, max_size=32, vae_levels=2,
                  generator="GeneratorVAE_nb").finalize()
+    k1.fused_upscale_noise_2d.launches = 0
     errs = compare_devices(cfg, scale_idx, seed=0, device=cuda,
                            generator="GeneratorVAE_nb")
     assert errs["finite"], errs
     assert errs["metrics_rel"] <= 1e-4, errs
     assert errs["grads_abs"] <= 1e-4 and errs["state_abs"] <= 1e-4, errs
+    assert k1.fused_upscale_noise_2d.launches == 0
 
 
 @pytest.mark.parametrize("scale_idx", [1, 3])
@@ -176,18 +193,20 @@ def test_video_vae_nb_iteration_matches_cpu(cuda, scale_idx):
     assert k1.fused_upscale_noise_2d.launches == 0
 
 
+@pytest.mark.parametrize("scale_idx", [1, 3])
 @pytest.mark.parametrize("name", ["GeneratorCSG", "GeneratorSG"])
-def test_baseline_iteration_matches_cpu(cuda, name):
+def test_baseline_iteration_matches_cpu(cuda, name, scale_idx):
     """One iteration of a CSG/SG baseline against WDiscriminatorBaselines
     on the card (TF32 off) equals the same iteration on the CPU from the
-    same weights, Z_init and draws (chip_smoke.py phase 15 (a))."""
+    same weights, Z_init and draws, at scales 1 and 3 (a baseline trains
+    every scale as a GAN)."""
     cfg = Config(nfc=8, num_layer=2, img_size=32, min_size=16, max_size=32,
                  max_frames=5, sampling_rates=[2, 1], hflip=True,
                  batch_size=2, generator=name,
                  discriminator="WDiscriminatorBaselines").finalize()
     cfg.org_fps, cfg.ar, cfg.fps_lcm = 24.0, 0.75, 2  # synthetic.avi's
     k1.fused_upscale_noise_2d.launches = 0
-    errs = compare_devices(cfg, 3, seed=0, device=cuda, ndim=3,
+    errs = compare_devices(cfg, scale_idx, seed=0, device=cuda, ndim=3,
                            generator=name,
                            discriminator="WDiscriminatorBaselines")
     assert errs["finite"], errs
@@ -201,7 +220,7 @@ def test_baseline_iteration_matches_cpu(cuda, name):
 def test_baseline_sampler_matches_cpu(cuda, name, train):
     """A tiny baseline's sampler (z of nc_im channels at scale 0's time
     depth, netG_4's 5 stages) on the card (TF32 off) equals the CPU's from
-    the same draws, in both BatchNorm modes."""
+    the same draws, in both BatchNorm modes, and launches no kernel."""
     cfg = Config(nfc=8, num_layer=2, img_size=32, min_size=16, max_size=32,
                  niter=1, num_samples=3, sampling_rates=[2, 1],
                  generator=name).finalize()
@@ -212,8 +231,10 @@ def test_baseline_sampler_matches_cpu(cuda, name, train):
     init_weights_(gen, torch.Generator().manual_seed(0))
     for _ in range(cfg.stop_scale):
         gen.init_next_stage()
+    k1.fused_upscale_noise_2d.launches = 0
     diff = compare_sampler_devices(cfg, gen, 3, train, seed=0, device=cuda)
     assert diff <= 1e-4
+    assert k1.fused_upscale_noise_2d.launches == 0
 
 
 class _Killed(Exception):
@@ -278,7 +299,7 @@ def _max_diff(a, b) -> float:
     return float(np.abs(np.asarray(a) - np.asarray(b)).max())
 
 
-# the training flags, card against CPU (chip_smoke.py phase 16 (a)); the
+# the training flags, card against CPU; the
 # bf16 bound is the card's cuDNN bf16 convolutions against oneDNN's, whose
 # one-ulp rounding differences the bf16 chain spreads (as between the port
 # and the JAX package on the CPU, tests/test_torch_flags.py): measured on
@@ -287,21 +308,6 @@ def _max_diff(a, b) -> float:
 # 3.9e-3 (one bf16 ulp at 0.5-1), state 9.5e-6
 BF16_CARD_TOL = {"metrics_scaled": 1e-3, "grads_abs": 2e-2,
                  "state_abs": 1e-4}
-
-
-def _flag_cfg(ndim, generator="GeneratorHPVAEGAN", **flags):
-    kw = dict(nfc=8, num_layer=2, img_size=32, min_size=16, max_size=32,
-              generator=generator, **flags)
-    if generator != "GeneratorCSG":
-        kw.update(latent_dim=8, enc_blocks=1, vae_levels=2)
-    else:
-        kw["discriminator"] = "WDiscriminatorBaselines"
-    if ndim == 3:
-        kw.update(max_frames=5, sampling_rates=[2, 1], hflip=True,
-                  batch_size=2)
-    cfg = Config(**kw).finalize()
-    cfg.org_fps, cfg.ar, cfg.fps_lcm = 24.0, 0.75, 2  # synthetic.avi's
-    return cfg
 
 
 @pytest.mark.parametrize("ndim,generator,flags", [
@@ -317,7 +323,7 @@ def test_training_flag_iteration_matches_cpu(cuda, ndim, generator, flags):
     equals the same iteration on the CPU from the same weights and draws:
     float32 flags at atol 1e-4 as the plain iteration, bfloat16 within
     BF16_CARD_TOL."""
-    cfg = _flag_cfg(ndim, generator, **flags)
+    cfg = flag_cfg(ndim, generator, **flags)
     errs = compare_devices(
         cfg, 3, seed=0, device=cuda, ndim=ndim, generator=generator,
         discriminator=cfg.discriminator if generator == "GeneratorCSG"
@@ -374,65 +380,85 @@ def test_sampled_fid_matches_cpu(cuda, ndim):
     np.testing.assert_allclose(card[0], host[0], rtol=1e-3)
 
 
+@pytest.mark.parametrize("ndim,batch", [(2, 2), (3, 1)])
+def test_serving_module_matches_cpu(cuda, monkeypatch, ndim, batch):
+    """The serving forward (export/serving.py::ServingModule: the keyed
+    draws of utils/jax_prng.py, per-sample BatchNorm) on the card (TF32
+    off) equals the CPU's from the same weights, noise and seed within
+    1e-4, and so does its ExportedProgram on the card."""
+    from hpvaegan_tpu_torch.export import serving
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = flag_cfg(ndim)
+    gen = get_generator(cfg.generator, ndim)(cfg)
+    for _ in range(cfg.stop_scale):
+        gen.init_next_stage()
+    init_weights_(gen, torch.Generator().manual_seed(0))
+    rng = np.random.RandomState(0)
+    specs = serving.serving_input_specs(cfg, ndim, batch)
+    z = torch.from_numpy(rng.standard_normal(specs[0].shape)
+                         .astype(np.float32))
+    amps = torch.from_numpy(rng.uniform(0.1, 1.0, specs[1].shape)
+                            .astype(np.float32))
+    seed = torch.tensor(7, dtype=torch.int32)
+    with torch.no_grad():
+        want = serving.ServingModule(gen)(z, amps, seed)
+    program = serving.export_sampler(cfg, gen, ndim, batch)
+    with torch.no_grad():
+        got = serving.ServingModule(gen)(
+            z.to(cuda), amps.to(cuda), seed.to(cuda)).cpu()
+    exported = serving.run_serialized(program, z, amps, seed).cpu()
+    assert float((got - want).abs().max()) <= 1e-4
+    assert float((exported - got).abs().max()) <= 1e-4
+
+
+def test_trace_on_the_card_holds_its_kernels(cuda, tmp_path):
+    """utils/profiling.py::trace on the card (the train CLIs'
+    --profile-dir) records the profiler's CUDA activity: its trace.json
+    holds the block's kernels beside its operators."""
+    from hpvaegan_tpu_torch.utils import profiling
+
+    x = torch.randn(2, 3, 16, 16, device=cuda)
+    w = torch.randn(4, 3, 3, 3, device=cuda)
+    with profiling.trace(str(tmp_path), cuda):
+        float(torch.nn.functional.conv2d(x, w).sum())
+    with open(tmp_path / "trace.json") as f:
+        events = json.load(f)["traceEvents"]
+    assert any(e.get("name") == "aten::conv2d" for e in events)
+    assert any(e.get("cat") == "kernel" for e in events)
+
+
 # ------------------------------------------------- the training chunk ---
 
-def _chunk(cfg, ndim, split, device, generator="GeneratorHPVAEGAN",
-           discriminator=""):
-    """A scale-3 training chunk of a tiny config: --split-step (eager) or
-    not (a CUDA graph on the card), from seed 0's weights and draws."""
-    from hpvaegan_tpu_torch import models
-    from hpvaegan_tpu_torch.tools.step_parity import build_state
-    from hpvaegan_tpu_torch.training.chunk import TrainChunk
-    from hpvaegan_tpu_torch.training.steps import batch_former
-    from hpvaegan_tpu_torch.utils.noise import NoiseSource
-    from hpvaegan_tpu_torch.utils.pyramid import scale_size_2d
-
-    cfg = dataclasses.replace(cfg, split_step=split, scale_idx=3)
-    st = build_state(cfg, 3, 0, device, ndim, generator, discriminator)
-    st.noise = NoiseSource(0, device)
-    gen = torch.Generator().manual_seed(1)
-    frames = (cfg.max_frames,) if ndim == 3 else ()
-    data = [torch.rand((1, cfg.nc_im) + frames + tuple(scale_size_2d(
-        k, cfg.scale_factor, cfg.stop_scale, cfg.img_size, cfg.ar)),
-        generator=gen).to(device) for k in (3, 0)]
-    former = batch_former(ndim, 3, baseline=generator in models.BASELINES)
-    amps = [1.0] + [0.05] * (cfg.stop_scale + 1)
-    return st, TrainChunk(cfg, st, data, amps, False, former)
-
-
-def _state(st):
-    out = {f"G.{k}": v for k, v in st.G.state_dict().items()}
-    out.update({f"D.{k}": v for k, v in st.D.state_dict().items()})
-    for part in ("opt_g", "opt_d"):
-        for i, s in getattr(st, part).state_dict()["state"].items():
-            out.update({f"{part}.{i}.{k}": v for k, v in s.items()})
-    out.update({f"noise.{k}": v for k, v in st.noise.get_state().items()})
-    return out
-
-
-@pytest.mark.parametrize("ndim,generator,flags", [
-    (2, "GeneratorHPVAEGAN", {}),
-    (3, "GeneratorHPVAEGAN", {}),
-    (3, "GeneratorCSG", {}),
+@pytest.mark.parametrize("ndim,generator,flags,scale_idx", [
+    (2, "GeneratorHPVAEGAN", {}, 3),
+    (3, "GeneratorHPVAEGAN", {}, 3),
+    (2, "GeneratorHPVAEGAN", {}, 1),
+    (3, "GeneratorHPVAEGAN", {}, 1),
+    (3, "GeneratorCSG", {}, 3),
     (2, "GeneratorHPVAEGAN", dict(compute_dtype="bfloat16", fused_dg=True,
-                                  flat_opt=True))])
+                                  flat_opt=True), 3)])
 def test_graph_chunk_equals_eager_iterations(cuda, monkeypatch, ndim,
-                                             generator, flags):
+                                             generator, flags, scale_idx):
     """Chunks of 3 and 4 iterations (the first eager on the capture
     stream, then 4 replays of the captured iteration) end bit for bit as
     7 --split-step eager iterations from the same weights and seed (TF32
-    off, deterministic cuDNN): G's and D's parameters and buffers, both
-    optimizers' states (the step counts on the card) and the
-    NoiseSource's state, whose device generator the replays advance."""
+    off, deterministic cuDNN), at a GAN scale (3) and a VAE scale (1): G's
+    and D's parameters and buffers, both optimizers' states (the step
+    counts on the card) and the NoiseSource's state, whose device
+    generator the replays advance."""
     from hpvaegan_tpu_torch.training import chunk
 
     monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
     monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
-    cfg = _flag_cfg(ndim, generator, **flags)
+    cfg = flag_cfg(ndim, generator, **flags)
     disc = cfg.discriminator if generator == "GeneratorCSG" else ""
-    graph_st, graph = _chunk(cfg, ndim, False, cuda, generator, disc)
-    eager_st, eager = _chunk(cfg, ndim, True, cuda, generator, disc)
+    graph_st, graph = make_chunk(cfg, ndim, False, cuda, generator, disc,
+                             scale_idx)
+    eager_st, eager = make_chunk(cfg, ndim, True, cuda, generator, disc,
+                             scale_idx)
     assert (graph.mode, eager.mode) == ("graph", "eager (split-step)")
     captures, replays = chunk.captures, chunk.replays
     graph.run(3)
@@ -442,7 +468,7 @@ def test_graph_chunk_equals_eager_iterations(cuda, monkeypatch, ndim,
     assert (chunk.captures - captures, chunk.replays - replays) == (1, 4)
     for k in want:
         assert torch.equal(got[k], want[k]), k
-    a, b = _state(graph_st), _state(eager_st)
+    a, b = chunk_state(graph_st), chunk_state(eager_st)
     assert sorted(a) == sorted(b)
     for k in a:
         assert torch.equal(a[k].cpu(), b[k].cpu()), k
@@ -465,7 +491,7 @@ def test_captured_phases_tile_the_replay(cuda, ndim):
 
     profiling.enable(True)
     try:
-        _, chunk = _chunk(_flag_cfg(ndim), ndim, False, cuda)
+        _, chunk = make_chunk(flag_cfg(ndim), ndim, False, cuda)
         chunk.run(2)  # eager
         chunk.run(1)  # the capture, then a replay
         assert chunk.graph is not None
@@ -499,13 +525,13 @@ def test_captured_3d_iteration_is_channels_last(cuda, monkeypatch,
     monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
     monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
-    cfg = _flag_cfg(3, generator)
+    cfg = flag_cfg(3, generator)
     disc = cfg.discriminator if generator == "GeneratorCSG" else ""
     counts = []
     profiling.enable(True)
     try:
-        graph_st, graph = _chunk(cfg, 3, False, cuda, generator, disc)
-        eager_st, eager = _chunk(cfg, 3, True, cuda, generator, disc)
+        graph_st, graph = make_chunk(cfg, 3, False, cuda, generator, disc)
+        eager_st, eager = make_chunk(cfg, 3, True, cuda, generator, disc)
         for run in (lambda: graph.run(1), lambda: graph.run(2)):
             profiling.reset()
             got = run()
@@ -522,7 +548,7 @@ def test_captured_3d_iteration_is_channels_last(cuda, monkeypatch,
     assert capture_counts["conv.ndhwc"] == eager_counts["conv.ndhwc"] > 50
     for k in want:
         assert torch.equal(got[k], want[k]), k
-    a, b = _state(graph_st), _state(eager_st)
+    a, b = chunk_state(graph_st), chunk_state(eager_st)
     for k in a:
         assert torch.equal(a[k].cpu(), b[k].cpu()), k
     graph.close()
@@ -592,7 +618,7 @@ def test_captured_d_step_matches_cpu(cuda, monkeypatch, ndim):
     (`conv.wgrad2`) per critic convolution, and the replay none."""
     monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
-    cfg = dataclasses.replace(_flag_cfg(ndim), scale_idx=3)
+    cfg = dataclasses.replace(flag_cfg(ndim), scale_idx=3)
     gen = torch.Generator().manual_seed(1)
     shape = (2, cfg.nc_im) + ((cfg.max_frames,) if ndim == 3 else ()) \
         + tuple(scale_size_2d(3, cfg.scale_factor, cfg.stop_scale,
@@ -609,65 +635,6 @@ def test_captured_d_step_matches_cpu(cuda, monkeypatch, ndim):
         assert sorted(got) == sorted(want)
         for k in want:
             assert torch.allclose(got[k], want[k], rtol=0, atol=1e-4), k
-
-
-def _collective_calls(mesh) -> int:
-    """The collectives issued so far, summed over their kinds."""
-    return sum(calls for calls, _ in mesh.collectives().values())
-
-
-@pytest.mark.parametrize("ndim", [2, 3])
-def test_graph_chunk_in_a_one_rank_nccl_group_equals_eager(cuda, monkeypatch,
-                                                           ndim):
-    """In an NCCL group of one rank on the card the chunk is a graph whose
-    capture holds the group's collectives (mean_'s all-reduce of the
-    gradients and metrics, BatchNorm's group sums): chunks of 3 and 4
-    iterations end bit for bit as 7 --split-step eager iterations in the
-    same group (TF32 off, deterministic cuDNN), and the capture issues as
-    many collectives as one eager iteration."""
-    import socket
-
-    import torch.distributed as dist
-
-    from hpvaegan_tpu_torch.parallel import mesh, multihost
-    from hpvaegan_tpu_torch.training import chunk
-
-    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
-    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
-    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
-    sock = socket.socket()
-    sock.bind(("127.0.0.1", 0))
-    port = sock.getsockname()[1]
-    sock.close()
-    multihost.init_distributed(f"127.0.0.1:{port}", 1, 0,
-                               device=mesh.select_device("cuda", 0))
-    try:
-        assert dist.get_backend() == "nccl"
-        with mesh.data_parallel(mesh.DataGroup(0, 1, dist.group.WORLD)):
-            graph_st, graph = _chunk(_flag_cfg(ndim), ndim, False, cuda)
-            eager_st, eager = _chunk(_flag_cfg(ndim), ndim, True, cuda)
-            assert (graph.mode, eager.mode) == ("graph (1 NCCL rank)",
-                                                "eager (split-step)")
-            graph.run(3)
-            calls = _collective_calls(mesh)
-            got = graph.run(4)
-            captured = _collective_calls(mesh) - calls
-            for _ in range(7):
-                calls = _collective_calls(mesh)
-                want = eager.run(1)
-            per_iteration = _collective_calls(mesh) - calls
-            torch.cuda.synchronize()
-        assert captured == per_iteration > 0
-        assert graph.collectives_per_iter == eager.collectives_per_iter
-        for k in want:
-            assert torch.equal(got[k], want[k]), k
-        a, b = _state(graph_st), _state(eager_st)
-        assert sorted(a) == sorted(b)
-        for k in a:
-            assert torch.equal(a[k].cpu(), b[k].cpu()), k
-        graph.close()
-    finally:
-        dist.destroy_process_group()
 
 
 def test_graph_run_with_images_equals_eager_run(cuda, tmp_path, monkeypatch):
@@ -733,7 +700,7 @@ def test_failed_capture_raises(cuda, monkeypatch, fault):
         return metrics
 
     monkeypatch.setattr(chunk, "train_iteration", faulty)
-    _, graph = _chunk(_flag_cfg(2), 2, False, cuda)
+    _, graph = make_chunk(flag_cfg(2), 2, False, cuda)
     graph.run(2)
     with pytest.raises(RuntimeError, match="scale 3: (capturing the "
                        "training iteration|the captured iteration drew)"):

@@ -5,7 +5,8 @@ io_spec.txt, the exported program on those bins against the JAX CLI's
 same runner .bin, and a finite SIFID / SVFID. Then the native runner
 itself: it compiles an AOTInductor package and the runner, so it is
 `slow` on the CPU and `cuda` on the card, where its outputs are held
-against the ExportedProgram's (atol 1e-4).
+against the ExportedProgram's (atol 1e-4); and on the card the serving
+draw chain compiled by AOTInductor, held to the numpy path bit for bit.
 
 The JAX package is imported inside the tests that compare with it, so that
 the runner's test also runs where JAX is not installed:
@@ -268,3 +269,98 @@ def test_native_runner_matches_exported_program(tmp_path, capsys, device):
         f.write(b"\0\0\0\0")
     with pytest.raises(RuntimeError, match="input size mismatch"):
         run_infer.main([exp, "--device", device, "--run-only"])
+
+
+@pytest.mark.cuda
+def test_compiled_serving_draws_equal_the_numpy_path(tmp_path):
+    """The serving forward's draw chain (ServingModule's key split, then
+    utils/noise.py::KeyedNoise drawing every stage's normals up front, as
+    the traced forward does), exported and compiled by AOTInductor for the
+    card, gives utils/jax_prng.py's numpy path (XLA:CPU's arithmetic) bit
+    for bit at three seeds: at a tiny model's stage shapes in 2D and 3D
+    and at the last stages of the full-width image (192x257) and video
+    (13x192x257) models."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from torch._inductor import aoti_load_package
+
+    from hpvaegan_tpu_torch.utils import jax_prng
+    from hpvaegan_tpu_torch.utils.noise import KeyedNoise
+
+    shapes = [(1, 3, 12, 17), (1, 3, 17, 23), (1, 3, 3, 12, 17),
+              (1, 3, 5, 17, 23), (1, 3, 192, 257), (1, 3, 13, 192, 257)]
+
+    class Draws(torch.nn.Module):
+        def forward(self, seed):
+            keys = jax_prng.split(jax_prng.prng_key(seed)[None], 2)
+            noise = KeyedNoise(keys[:, -1], shapes=shapes)
+            return tuple(noise.normal(s) for s in shapes)
+
+    exported = torch.export.export(
+        Draws(), (torch.tensor(0, dtype=torch.int32, device="cuda"),))
+    package = aoti_load_package(serving.compile_native(
+        exported, str(tmp_path / "draws.aoti.pt2")))
+    for seed in (0, 11, 2 ** 31 - 1):
+        got = package(torch.tensor(seed, dtype=torch.int32, device="cuda"))
+        keys = jax_prng.split(jax_prng.prng_key(torch.tensor(
+            seed, dtype=torch.int32))[None], 2)[:, -1]
+        for shape, g in zip(shapes, got):
+            pairs = jax_prng.split(keys)
+            keys, sub = pairs[:, 0], pairs[0, 1]
+            want = np.moveaxis(jax_prng.normal(
+                (int(sub[0]), int(sub[1])), KeyedNoise._channels_last(shape)),
+                -1, 1)
+            np.testing.assert_array_equal(g.cpu().numpy().view(np.int32),
+                                          want.view(np.int32))
+
+
+# AOTInductor's program against the eager ExportedProgram at full width:
+# both are float32 but round in another order, and a random full-width
+# model amplifies one rounding a thousandfold (on an H100, moving each
+# element of noise_init by one ulp moves the output by 2.0e-3, and the
+# compiled program differs from the eager one by 3.5e-3)
+FULL_WIDTH_COMPILED_TOL = 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.slow
+def test_compiled_full_width_image_model_matches_exported_program(tmp_path):
+    """The full-width image serving model (img 256, nfc 64, num_layer 5,
+    latent 128, 10 scales, He-normal weights), exported and compiled by
+    AOTInductor for the card, whose kernels Inductor fits to these shapes,
+    gives the ExportedProgram's samples within FULL_WIDTH_COMPILED_TOL at
+    three noise_inits and seeds (TF32 off); the tiny model's native runner
+    is held at 1e-4 (test_native_runner_matches_exported_program)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from torch._inductor import aoti_load_package
+
+    from hpvaegan_tpu_torch.tools.step_parity import he_init_
+
+    cfg = Config().finalize()
+    gen = get_generator(cfg.generator)(cfg)
+    for _ in range(cfg.stop_scale):
+        gen.init_next_stage()
+    he_init_(gen, torch.Generator().manual_seed(0))
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        exported = serving.export_sampler(cfg, gen.eval(), device="cuda")
+        package = aoti_load_package(serving.compile_native(
+            exported, str(tmp_path / "netG.aoti.pt2")))
+        z_spec, amps_spec, _ = serving.serving_input_specs(cfg)
+        amps = torch.tensor([1.0] + [0.3 * 0.8 ** k for k in range(
+            amps_spec.shape[0] - 1)], device="cuda")
+        g = torch.Generator().manual_seed(1)
+        for seed in (0, 11, 2 ** 31 - 1):
+            z = torch.randn(z_spec.shape, generator=g).cuda()
+            seed = torch.tensor(seed, dtype=torch.int32, device="cuda")
+            with torch.no_grad():
+                want = serving.run_serialized(exported, z, amps, seed)
+                got = package(z, amps, seed)
+            assert got.shape == want.shape == (1, 3, 257, 257)
+            assert torch.isfinite(want).all()
+            assert float((got - want).abs().max()) <= \
+                FULL_WIDTH_COMPILED_TOL
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32

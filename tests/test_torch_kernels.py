@@ -7,7 +7,7 @@ then the constant sqrt(2 ln 2) * cos(pi) per element. The port's plain
 version, fed the same zero words, must give that noise exactly. The
 kernel's own stream (Philox4x32-10) is checked against the published
 known-answer vectors and statistically. The CUDA kernel itself runs only
-on the card (tests/test_torch_cuda.py and chip_smoke.py).
+on the card (tests/test_torch_cuda.py).
 """
 
 import jax

@@ -9,8 +9,8 @@ version, whose per-sample seeds each rank offsets by its first global
 row), whole and split into one process's sub-batches.
 
 Multi-rank cases run this file as a script, one process per rank
-(`run_ranks`), with one thread each; every rank writes its results to
-<tmp>/<case>_<rank>.pt, which the test compares. Tolerances: BatchNorm
+(`torch_ranks.run_ranks`), with one thread each; every rank writes its
+results to <tmp>/<case>_<rank>.pt, which the test compares. Tolerances: BatchNorm
 outputs, statistics and gradients rtol 1e-5 / atol 1e-6 (the ranks sum
 their shards' sums in another order than one process's mean); the sampler
 atol 1e-5 (its convolutions see batches of another size), split into
@@ -23,11 +23,7 @@ bit.
 import inspect
 import os
 import pickle
-import socket
-import subprocess
 import sys
-import tempfile
-import time
 
 import numpy as np
 import pytest
@@ -47,6 +43,7 @@ from hpvaegan_tpu_torch.parallel.sampling import sharded_sampler  # noqa: E402
 from hpvaegan_tpu_torch.tools.step_parity import he_init_  # noqa: E402
 from hpvaegan_tpu_torch.utils.noise import NoiseSource  # noqa: E402
 from hpvaegan_tpu_torch.utils.saver import DataSaver  # noqa: E402
+from torch_ranks import free_port, run_ranks, worker_main  # noqa: E402,F401
 
 torch.set_num_threads(1)
 
@@ -56,75 +53,6 @@ SPLIT_TOL = dict(rtol=0, atol=3e-5)
 CFG = dict(nfc=8, latent_dim=8, num_layer=2, enc_blocks=1, img_size=32,
            min_size=16, max_size=32, vae_levels=2)  # 5 scales, 17 -> 33
 AMPS = [1.0, 0.3, 0.2, 0.1, 0.05]
-
-
-# ------------------------------------------------------------- launcher ---
-
-def free_port() -> int:
-    s = socket.socket()
-    s.bind(("127.0.0.1", 0))
-    port = s.getsockname()[1]
-    s.close()
-    return port
-
-
-def run_ranks(script: str, case: str, out_dir, *args, world: int = 2,
-              timeout: int = 300):
-    """Run `script` as `script case rank world port out_dir *args` once per
-    rank, concurrently; returns each rank's <out_dir>/<case>_<rank>.pt.
-    A rank that fails ends the others (they would wait for it). free_port's
-    port can be taken by another process before rank 0 binds it: the ranks
-    then run again on a new port, twice at most."""
-    env = {k: v for k, v in os.environ.items()
-           if k not in ("XLA_FLAGS", "JAX_PLATFORMS")}
-    env["OMP_NUM_THREADS"] = "1"
-    for attempt in range(3):
-        port = free_port()
-        logs = [tempfile.TemporaryFile("w+") for _ in range(world)]
-        procs = [subprocess.Popen(
-            [sys.executable, script, case, str(r), str(world), str(port),
-             str(out_dir), *map(str, args)],
-            stdout=log, stderr=subprocess.STDOUT, env=env, text=True)
-            for r, log in enumerate(logs)]
-        deadline = time.monotonic() + timeout
-        while any(p.poll() is None for p in procs) \
-                and not any(p.poll() for p in procs):
-            if time.monotonic() > deadline:
-                for p in procs:
-                    p.kill()
-                raise TimeoutError(f"{case}: the ranks ran past {timeout} s")
-            time.sleep(0.1)
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-            p.wait()
-        outs = []
-        for log in logs:
-            log.seek(0)
-            outs.append(log.read())
-            log.close()
-        if attempt < 2 and any("EADDRINUSE" in out for out in outs):
-            continue
-        break
-    for r, (p, out) in enumerate(zip(procs, outs)):
-        assert p.returncode == 0, f"rank {r} failed:\n{out}"
-    return [torch.load(os.path.join(str(out_dir), f"{case}_{r}.pt"),
-                       weights_only=False) for r in range(world)]
-
-
-def worker_main(cases) -> None:
-    """A rank of run_ranks: join the gloo group on the CPU (unless the case
-    `joins_itself`, from the port in its `.port`), run cases[case](rank,
-    world, out_dir, *args) and save its result."""
-    case, rank, world, port, out_dir = sys.argv[1:6]
-    rank, world, fn = int(rank), int(world), cases[case]
-    fn.port = port
-    if not getattr(fn, "joins_itself", False):
-        multihost.init_distributed(f"127.0.0.1:{port}", world, rank,
-                                   backend="gloo", device="cpu")
-    result = fn(rank, world, out_dir, *sys.argv[6:])
-    torch.save(result, os.path.join(out_dir, f"{case}_{rank}.pt"))
-    multihost.sync()
 
 
 # ------------------------------------------------------ single process ---

@@ -283,8 +283,9 @@ def test_fused_dg_iteration_matches_jax(shim, record):
 
 @pytest.mark.parametrize("scale_idx", [1, 3])
 def test_step_parity_replays_its_own_draws(scale_idx):
-    """tools/step_parity.py takes the 3D GeneratorVAE_nb (chip_smoke.py
-    phase 21 (a) runs it card against CPU): an iteration replayed from
+    """tools/step_parity.py takes the 3D GeneratorVAE_nb
+    (test_torch_cuda.py::test_video_vae_nb_iteration_matches_cpu runs it
+    card against CPU): an iteration replayed from
     another's recorded draws, the gate among them, equals it bit for
     bit."""
     ct = cfgs(max_frames=5, hflip=True, batch_size=2)[1]
