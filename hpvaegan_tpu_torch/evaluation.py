@@ -136,27 +136,35 @@ def generate_samples(cfg, generator, ndim: int = 2, seed: int = 0,
     when cfg.pallas_fused_sampling is set. Every draw comes from `noise`
     (default: a NoiseSource seeded `seed` on the generator's device).
 
+    One process copies the niter batches to the host once, each into its
+    rows of one array (parallel/sampling.py::_host_copy: from a card, one
+    pinned buffer, channels-last already on the device); a data group
+    gathers them and joins them on the host.
+
     With utils/profiling.py on, each call is one request, numbered in the
     process, and its host spans carry the number: "sample.forward" (the
-    sub-batches issued), "sample.to_host" (the copy, parallel/sampling.py::
-    _host_copy's "d2h" phase and byte counter) and "sample.assemble" (the
-    host arrays joined)."""
-    from .parallel.sampling import group_to_host, sharded_sampler
+    sub-batches issued), "sample.to_host" (the copy, _host_copy's "d2h"
+    phase and byte counters, or the gather) and "sample.assemble" (a data
+    group's arrays joined)."""
+    from .parallel import sampling
 
     request = next(_REQUESTS)
     if noise is None:
         noise = NoiseSource(seed, next(generator.parameters()).device)
     with profiling.span("sample.forward", request=request):
-        sample = sharded_sampler(cfg, generator, ndim=ndim, train=train_mode,
-                                 z_tail=eval_z_tail(cfg, ndim))
+        sample = sampling.sharded_sampler(cfg, generator, ndim=ndim,
+                                          train=train_mode,
+                                          z_tail=eval_z_tail(cfg, ndim))
         outs = [sample(cfg.num_samples, noise).movedim(1, -1)
                 for _ in range(cfg.niter)]
+    gathered = mesh.active().group is not None
     with profiling.span("sample.to_host", request=request):
         # under a data group: each iteration's rows of every rank, in one
         # gather
-        host = group_to_host(*outs)
+        host = multihost.to_host(tuple(outs)) if gathered \
+            else sampling._host_copy(*outs)
     with profiling.span("sample.assemble", request=request):
-        return np.concatenate(host, axis=0)
+        return np.concatenate(host, axis=0) if gathered else host
 
 
 def _persist_eval_metrics(saver, cfg, metric: str, value: float) -> None:

@@ -380,6 +380,60 @@ def test_sampled_fid_matches_cpu(cuda, ndim):
     np.testing.assert_allclose(card[0], host[0], rtol=1e-3)
 
 
+@pytest.mark.parametrize("ndim", [2, 3])
+def test_samples_reach_the_host_in_pinned_blocks(cuda, ndim):
+    """generate_samples on the card (parallel/sampling.py::_host_copy): its
+    array equals a plain .cpu() copy of the sampler's niter batches from
+    the same draws, bit for bit, and lies in pinned memory; two arrays held
+    at once share no memory, and the first is unchanged by the second
+    call; over a loop that drops its arrays, every byte goes through the
+    pinned path and the host allocator makes no block from the third call
+    on."""
+    from hpvaegan_tpu_torch.evaluation import eval_z_tail
+    from hpvaegan_tpu_torch.parallel import sampling
+    from hpvaegan_tpu_torch.utils import profiling
+    from hpvaegan_tpu_torch.utils.noise import NoiseSource
+
+    cfg = Config(nfc=8, latent_dim=8, num_layer=2, enc_blocks=1, img_size=32,
+                 min_size=16, max_size=32, vae_levels=2, niter=2,
+                 num_samples=3, sampling_rates=[2, 1]).finalize()
+    cfg.org_fps, cfg.ar, cfg.fps_lcm, cfg.td = 24.0, 0.75, 2, 3
+    cfg.Noise_Amps = [1.0] + [0.3] * cfg.stop_scale
+    gen = (GeneratorHPVAEGAN if ndim == 2 else GeneratorHPVAEGAN3D)(cfg)
+    for _ in range(cfg.stop_scale):
+        gen.init_next_stage(torch.Generator().manual_seed(0))
+    gen = gen.to(cuda)
+    sample = sampling.sharded_sampler(cfg, gen, ndim,
+                                      z_tail=eval_z_tail(cfg, ndim))
+    noise = NoiseSource(5, cuda)
+    want = [sample(3, noise).movedim(1, -1).cpu().numpy() for _ in range(2)]
+    got = generate_samples(cfg, gen, ndim, noise=NoiseSource(5, cuda))
+    np.testing.assert_array_equal(got, np.concatenate(want))
+    assert got.flags.c_contiguous
+    assert torch.from_numpy(got).is_pinned()
+
+    first = got.copy()
+    other = generate_samples(cfg, gen, ndim, noise=NoiseSource(6, cuda))
+    assert not np.shares_memory(got, other)
+    np.testing.assert_array_equal(got, first)
+    assert not np.array_equal(got, other)
+    del got, other
+
+    profiling.enable(True)
+    try:
+        seen = []
+        for i in range(5):
+            profiling.reset()
+            generate_samples(cfg, gen, ndim, noise=NoiseSource(7 + i, cuda))
+            seen.append(profiling.counters())
+    finally:
+        profiling.enable(False)
+        profiling.reset()
+    for i, c in enumerate(seen):
+        assert c["d2h_pinned_bytes"] == c["d2h_bytes"] == first.nbytes, i
+        assert c["d2h_host_allocs"] == 0 or i < 2, (i, c)
+
+
 @pytest.mark.parametrize("ndim,batch", [(2, 2), (3, 1)])
 def test_serving_module_matches_cpu(cuda, monkeypatch, ndim, batch):
     """The serving forward (export/serving.py::ServingModule: the keyed

@@ -36,7 +36,9 @@ from hpvaegan_tpu_torch import eval_image as teval_cli
 from hpvaegan_tpu_torch import evaluation as teval
 from hpvaegan_tpu_torch.metrics import fid as tfid
 from hpvaegan_tpu_torch.metrics import inception as tinception
+from hpvaegan_tpu_torch.models import get_generator
 from hpvaegan_tpu_torch.models.networks_2d import GeneratorHPVAEGAN
+from hpvaegan_tpu_torch.parallel import sampling as tsampling
 from hpvaegan_tpu_torch.tools.convert import from_jax, to_jax
 from hpvaegan_tpu_torch.utils.device import resolve_device
 from hpvaegan_tpu_torch.utils.noise import NoiseSource
@@ -208,6 +210,32 @@ def test_generate_samples_per_sample_bn_matches_jax():
                                  ndim=2, train_mode=True, noise=noise)
     assert noise.kernel_calls == 0
     np.testing.assert_allclose(got, np.asarray(want), **GEN_TOL)
+
+
+@pytest.mark.parametrize("ndim", [2, 3])
+@pytest.mark.parametrize("niter", [1, 2])
+def test_generate_samples_is_the_sampler_channels_last(ndim, niter):
+    """generate_samples' array is C-contiguous (niter x N, H, W, C), in 3D
+    (niter x N, T, H, W, C), and equals, bit for bit, the sampler's niter
+    batches drawn from the same NoiseSource, moved channels-last and
+    joined."""
+    cfg = tcfg.Config(**{**CFG, "niter": niter, "num_samples": 3,
+                         "sampling_rates": [2, 1]}).finalize()
+    cfg.org_fps, cfg.ar, cfg.fps_lcm, cfg.td = 24.0, 0.75, 2, 3
+    cfg.Noise_Amps = AMPS[:cfg.stop_scale + 1]
+    gen = get_generator("GeneratorHPVAEGAN", ndim)(cfg)
+    for _ in range(cfg.stop_scale):
+        gen.init_next_stage(torch.Generator().manual_seed(0))
+    got = teval.generate_samples(cfg, gen, ndim, noise=NoiseSource(5, "cpu"))
+    sample = tsampling.sharded_sampler(cfg, gen, ndim,
+                                       z_tail=teval.eval_z_tail(cfg, ndim))
+    noise = NoiseSource(5, "cpu")
+    want = torch.cat([sample(3, noise).movedim(1, -1)
+                      for _ in range(niter)]).numpy()
+    assert got.shape == want.shape and got.shape[0] == 3 * niter
+    assert got.shape[-1] == 3 and got.ndim == ndim + 2
+    assert got.flags.c_contiguous
+    np.testing.assert_array_equal(got, want)
 
 
 # -------------------------------------------------------------- SIFID ---
